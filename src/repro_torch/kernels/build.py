@@ -25,7 +25,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "source_path"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("codebook_matmul", "lut_matmul")
+SOURCES = ("codebook_matmul", "lut_matmul", "page_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

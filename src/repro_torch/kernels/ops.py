@@ -12,12 +12,14 @@ import torch
 
 from repro_torch.kernels import codebook_matmul as _cm
 from repro_torch.kernels import lut_matmul as _lm
+from repro_torch.kernels import page_gather as _pg
 
-__all__ = ["codebook_matmul", "lut_matmul", "launch_counts",
+__all__ = ["codebook_matmul", "lut_matmul", "gather_pages", "launch_counts",
            "reset_launch_counts", "KERNELS"]
 
 KERNELS = {"codebook_matmul": _cm.codebook_matmul_cuda,
-           "lut_matmul": _lm.lut_matmul_cuda}
+           "lut_matmul": _lm.lut_matmul_cuda,
+           "page_gather": _pg.page_gather_cuda}
 
 
 def _route(*tensors: torch.Tensor) -> str:
@@ -41,6 +43,15 @@ def lut_matmul(a_idx, w_idx, table):
     if _route(a_idx, w_idx, table) == "cuda":
         return _lm.lut_matmul_cuda(a_idx, w_idx, table)
     return _lm.lut_matmul_plain(a_idx, w_idx, table)
+
+
+def gather_pages(pool, page_table):
+    """out[b, p] = pool[page_table[b, p]], ids clamped into the pool: the
+    paged KV cache's gather.  pool: (n_pages, page, *rest); page_table:
+    (B, P) int.  Returns (B, P, page, *rest)."""
+    if _route(pool, page_table) == "cuda":
+        return _pg.page_gather_cuda(pool, page_table)
+    return _pg.page_gather_plain(pool, page_table)
 
 
 def launch_counts() -> dict:

@@ -1,9 +1,12 @@
-"""Attention: GQA + RoPE + qk-norm, flash-chunked prefill softmax, and the
-contiguous KV-cache decode step (the port's copy of the single-device,
-float-cache parts of ``repro/models/attention.py``).
+"""Attention: GQA + RoPE + qk-norm, flash-chunked prefill softmax, the
+contiguous KV-cache decode step, and the paged KV cache's chunked prefill and
+decode step with int8 pages (the port's copy of the single-device parts of
+``repro/models/attention.py``).
 
-Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); caches
-(L_layers, B, S, KV, hd).  Attention is plain torch (einsum, mask, softmax).
+Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
+caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
+Attention is plain torch (einsum, mask, softmax); page gathers go through
+``kernels.ops.gather_pages``.  The port writes caches and pools in place.
 """
 
 from __future__ import annotations
@@ -12,13 +15,16 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ops
 from repro_torch.models.layers import dense, rms_norm
 
 __all__ = ["AttnConfig", "rope", "decode_attention", "flash_attention",
-           "attn_apply", "attn_decode_cached"]
+           "attn_apply", "attn_decode_cached", "chunk_attention",
+           "attn_decode_paged", "attn_prefill_chunk", "quantize_kv",
+           "dequantize_kv", "KV_QMAX"]
 
 NEG_INF = -1e30
+KV_QMAX = 127.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -193,3 +199,146 @@ def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
     k_l[rows, insert_at] = k[:, 0].to(k_l.dtype)
     v_l[rows, insert_at] = v[:, 0].to(v_l.dtype)
     return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+
+
+# --- int8 KV pages ------------------------------------------------------------
+
+def quantize_kv(t):
+    """(B, L, KV, hd) float -> (int8 values, per-(B, L, KV) bf16 scales).
+
+    Symmetric per-token-per-head max-abs quantization.  Values divide by the
+    f32 scale; only the stored scale is rounded to bf16.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    tf = t.to(torch.float32)
+    amax = torch.amax(tf.abs(), dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-6) / KV_QMAX
+    q = torch.clamp(torch.round(tf / scale), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale[..., 0].to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale):
+    return q.to(torch.float32) * scale.to(torch.float32)[..., None]
+
+
+# --- paged KV cache -----------------------------------------------------------
+#
+# Logical position s of slot b lives at pool[page_table[b, s // page],
+# s % page]; gathering a page-table row reassembles a sequence whose index IS
+# the logical position, so decode_attention's and chunk_attention's masks
+# apply unchanged.
+
+def _gather_paged_kv(k_pool, v_pool, page_table, layer: int, scales=None):
+    """(B, P·page, KV, hd) K/V of one layer, dequantized to f32 when
+    ``scales`` (ks, vs), each (L, n_pages, page, KV), are given."""
+    B, P = page_table.shape
+    page, KV, hd = k_pool.shape[2:]
+    k_l = ops.gather_pages(k_pool[layer], page_table).reshape(B, P * page,
+                                                               KV, hd)
+    v_l = ops.gather_pages(v_pool[layer], page_table).reshape(B, P * page,
+                                                               KV, hd)
+    if scales is not None:
+        ks_all, vs_all = scales
+        ks = ops.gather_pages(ks_all[layer], page_table).reshape(B, P * page,
+                                                                 KV)
+        vs = ops.gather_pages(vs_all[layer], page_table).reshape(B, P * page,
+                                                                 KV)
+        k_l = dequantize_kv(k_l, ks)
+        v_l = dequantize_kv(v_l, vs)
+    return k_l, v_l
+
+
+def _past_mask(past_len, B: int, S: int, device):
+    """(B or 1, 1, 1, 1, S) mask idx < past_len, past_len scalar or (B,)."""
+    idx = torch.arange(S, device=device)[None, None, None, None, :]
+    if isinstance(past_len, torch.Tensor) and past_len.ndim == 1:
+        return idx < past_len.reshape(B, 1, 1, 1, 1)
+    return idx < past_len
+
+
+def chunk_attention(q, k_past, v_past, past_len, k_new, v_new):
+    """Chunked-prefill attention: full attention to the valid past, causal
+    within the chunk.
+
+    q: (B, C, KV, G, hd), queries at positions past_len..past_len+C−1;
+    k_past/v_past: (B, S, KV, hd) gathered pages, valid prefix ``past_len``
+    (scalar or (B,)); k_new/v_new: (B, C, KV, hd), the chunk's own K/V, not
+    yet written to the pool.
+    """
+    B, C, KV, G, hd = q.shape
+    S = k_past.shape[1]
+    qf = q.to(torch.float32) * hd ** -0.5
+    s_past = torch.einsum("bqkgd,bskd->bkgqs", qf, k_past.to(torch.float32))
+    s_past = torch.where(_past_mask(past_len, B, S, q.device), s_past,
+                         NEG_INF)
+    s_new = torch.einsum("bqkgd,bckd->bkgqc", qf, k_new.to(torch.float32))
+    causal = (torch.arange(C, device=q.device)[:, None]
+              >= torch.arange(C, device=q.device)[None, :])
+    s_new = torch.where(causal, s_new, NEG_INF)
+    p = torch.softmax(torch.cat([s_past, s_new], dim=-1), dim=-1)
+    out = (torch.einsum("bkgqs,bskd->bqkgd", p[..., :S],
+                        v_past.to(torch.float32))
+           + torch.einsum("bkgqc,bckd->bqkgd", p[..., S:],
+                          v_new.to(torch.float32)))
+    return out.to(q.dtype)
+
+
+def _store_token(k, v, k_pool, v_pool, scales, layer: int, pid, off):
+    """Write K/V (quantized when ``scales`` is given) at (layer, pid, off)
+    of the pools, in place; pid/off index the page and in-page axes."""
+    if scales is not None:
+        kq, ksc = quantize_kv(k)
+        vq, vsc = quantize_kv(v)
+        scales[0][layer, pid, off] = ksc.to(scales[0].dtype)
+        scales[1][layer, pid, off] = vsc.to(scales[1].dtype)
+        k, v = kq, vq
+    k_pool[layer, pid, off] = k.to(k_pool.dtype)
+    v_pool[layer, pid, off] = v.to(v_pool.dtype)
+
+
+def attn_decode_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
+                      write_off, valid_len, k_pool, v_pool, layer: int,
+                      scales=None,
+                      backend: dispatch.BackendSpec = dispatch.DENSE):
+    """Paged decode step of one layer: gather pages, attend, then write the
+    token's K/V into its page in place.
+
+    page_table: (B, P) page ids per slot; write_pid/write_off: (B,) page and
+    in-page offset receiving this token (retired slots' all-zero rows send
+    it to the trash page 0).  valid_len: (B,) attendable prefix (= ``pos``:
+    the fresh token enters through ``extra_kv``, so no slot is excluded).
+    ``scales`` (ks, vs) present ⇒ int8 pages.  Returns the attention output
+    (B, 1, D).
+    """
+    B = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
+    out = decode_attention(q, k_l, v_l, valid_len, extra_kv=(k, v))
+    # index_put_ without accumulate: retired slots may all write page 0 at
+    # one offset, and any one of their values may land there
+    _store_token(k[:, 0], v[:, 0], k_pool, v_pool, scales, layer,
+                 write_pid.long(), write_off.long())
+    return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+
+
+def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
+                       past_len, k_pool, v_pool, layer: int, scales=None,
+                       backend: dispatch.BackendSpec = dispatch.DENSE):
+    """One page-sized prefill chunk of one request against the paged cache.
+
+    x: (1, C, D) with C == page size; ``past_len`` tokens already live in
+    the pages of ``page_table`` (1, P).  The chunk's K/V are written as one
+    page at id ``write_pid`` (0, the trash page, for a shared prefix page
+    recomputed only for its logits).  Returns the attention output
+    (1, C, D).
+    """
+    B, C, _ = x.shape
+    if B != 1:
+        raise ValueError(f"attn_prefill_chunk is batch-of-one (got B={B}); "
+                         "prompts stream through chunks one request at a "
+                         "time")
+    q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
+    out = chunk_attention(q, k_l, v_l, past_len, k, v)
+    _store_token(k[0], v[0], k_pool, v_pool, scales, layer, int(write_pid),
+                 slice(None))
+    return dense(p["wo"], out.reshape(B, C, cfg.n_heads * cfg.hd), backend)

@@ -5,6 +5,8 @@
     model.prefill(params, batch, backend)        -> (logits, cache)
     model.decode(params, tokens, cache, backend) -> (logits, cache)
     model.init_cache(batch, max_len, dtype, device) -> cache
+    model.init_paged_cache(n_pages, page_size, dtype, device) -> page pool
+    model.prefill_chunk(params, batch, pool, backend) -> (logits, pool)
 
 How index-form matmuls run is the ``backend`` argument
 (``kernels.dispatch.BackendSpec``); the params carry the representation.
@@ -39,6 +41,16 @@ class Model:
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
         return T.init_cache(self.cfg, batch, max_len, dtype, device)
+
+    def init_paged_cache(self, n_pages: int, page_size: int,
+                         dtype=torch.bfloat16, device=None):
+        """Page pool; dtype=int8 → quantized pages + bf16 scales."""
+        return T.init_paged_cache(self.cfg, n_pages, page_size, dtype, device)
+
+    def prefill_chunk(self, params, batch, cache, backend=dispatch.DENSE):
+        """One page-sized chunk of one request's prompt; writes the pool in
+        place.  Returns (logits at its last real position, pool)."""
+        return T.prefill_chunk(params, self.cfg, batch, cache, backend)
 
 
 def build(cfg: ModelConfig) -> Model:

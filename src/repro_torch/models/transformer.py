@@ -1,11 +1,15 @@
-"""Dense-family decoder LM: init, prefill, contiguous decode step (the port's
-copy of the dense-family serving parts of ``repro/models/transformer.py``).
+"""Dense-family decoder LM: init, prefill, the contiguous decode step, and
+the paged KV cache's chunked prefill and decode step (the port's copy of the
+dense-family serving parts of ``repro/models/transformer.py``).
 
 Parameters are a nested dict in the JAX package's layout: per-layer tensors
 are stacked under ``params['blocks']`` with a leading layer dim, and the
 layer loop walks views of that stack (the port's stand-in for
-``lax.scan``).  The cache is {'kv': {'k', 'v'}: (L, B, S, KV, hd),
-'pos': (B,)}; decode writes the new token's K/V into it in place.
+``lax.scan``).  The contiguous cache is {'kv': {'k', 'v'}: (L, B, S, KV,
+hd), 'pos': (B,)}; the paged pool is {'k', 'v': (L, n_pages, page, KV, hd)}
+plus {'k_scale', 'v_scale': (L, n_pages, page, KV)} for int8 pages, and a
+paged decode cache adds 'page_table' (B, P) and 'pos' (B,).  Both write the
+new tokens' K/V in place.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache", "attn_cfg"]
+__all__ = ["init_params", "prefill", "decode_step", "init_cache", "attn_cfg",
+           "init_paged_cache", "prefill_chunk"]
 
 _FAMILIES = ("dense",)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -123,14 +128,112 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
     return _logits(params, cfg, x_last), cache
 
 
+def init_paged_cache(cfg, n_pages: int, page_size: int, dtype=torch.bfloat16,
+                     device=None):
+    """Paged KV page pool: (L, n_pages, page, KV, hd) tensors.
+
+    ``dtype=torch.int8`` stores pages quantized with per-token-per-head bf16
+    scales (``attention.quantize_kv``); a float dtype stores them plain.
+    Page 0 is the allocator's trash page (``serving/kvcache.py``).
+    """
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv, cfg.hd)
+    if dtype == torch.int8:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev),
+                "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                       device=dev)}
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _paged_scales(cache):
+    if "k_scale" in cache:
+        return (cache["k_scale"], cache["v_scale"])
+    return None
+
+
+def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
+    """Chunked prefill: one page-sized chunk of ONE request's prompt.
+
+    batch keys: ``tokens`` (1, C) with C == page size (the last chunk
+    right-padded); ``start`` (int) absolute position of tokens[0],
+    page-aligned; ``length`` (int) real tokens in the chunk; ``page_row``
+    (P,) int32 the slot's page table; ``write_pid`` (int) page receiving the
+    chunk's K/V (0 = trash).  ``cache`` is the pool (``init_paged_cache``),
+    written in place.  Returns (logits (1, 1, V) at the chunk's last real
+    position, the same pool).
+    """
+    dt = _dtype(cfg)
+    tokens = batch["tokens"]
+    start, length = int(batch["start"]), int(batch["length"])
+    page_table = batch["page_row"].to(torch.int32)[None]           # (1, P)
+    write_pid = int(batch["write_pid"])
+    C = tokens.shape[1]
+    pos = start + torch.arange(C, device=tokens.device)[None]       # (1, C)
+    x = L.embed_lookup(params["embed"], tokens).to(dt)
+    acfg = attn_cfg(cfg)
+    scales = _paged_scales(cache)
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["blocks"], i)
+        x = x + A.attn_prefill_chunk(
+            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=pos,
+            page_table=page_table, write_pid=write_pid, past_len=start,
+            k_pool=cache["k"], v_pool=cache["v"], layer=i, scales=scales,
+            backend=backend)
+        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                         cfg.act_kind, cfg.act_levels, backend)
+    x_last = L.rms_norm(params["final_norm"], x[:, length - 1:length])
+    return _logits(params, cfg, x_last), cache
+
+
+def _decode_step_paged(params, cfg, tokens, cache, backend):
+    """One paged decode step: per-slot page tables, (B,) positions.
+
+    Logical position s of slot b lives at pool[page_table[b, s // page],
+    s % page].  The attendable prefix is ``min(pos, S_cap)`` with no slot
+    excluded: the fresh token enters through ``extra_kv``.  Retired slots
+    carry all-zero page-table rows, so their writes land in the trash page.
+    """
+    dt = _dtype(cfg)
+    pos = cache["pos"]
+    pt = cache["page_table"]
+    B = tokens.shape[0]
+    page = cache["k"].shape[2]
+    S_cap = pt.shape[1] * page
+    ins = torch.clamp(pos, max=S_cap - 1).long()
+    vlen = torch.clamp(pos, max=S_cap)
+    write_pid = pt[torch.arange(B, device=pt.device), ins // page]
+    write_off = ins % page
+    x = L.embed_lookup(params["embed"], tokens).to(dt)
+    acfg = attn_cfg(cfg)
+    scales = _paged_scales(cache)
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["blocks"], i)
+        x = x + A.attn_decode_paged(
+            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+            pos=pos[:, None], page_table=pt, write_pid=write_pid,
+            write_off=write_off, valid_len=vlen, k_pool=cache["k"],
+            v_pool=cache["v"], layer=i, scales=scales, backend=backend)
+        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                         cfg.act_kind, cfg.act_levels, backend)
+    x = L.rms_norm(params["final_norm"], x)
+    return _logits(params, cfg, x), {**cache, "pos": pos + 1}
+
+
 def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     """One decode step for every slot.  tokens: (B, 1).  ``cache['pos']``
-    is the (B,) vector of per-slot positions.
+    is the (B,) vector of per-slot positions.  A cache carrying a
+    ``page_table`` is a page pool and takes the paged step.
 
     Retired slots keep decoding into ``min(pos, S-1)`` until the engine
     reuses them.  The cache's K/V planes are updated in place; the returned
     cache carries ``pos + 1``.
     """
+    if "page_table" in cache:
+        return _decode_step_paged(params, cfg, tokens, cache, backend)
     dt = _dtype(cfg)
     pos_v = cache["pos"]
     S = cache["kv"]["k"].shape[2]

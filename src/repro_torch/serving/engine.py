@@ -13,12 +13,18 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
   slots.  Each request prefills alone and is spliced into a free slot at its
   own position offset; the loop exits when some request finishes, the slot
   is harvested, the next request admitted, and decoding resumes.
+* **Paged** (``paged=True``, ``serve`` only): requests are admitted when
+  the page pool (``serving/kvcache.PagePool``) can supply their pages, not
+  when a slot is free; prompts stream through page-sized prefill chunks,
+  shared prompt pages come from the prefix cache, and decode gathers each
+  slot's pages through ``kernels.ops.gather_pages``.  ``generate`` stays on
+  the contiguous cache.
 
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Paged KV, speculative decoding, tensor parallelism, probes, telemetry and
-the step-level scheduling API are not ported yet.
+Speculative decoding, tensor parallelism, probes, telemetry and the
+step-level scheduling API are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models.model_zoo import Model
+from repro_torch.serving.kvcache import PagePool
 from repro_torch.serving.spec import filter_logits
 
 __all__ = ["ServeEngine"]
@@ -81,6 +88,15 @@ class ServeEngine:
                  top-k / top-p filters.
     backend:     'dense' | 'codebook' | 'lut'.
     lut_levels / lut_range: activation grid of the 'lut' backend.
+    paged:       serve() through the paged KV cache: chunked prefill,
+                 per-slot page tables, admission gated on free pages.
+    page_size:   tokens per page (paged mode).
+    kv_dtype:    'bf16' — pages in the cache float dtype (f32 for f32
+                 models); 'int8' — quantized pages + bf16 scales.
+    prefix_cache: share full prompt pages across requests and serve()
+                 calls (the pool persists on the engine).
+    n_pages:     pool size; 0 → 1 trash page + max_batch × ⌈max_len /
+                 page_size⌉ (the contiguous slab's capacity).
     device:      where the engine runs; None = the GPU (raises without one).
     seed:        seed of the sampling generator (temperature > 0).
 
@@ -95,6 +111,11 @@ class ServeEngine:
     max_batch: int = 8
     lut_levels: int = 4096
     lut_range: tuple = (-16.0, 16.0)
+    paged: bool = False
+    page_size: int = 16
+    kv_dtype: str = "bf16"
+    prefix_cache: bool = True
+    n_pages: int = 0
     top_k: int = 0
     top_p: float = 1.0
     device: object = None
@@ -112,6 +133,9 @@ class ServeEngine:
             raise ValueError(f"top_p must be in (0, 1], got {self.top_p}")
         if self.top_k < 0:
             raise ValueError(f"top_k must be >= 0, got {self.top_k}")
+        if self.kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype {self.kv_dtype!r} not in "
+                             "('bf16', 'int8')")
         self.device = resolve_device(self.device)
         has_idx, fan_in, book = _index_form_stats(self.params)
         lut_spec = None
@@ -132,6 +156,7 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
         self.n_forwards = 0
+        self._pool: PagePool | None = None
 
     @property
     def lut_spec(self):
@@ -150,6 +175,16 @@ class ServeEngine:
         self.n_forwards += 1
         tokens = torch.from_numpy(last).to(self.device)[:, None]
         return self.model.decode(self.params, tokens, cache, self.bk)
+
+    @torch.no_grad()
+    def _prefill_chunk(self, tokens, page_row, start: int, length: int,
+                       write_pid: int):
+        self.n_forwards += 1
+        logits, _ = self.model.prefill_chunk(
+            self.params, {"tokens": tokens, "start": start, "length": length,
+                          "page_row": page_row, "write_pid": write_pid},
+            self.pool.cache, self.bk)
+        return logits
 
     def _sample(self, logits) -> torch.Tensor:
         """Greedy argmax, or temperature sampling through the filters."""
@@ -221,6 +256,125 @@ class ServeEngine:
         return (torch.from_numpy(toks).to(self.device),
                 torch.tensor(lens, dtype=torch.int32, device=self.device))
 
+    # --- paged KV cache ---------------------------------------------------
+
+    @property
+    def pool(self) -> PagePool:
+        """The engine's page pool (created on first use; persists across
+        serve() calls so the prefix cache keeps earning hits)."""
+        if self._pool is None:
+            pps = -(-self.max_len // self.page_size)
+            n_pages = self.n_pages or 1 + self.max_batch * pps
+            dtype = (torch.int8 if self.kv_dtype == "int8"
+                     else self._cache_dtype)
+            self._pool = PagePool(
+                self.model, n_pages=n_pages, page_size=self.page_size,
+                pages_per_slot=pps, kv_dtype=dtype,
+                prefix_cache=self.prefix_cache, device=self.device)
+        return self._pool
+
+    def dense_cache_bytes(self) -> int:
+        """Device bytes of the contiguous K/V slab at this engine's shape:
+        the baseline the paged pool is compared against."""
+        cfg = self.model.cfg
+        itemsize = torch.empty((), dtype=self._cache_dtype).element_size()
+        return (2 * cfg.n_layers * self.max_batch * self.max_len * cfg.n_kv
+                * cfg.hd * itemsize)
+
+    def _chunked_prefill(self, pool, prompt, adm):
+        """Stream one admitted prompt through page-sized chunks; returns the
+        logits of its last real position."""
+        page = self.page_size
+        row = torch.tensor(adm.pids + [0] * (pool.pages_per_slot
+                                             - len(adm.pids)),
+                           dtype=torch.int32, device=self.device)
+        logits = None
+        for ci, c in enumerate(range(adm.compute_from, adm.n_chunks)):
+            toks = np.zeros((1, page), np.int64)
+            chunk = prompt[c * page:(c + 1) * page]
+            toks[0, :len(chunk)] = chunk
+            logits = self._prefill_chunk(
+                torch.from_numpy(toks).to(self.device), row, c * page,
+                len(chunk), adm.write_pids[ci])
+        return logits
+
+    def _paged_admit(self, prompt, stop):
+        """One request's paged admission: pool admission, chunked prefill,
+        prefix registration, copy-on-write of a shared tail page, first
+        token.  Returns (adm, first token), or (None, None) when the pool
+        cannot admit it yet."""
+        pool = self.pool
+        adm = pool.admit(list(prompt), stop)
+        if adm is None:
+            return None, None
+        logits = self._chunked_prefill(pool, list(prompt), adm)
+        pool.register_prefill(adm)
+        pool.cow(adm)     # shared tail page → private before decode writes
+        return adm, int(self._sample(logits)[0])
+
+    def _serve_paged(self, prompts, stops_req):
+        pool = self.pool
+        for p, s in zip(prompts, stops_req):
+            if pool.pages_needed(len(p), s) > pool.usable_pages:
+                raise ValueError(
+                    f"request (prompt {len(p)} + {s} new) can never fit the "
+                    f"{pool.usable_pages}-page pool")
+        n = len(prompts)
+        B, cap, P = self.max_batch, max(stops_req), pool.pages_per_slot
+
+        pt_np = np.zeros((B, P), np.int32)            # all-trash rows
+        pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
+        last = np.zeros((B,), np.int64)
+        active = np.zeros((B,), bool)
+        n_gen = np.zeros((B,), np.int64)
+        stops = np.ones((B,), np.int64)
+        out = np.zeros((B, cap), np.int64)
+
+        queue = deque(range(n))
+        slot_rid: list[int | None] = [None] * B
+        slot_adm: list = [None] * B
+        results: dict[int, list[int]] = {}
+        while queue or any(r is not None for r in slot_rid):
+            # admission waits on free pages: a free slot with a short pool
+            # stays empty until a retirement frees pages
+            for b in [b for b in range(B) if slot_rid[b] is None]:
+                if not queue:
+                    break
+                rid = queue[0]
+                adm, first = self._paged_admit(prompts[rid], stops_req[rid])
+                if adm is None:
+                    break
+                queue.popleft()
+                pt_np[b, :len(adm.pids)] = adm.pids
+                pos[b] = len(prompts[rid])
+                last[b] = first
+                active[b] = stops_req[rid] > 1
+                n_gen[b] = 1
+                stops[b] = stops_req[rid]
+                out[b] = 0
+                out[b, 0] = first
+                slot_rid[b], slot_adm[b] = rid, adm
+            if queue and all(r is None for r in slot_rid):
+                raise RuntimeError(
+                    "paged admission deadlock: no request in flight and the "
+                    "pool cannot admit the next one")
+            cache = {**pool.cache,
+                     "page_table": torch.from_numpy(pt_np).to(self.device),
+                     "pos": pos}
+            cache = self._decode_loop(cache, last, active, n_gen, stops, out,
+                                      stop_on_event=True)
+            pos = cache["pos"]
+            for b in range(B):            # harvest retired slots
+                rid = slot_rid[b]
+                if rid is not None and not active[b]:
+                    results[rid] = (list(prompts[rid])
+                                    + out[b, :n_gen[b]].tolist())
+                    pool.retire(slot_adm[b])
+                    pt_np[b] = 0                      # retired → trash page
+                    pos[b] = 0
+                    slot_rid[b], slot_adm[b] = None, None
+        return [results[i] for i in range(n)]
+
     # --- public API --------------------------------------------------------
 
     def generate(self, prompts: list[list[int]],
@@ -262,6 +416,8 @@ class ServeEngine:
                 raise ValueError("prompt + max_new exceeds max_len")
             if s < 1:
                 raise ValueError("max_new must be >= 1")
+        if self.paged:
+            return self._serve_paged(prompts, stops_req)
         B, cap = self.max_batch, max(stops_req)
         cache = self.model.init_cache(B, self.max_len, dtype=self._cache_dtype,
                                       device=self.device)

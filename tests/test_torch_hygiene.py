@@ -62,6 +62,13 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServeEngine(model, params, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, max_len=32, paged=True, kv_dtype="int8")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init_paged_cache(4, 4)
     # asked for explicitly, the CPU runs the plain versions
     eng = ServeEngine(model, params, max_len=32, device="cpu")
     assert len(eng.generate([[1, 2]], max_new=2)[0]) == 4
+    eng = ServeEngine(model, params, max_len=32, device="cpu", paged=True,
+                      page_size=4, kv_dtype="int8")
+    assert len(eng.serve([[1, 2]], max_new=2)[0]) == 4

@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import ops, ref as tref  # noqa: E402
 from repro_torch.kernels import codebook_matmul as cm  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
+from repro_torch.kernels import page_gather as pg  # noqa: E402
 from repro_torch.kernels._common import canonical_idx  # noqa: E402
 
 torch.set_num_threads(2)
@@ -162,7 +163,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_launch_counters_start_and_reset():
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"codebook_matmul": 0, "lut_matmul": 0}
+    assert ops.launch_counts() == {"codebook_matmul": 0, "lut_matmul": 0,
+                                   "page_gather": 0}
     x, wi, book = _codebook_case(0, 2, 16, 8)
     ops.codebook_matmul(torch.from_numpy(x), torch.from_numpy(wi),
                         torch.from_numpy(book))
@@ -223,3 +225,37 @@ def test_cuda_kernels_match_plain(m, k, n):
         args = [torch.from_numpy(v).to(dev) for v in (a, w, t)]
         assert torch.equal(lm.lut_matmul_cuda(*args),
                            lm.lut_matmul_plain(*args))
+
+
+# the page shapes of the paged serving path (int8 and bf16 K/V pages of
+# qwen3-1.7b, bf16 scale pages, f32 pages) and one of 15 bytes, at the
+# decode (4 slots × 32 pages) and prefill-chunk (1 × 32) page tables
+PAGE_CASES = [((16, 8, 128), "int8"), ((16, 8, 128), "bfloat16"),
+              ((16, 8), "bfloat16"), ((16, 8, 128), "float32"),
+              ((3, 5), "int8")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_shape,dtype", PAGE_CASES)
+@pytest.mark.parametrize("B,P", [(4, 32), (1, 32)])
+def test_cuda_page_gather_matches_plain(page_shape, dtype, B, P):
+    """Needs a GPU and nvcc: the page gather against its plain version,
+    bit for bit, on one layer's view of a pool, with ids that include 0,
+    negatives and ids ≥ n_pages."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    n_pages = 129
+    g = torch.Generator(device=dev).manual_seed(B * 1000 + P)
+    full = torch.randint(-128, 128, (3, n_pages) + page_shape, generator=g,
+                         device=dev).to(getattr(torch, dtype))
+    pool = full[1]
+    pt = torch.randint(-4, n_pages + 5, (B, P), generator=g, device=dev,
+                       dtype=torch.int32)
+    pt[0, :3] = torch.tensor([0, -1, n_pages], device=dev)
+    for ids in (pt, pt.long()):
+        got = pg.page_gather_cuda(pool, ids)
+        want = pg.page_gather_plain(pool, ids)
+        torch.cuda.synchronize()
+        assert got.dtype == pool.dtype and got.shape == want.shape
+        assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
