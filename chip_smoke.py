@@ -7,16 +7,24 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build: every ``csrc/*.cu`` kernel (codebook_matmul, lut_matmul,
-   page_gather) compiled with nvcc for sm_90a, in parallel;
+   page_gather, act_quant, kmeans_assign) compiled with nvcc for sm_90a,
+   in parallel;
 3. kernel parity: each matmul kernel against its plain PyTorch version at
    every row count the serving paths give it and every (K, N) site of the
    model (lut bit-exact, codebook within 16 × a summation-order estimate,
    which weights left unrounded to bf16 must fail); page_gather bit-exact
    on int8/bf16/f32 K/V pages, bf16 scale pages and a 15-byte page, at the
-   decode and prefill-chunk page tables, with out-of-range ids;
+   decode and prefill-chunk page tables, with out-of-range ids; act_quant
+   in both forms (4 kinds × |A| 2, 32, 256 × f32/bf16) at every FFN row
+   count of the serving paths × 6144 and odd sizes, bit-equal but for
+   counted level-boundary ties; kmeans_assign (k 2, 1000, 4096 × n 1,
+   4097, 10⁷, values on midpoints, duplicate centers) with exact indices
+   and counts, sums within a summation-order limit, bit-identical twice;
 4. reduced model: a 2-layer qwen3 serves contiguous and paged (bf16 and
    int8 pages) through every backend on the card and on the CPU, with
-   equal greedy tokens;
+   equal greedy tokens; then the same at the paper's working point
+   (|A| = 32 activations, k-means |W| = 1000, clustered on the CPU), and
+   k-means of its weights on the card against the CPU's;
 5. contiguous path: qwen3-1.7b at full width and depth, random weights
    from a seeded generator, compressed to |W| = 1000 (laplacian_l1,
    global) and served through ``ServeEngine.serve``/``generate`` with the
@@ -28,9 +36,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches per forward, prefix-cache hits, the pool's refcounts and a
    second serve's tokens are checked, and the paged bf16 prefill logits are
    held against the contiguous engine's;
-7. kernel timings: the matmuls at the decode (M=4) and prefill (M=32)
-   shapes, page_gather at the decode and prefill-chunk page tables, with
-   the bound, the plain version's and the library call's times.
+7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
+   n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
+   (exactly 2 × 25 kmeans_assign launches), k-means MSE beside
+   laplacian_l1's, kmeans_assign at the full n against its plain version
+   (and run twice, bit-identical), then served through codebook and lut
+   (contiguous) and codebook with int8 pages, with 28 act_quant launches a
+   forward; the kernel held against its plain version on one layer's real
+   w1 outputs; decode step and serve figures beside phase 5's;
+8. kernel timings: the matmuls at the decode (M=4) and prefill (M=32)
+   shapes, page_gather at the decode and prefill-chunk page tables,
+   act_quant at the decode (4 × 6144) and prefill (32 × 6144) FFN shapes,
+   with the bound, the plain version's and the library call's times
+   (kmeans_assign's are taken in phase 7, at the full n).
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when no CUDA device is present.
@@ -55,6 +73,8 @@ TPU_KERNELS = {
     "codebook_matmul": "src/repro/kernels/codebook_matmul.py:55",
     "lut_matmul": "src/repro/kernels/lut_matmul.py:58",
     "page_gather": "src/repro/kernels/page_gather.py:37",
+    "act_quant": "src/repro/kernels/act_quant.py:35",
+    "kmeans_assign": "src/repro/kernels/kmeans1d.py:27",
 }
 SITES = {"wq": (2048, 2048), "wk": (2048, 1024), "wv": (2048, 1024),
          "wo": (2048, 2048), "w1": (2048, 6144), "w3": (2048, 6144),
@@ -67,6 +87,9 @@ PAGE = 16                        # tokens per page of the paged path
 PAGED_MAX_LEN = 512              # 32 pages per slot
 SYSTEM_LEN = 96                  # the shared system prompt: 6 full pages
 N_PAGES = 1 + MAX_BATCH * PAGED_MAX_LEN // PAGE     # the engine's default
+ACT_LEVELS = 32                  # the paper's working point: |A| = 32 ...
+D_FF = 6144                      # ... at each FFN of qwen3-1.7b
+KM_RTOL = 1e-5                   # k-means codebooks: see centers_agree
 
 
 def log(*a):
@@ -239,6 +262,138 @@ def gather_parity(dev) -> float:
     return 0.0
 
 
+ACT_KINDS = ("tanh", "relu6", "sigmoid", "rtanh")
+
+
+def act_quant_parity(dev, rows) -> tuple[float, int]:
+    """act_quant against its plain version, both forms, every kind, |A| 2,
+    32 and 256, f32 and bf16 x, at every FFN row count of the serving
+    paths × 6144 and at odd sizes (1 element; n no multiple of a block).
+    Outputs and indices bit-equal but for ties (``parity_ties``); relu6
+    bit-equal everywhere.  Returns (max abs err, ties)."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    g = torch.Generator(device=dev).manual_seed(4)
+    sizes = [(m, D_FF) for m in rows] + [(1,), (1000003,), (3, 257)]
+    worst, ties, n = 0.0, 0, 0
+    for shape in sizes:
+        base = torch.randn(shape, generator=g, device=dev) * 3
+        for xdt in (torch.float32, torch.bfloat16):
+            x = base.to(xdt)
+            for kind in ACT_KINDS:
+                for levels in (2, ACT_LEVELS, 256):
+                    for form in aq.FORMS:
+                        got = aq.act_quant_cuda(x, kind, levels, form=form)
+                        want = aq.act_quant_plain(x, kind, levels, form=form)
+                        torch.cuda.synchronize()
+                        ties += aq.parity_ties(*got, *want, kind, levels)
+                        worst = max(worst, (got[0].float() - want[0].float()
+                                            ).abs().max().item())
+                        n += 1
+    log(f"[parity] act_quant in {n} cases (forms kernel/act_apply × "
+        f"{len(ACT_KINDS)} kinds × |A| 2/{ACT_LEVELS}/256 × f32/bf16 × "
+        f"shapes {sizes}): bit-equal but for {ties} level-boundary ties "
+        f"(each one level apart); relu6 bit-equal; max abs err {worst:.3e}")
+    return worst, ties
+
+
+def kmeans_case(values, centers) -> dict:
+    """kmeans_assign kernel against the plain version on one input: exact
+    indices and counts, a second run bit-identical, the kernel's sums
+    within ``sums_tolerance`` (16 × its tree's random-walk estimate) of
+    the f64 sums and the plain version's within their worst-case
+    ``sums_bound`` (its float atomics repeat their roundings on a
+    cluster's few distinct values).  Returns the worst errors: kernel −
+    plain, and each against the f64 sums, relative to Σ|v| and as a share
+    of its limit."""
+    import torch
+    from repro_torch.kernels import kmeans1d as km
+    n, k = values.numel(), centers.numel()
+    got = km.kmeans_assign_cuda(values, centers)
+    again = km.kmeans_assign_cuda(values, centers)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"kmeans_assign n={n} k={k}: two runs differ")
+    del again
+    want = km.kmeans_assign_plain(values, centers)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
+        raise AssertionError(f"kmeans_assign n={n} k={k}: idx or counts "
+                             "differ")
+    exact, abs_sum, n_c = km.exact_sums(values, want[0], k)
+    out = {"max_abs_err": (got[1] - want[1]).abs().max().item()}
+    for name, sums, limit in (
+            ("kernel", got[1], km.sums_tolerance(abs_sum, n_c, n)),
+            ("plain", want[1], km.sums_bound(abs_sum, n_c))):
+        err = (sums.double() - exact).abs()
+        if bool((err > limit).any()):
+            raise AssertionError(f"kmeans_assign n={n} k={k}: {name} sums "
+                                 "beyond their limit")
+        out[f"{name}_rel_err"] = (err / abs_sum.clamp(min=1e-300)).max().item()
+        out[f"{name}_share_of_limit"] = (err / limit.clamp(min=1e-300)
+                                         ).max().item()
+    return out
+
+
+def kmeans_parity(dev) -> float:
+    """kmeans_assign on Laplace values with midpoints and centers mixed
+    in, for k 2, 1000, 4096 × n 1, 4097, 10⁷, sorted centers with and
+    without a duplicate pair.  Returns the max abs sums error."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst, n = {}, 0
+    for k in (2, 1000, 4096):
+        for size in (1, 4097, 10 ** 7):
+            for dup in (False, True):
+                c = torch.sort(torch.randn(k, generator=g, device=dev)
+                               * 0.05).values
+                if dup and k > 3:
+                    c[2] = c[1]
+                u = torch.rand(size, generator=g, device=dev) - 0.5
+                v = -0.05 * torch.sign(u) * torch.log1p(-2 * u.abs())
+                mids = (c[:-1] + c[1:]) / 2.0
+                special = torch.cat([mids, c])[:max(size // 4, 1)]
+                v[:special.numel()] = special
+                v = v[torch.randperm(size, generator=g, device=dev)]
+                r = kmeans_case(v.contiguous(), c.contiguous())
+                worst = {k_: max(worst.get(k_, 0.0), x) for k_, x in r.items()}
+                n += 1
+    log(f"[parity] kmeans_assign in {n} cases (k 2/1000/4096 × n 1/4097/"
+        f"1e7, midpoints and centers among the values, with and without "
+        f"duplicate centers): idx and counts exact, two runs bit-identical; "
+        f"sums kernel − plain max abs {worst['max_abs_err']:.3e}; against "
+        f"the f64 sums, relative to Σ|v|: kernel "
+        f"{worst['kernel_rel_err']:.2e} ({worst['kernel_share_of_limit']:.4f}"
+        f" of its tolerance), plain {worst['plain_rel_err']:.2e} "
+        f"({worst['plain_share_of_limit']:.4f} of its bound)")
+    return worst["max_abs_err"]
+
+
+def centers_agree(got, want, values) -> tuple[int, float]:
+    """Two k-means codebooks of the same values, from sums added in other
+    orders: each center within KM_RTOL of the largest, or, where a value
+    near a midpoint fell to the other side in some Lloyd step, within 4
+    neighbouring gaps over the center's count (at most 1 % of centers).
+    Returns (values whose index differs, the largest |Δ| over the
+    largest center)."""
+    import torch
+    from repro_torch.core.clustering import assign_to_centers
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = want.abs().max().item()
+    gi = assign_to_centers(values, got.float().to(values.device))
+    wi = assign_to_centers(values, want.float().to(values.device))
+    n_c = torch.bincount(wi.long(), minlength=want.numel()).cpu().double()
+    gap = torch.maximum(torch.diff(want, prepend=want[:1]),
+                        torch.diff(want, append=want[-1:]))
+    tol = KM_RTOL * scale + 4 * gap / n_c.clamp(min=1)
+    d = (got - want).abs()
+    if bool((d > tol).any()) or float((d > KM_RTOL * scale).double().mean()) \
+            > 0.01:
+        raise AssertionError(f"k-means codebooks differ: max |Δ| "
+                             f"{d.max().item():.3e}, {(d / tol).max():.2f} "
+                             "of the limit")
+    return int((gi != wi).sum()), d.max().item() / scale
+
+
 # --- phases 4-6: the reduced model, the contiguous and the paged path ---------
 
 def prompts_for(n: int, vocab: int):
@@ -301,10 +456,84 @@ def reduced_against_cpu(dev):
         "equal the CPU path's, contiguous and paged (bf16 and int8 pages)")
 
 
+def reduced_working_point(dev):
+    """The reduced qwen3 at the paper's working point (|A| = 32, k-means
+    |W| = 1000, global), clustered on the CPU; its index-form params served
+    on the card and on the CPU (dense/codebook/lut contiguous, codebook and
+    lut with int8 pages): greedy tokens must agree.  Then k-means of the
+    same weights on the card against the CPU's (``centers_agree``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine, to_codebook_params
+    cfg = configs.get("qwen3-1.7b").reduced().replace(n_layers=2).quantized(
+        levels=ACT_LEVELS, n_weights=N_BOOK, method="kmeans")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    wq = cfg.wq
+    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    cp = to_codebook_params(pq, wq, st)
+    cp_dev = _to(cp, dev)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8]]
+    ops.reset_launch_counts()
+    n_fwd = 0
+    for be, kw in (("dense", {}), ("codebook", {}), ("lut", {}),
+                   ("codebook", dict(paged=True, page_size=4,
+                                     kv_dtype="int8")),
+                   ("lut", dict(paged=True, page_size=4, kv_dtype="int8"))):
+        kw = dict(max_len=64, max_batch=2, backend=be, **kw)
+        on_cpu = ServeEngine(model, cp, device="cpu", **kw).serve(
+            prompts, max_new=8)
+        e = ServeEngine(model, cp_dev, device=dev, **kw)
+        on_dev = e.serve(prompts, max_new=8)
+        n_fwd += e.n_forwards
+        if on_cpu != on_dev:
+            raise AssertionError(f"reduced working point, {be} {kw}: card "
+                                 f"tokens {on_dev} != CPU tokens {on_cpu}")
+    counts = ops.launch_counts()
+    if counts["act_quant"] != cfg.n_layers * n_fwd:
+        raise AssertionError(f"reduced working point: {counts['act_quant']}"
+                             f" act_quant launches over {n_fwd} forwards")
+    ops.reset_launch_counts()
+    _, st_dev = cluster_params(_to(params, dev), wq, init_state(wq),
+                               wq.interval)
+    if ops.launch_counts()["kmeans_assign"] != 2 * wq.kmeans_iters:
+        raise AssertionError(f"reduced k-means: {ops.launch_counts()} "
+                             "launches")
+    flat = torch.cat([v.reshape(-1).float() for v in _leaves(params)])
+    n_diff, rel = centers_agree(st_dev.codebooks[""], st.codebooks[""], flat)
+    log(f"[reduced] working point (|A|={ACT_LEVELS}, k-means |W|={N_BOOK}, "
+        f"clustered on the CPU): dense/codebook/lut contiguous and "
+        f"codebook/lut int8-paged tokens on the card equal the CPU's; "
+        f"{counts['act_quant']} act_quant launches (= {cfg.n_layers} × "
+        f"{n_fwd} forwards); k-means on the card ({2 * wq.kmeans_iters} "
+        f"kmeans_assign launches) vs the CPU: max |Δ center| {rel:.3e} of "
+        f"the largest, w_idx differs for {n_diff}/{flat.numel()} weights "
+        f"({n_diff / flat.numel():.2e})")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _to_f32(tree):
+    """Float leaves in f32, index leaves as they are (shared, not copied)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.to(torch.float32) if tree.is_floating_point() else tree
 
 
 def device_time(fn, top: int = 5, match: str = "page_gather"):
@@ -651,6 +880,290 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     return stats, launches
 
 
+def working_point(dev, prompts, chats, base, peaks) -> tuple:
+    """Phase 7: the weights of phase 5 at the paper's working point,
+    ``quantized(levels=32, n_weights=1000, method="kmeans")``, global.
+
+    Clusters on the card (exactly 2 × kmeans_iters kmeans_assign
+    launches), compares the k-means MSE with laplacian_l1's, holds
+    kmeans_assign against its plain version at the full n (and times it),
+    then serves: codebook (8 requests) and lut (4) contiguous, codebook
+    with int8 pages (the 8 chats), with act_quant launches 28 a forward.
+    Returns (stats, launches, kmeans timing row)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import clustering
+    from repro_torch.core.activations import ActQuantConfig, act_index
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import kmeans1d as km
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine, to_codebook_params
+
+    cfg = configs.get("qwen3-1.7b").quantized(
+        levels=ACT_LEVELS, n_weights=N_BOOK, method="kmeans")
+    wq, n_l = cfg.wq, cfg.n_layers
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    ops.reset_launch_counts()
+    (pq, state), t_cl = timed(lambda: cluster_params(params, wq,
+                                                     init_state(wq),
+                                                     wq.interval))
+    cl_counts = ops.launch_counts()
+    if cl_counts["kmeans_assign"] != 2 * wq.kmeans_iters:
+        raise AssertionError(f"cluster_params: {cl_counts} launches, want "
+                             f"{2 * wq.kmeans_iters} kmeans_assign")
+    stats = {"cluster_s": t_cl, "kmeans_assign_launches":
+             cl_counts["kmeans_assign"],
+             "cluster_peak_mem_gib": torch.cuda.max_memory_allocated()
+             / 2 ** 30}
+    book = state.codebooks[""]
+    flat = torch.cat([v.reshape(-1) for v in _leaves(params)]).float()
+    del params
+    n = flat.numel()
+    lap = clustering.laplacian_l1_centers(flat, N_BOOK)
+    stats.update(n_values=n,
+                 mse_kmeans=clustering.quantization_mse(flat, book),
+                 mse_laplacian_l1=clustering.quantization_mse(flat, lap))
+    km_err = kmeans_case(flat, book)
+    bounds = ((book[:-1] + book[1:]) / 2.0).contiguous()
+    nbytes = 8 * n + 12 * N_BOOK
+    b_bytes = nbytes / peaks["bytes"]
+    b_ops = 2 * n * int(np.ceil(np.log2(N_BOOK))) / peaks["f32"]
+    km_row = {"n": n, "k": N_BOOK, "values": "qwen3-1.7b weights, f32",
+              **km_err,
+              "ms": time_ms(lambda: km.kmeans_assign_cuda(flat, book),
+                            reps=3, warm=1),
+              "plain_ms": time_ms(lambda: km.kmeans_assign_plain(flat, book),
+                                  reps=1, warm=1),
+              "library_ms": None,
+              "partial_library_ms": {"torch.searchsorted": time_ms(
+                  lambda: torch.searchsorted(bounds, flat, right=True,
+                                             out_int32=True), reps=3,
+                  warm=1)},
+              "bound_ms": 1e3 * max(b_bytes, b_ops),
+              "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+    del flat, bounds
+    log(f"[point] qwen3-1.7b at quantized(levels={ACT_LEVELS}, "
+        f"n_weights={N_BOOK}, method='kmeans'): cluster_params on the card "
+        f"{t_cl:.2f}s over {n} values, {cl_counts['kmeans_assign']} "
+        f"kmeans_assign launches (= 2 inits × {wq.kmeans_iters}), peak "
+        f"memory {stats['cluster_peak_mem_gib']:.2f} GiB; quantization MSE "
+        f"k-means {stats['mse_kmeans']:.4e} vs laplacian_l1 "
+        f"{stats['mse_laplacian_l1']:.4e}; kmeans_assign at the full n: "
+        f"idx/counts exact, two runs bit-identical, sums against the f64 "
+        f"sums relative to Σ|v|: kernel {km_err['kernel_rel_err']:.2e} "
+        f"({km_err['kernel_share_of_limit']:.4f} of its tolerance), plain "
+        f"{km_err['plain_rel_err']:.2e} ({km_err['plain_share_of_limit']:.4f}"
+        f" of its bound); {km_row['ms']:.3f} ms (bound "
+        f"{km_row['bound_ms']:.3f}"
+        f", plain {km_row['plain_ms']:.2f}, torch.searchsorted alone "
+        f"{km_row['partial_library_ms']['torch.searchsorted']:.3f})")
+
+    cp = to_codebook_params(pq, wq, state)
+    del pq
+    kw = dict(max_len=128, max_batch=MAX_BATCH, device=dev)
+    eng = {be: ServeEngine(model, cp, backend=be, **kw)
+           for be in ("dense", "codebook", "lut")}
+    eng["paged"] = ServeEngine(model, cp, backend="codebook", paged=True,
+                               page_size=PAGE, kv_dtype="int8",
+                               max_len=PAGED_MAX_LEN, max_batch=MAX_BATCH,
+                               device=dev)
+    launches = {}
+    for name, reqs in (("codebook", prompts[:8]), ("lut", prompts[:4]),
+                       ("paged", chats[:8])):
+        e = eng[name]
+        be = e.backend
+        ops.reset_launch_counts()
+        f0 = e.n_forwards
+        out, secs = timed(lambda: e.serve(reqs, max_new=16))
+        counts, fwd = ops.launch_counts(), e.n_forwards - f0
+        want = {"act_quant": n_l * fwd, f"{be}_matmul": 7 * n_l * fwd,
+                "page_gather": 4 * n_l * fwd if name == "paged" else 0}
+        if any(counts[k_] != v for k_, v in want.items()):
+            raise AssertionError(f"working point {name}: launches {counts} "
+                                 f"over {fwd} forwards, want {want}")
+        for seq in out:
+            if not all(0 <= t < cfg.vocab for t in seq):
+                raise AssertionError("token id out of range")
+        for k_, v in want.items():
+            launches[k_] = launches.get(k_, 0) + v
+        stats[f"{name}_serve_tok_s"] = 16 * len(reqs) / secs
+        log(f"[point] {name}: {len(reqs)} requests, {fwd} forwards, "
+            f"{counts['act_quant']} act_quant launches (= {n_l} × {fwd}), "
+            + ", ".join(f"{counts[k_]} {k_}" for k_ in want
+                        if k_ != "act_quant" and want[k_])
+            + f"; serve {16 * len(reqs)} tokens in {secs:.3f}s → "
+            f"{16 * len(reqs) / secs:.1f} tok/s")
+    launches["kmeans_assign"] = cl_counts["kmeans_assign"]
+
+    # prefill logits codebook vs dense, with every FFN input captured: in
+    # bf16 as served, then with the same index-form weights in f32
+    toks, lens = eng["dense"]._pad_prompts(prompts[:4])
+    act = ActQuantConfig("relu6", ACT_LEVELS)
+
+    def compare(engs, tag):
+        captured, orig, lg = {}, L.ffn_act, {}
+        for be, e in engs.items():
+            def capture(x, kind, levels, be=be):
+                captured.setdefault(be, []).append(x.detach().clone())
+                return orig(x, kind, levels)
+            L.ffn_act = capture
+            try:
+                lg[be] = e._prefill(toks, lens)[0][:, -1, :cfg.vocab].float()
+            finally:
+                L.ffn_act = orig
+        if not all(bool(torch.isfinite(v).all()) for v in lg.values()):
+            raise AssertionError("non-finite prefill logits")
+        by_layer = [int((act_index(act, a) != act_index(act, b)).sum())
+                    for a, b in zip(captured["dense"], captured["codebook"])]
+        differ = sum(by_layer)
+        total = sum(a.numel() for a in captured["dense"])
+        per = captured["dense"][0].numel()
+        r = {"prefill_logits_max_abs_diff": (lg["codebook"] - lg["dense"]
+                                             ).abs().max().item(),
+             "max_abs_logit": lg["dense"].abs().max().item(),
+             "argmax_agree": int((lg["codebook"].argmax(-1)
+                                  == lg["dense"].argmax(-1)).sum()),
+             "ffn_level_differ_share": differ / total,
+             "ffn_level_differ_share_by_layer": [b / per for b in by_layer]}
+        log(f"[point] {tag} prefill logits codebook vs dense: max |Δ| "
+            f"{r['prefill_logits_max_abs_diff']:.4e} (max |logit| "
+            f"{r['max_abs_logit']:.4e}), argmax agree {r['argmax_agree']}/4; "
+            f"FFN elements on another level: {differ}/{total} "
+            f"({differ / total:.2e}) over {len(by_layer)} layers; by layer "
+            + ", ".join(f"{b / per:.1e}" for b in by_layer))
+        return r, captured
+
+    bf16, captured = compare({be: eng[be] for be in ("dense", "codebook")},
+                             "bf16")
+    stats.update(bf16)
+    # The same weights in f32: dense and codebook then differ only in the
+    # order of their f32 sums, 2⁻¹⁶ of bf16's rounding.  At layer 0, where
+    # no earlier flip feeds in, that leaves an element on another level
+    # about once in a million; a wrong kernel moves a large share there.
+    # Deeper layers carry no limit: a flip moves its FFN output by a whole
+    # step, and the layers after it amplify that (on an H100 in f32, 1.3e-6
+    # of layer 0's elements flipped and 0.10 of layer 27's), so phase 5's
+    # 5 %-of-range logit limit, set for smooth activations, does not apply.
+    cp32 = _to_f32(cp)
+    m32 = build(cfg.replace(dtype="float32"))
+    f32, _ = compare({be: ServeEngine(m32, cp32, backend=be, **kw)
+                      for be in ("dense", "codebook")}, "f32")
+    stats["f32"] = f32
+    del cp32, m32
+    if f32["ffn_level_differ_share_by_layer"][0] > 1e-4:
+        raise AssertionError(
+            f"working point in f32: {f32['ffn_level_differ_share_by_layer'][0]}"
+            " of layer 0's FFN elements on another level in codebook and "
+            "dense")
+    # the kernel against its plain version on one layer's real w1 outputs
+    x = captured["codebook"][n_l // 2]
+    ties = 0
+    for form in aq.FORMS:
+        got = aq.act_quant_cuda(x, "relu6", ACT_LEVELS, form=form)
+        want_ = aq.act_quant_plain(x, "relu6", ACT_LEVELS, form=form)
+        ties += aq.parity_ties(*got, *want_, "relu6", ACT_LEVELS)
+    log(f"[point] act_quant on layer {n_l // 2}'s real w1 outputs "
+        f"{tuple(x.shape)} bf16, both forms: bit-equal to the plain version")
+    del captured, x
+
+    # decode step and prefill, as phase 5 times them
+    t32, l32 = eng["dense"]._pad_prompts([(prompts[0] * 4)[:32]])
+    for be in ("codebook", "lut"):
+        e = eng[be]
+        pre = [timed(lambda: e._prefill(t32, l32))[1] for _ in range(4)][1:]
+        cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
+        cache["pos"][:] = 40
+        last = np.zeros(4, np.int64)
+        dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
+        busy, top, aq_ms = device_time(lambda: e._decode(last, cache),
+                                       match="act_quant")
+        st = {"prefill_ms": 1e3 * sorted(pre)[len(pre) // 2],
+              "decode_step_ms": 1e3 * sorted(dec)[len(dec) // 2],
+              "decode_device_ms": busy or None,
+              "act_quant_device_ms": aq_ms or None,
+              "decode_top_kernels": top}
+        st["decode_idle_share"] = (1 - busy / st["decode_step_ms"]
+                                   if busy else None)
+        stats[be] = st
+        b = base.get(be, {})
+        log(f"[point] {be}: prefill 1×32 {st['prefill_ms']:.2f} ms "
+            f"(phase 5, act_levels 0: {b.get('prefill_ms', 0):.2f}), decode "
+            f"step {st['decode_step_ms']:.2f} ms "
+            f"({b.get('decode_step_ms', 0):.2f}), device busy "
+            + (f"{busy:.2f} ms ({b.get('decode_device_ms') or 0:.2f}), idle "
+               f"share {st['decode_idle_share']:.3f} "
+               f"({b.get('decode_idle_share') or 0:.3f}), act_quant "
+               f"{aq_ms:.3f} ms of it ({n_l} launches)"
+               if busy else "not measured")
+            + f"; serve {stats[f'{be}_serve_tok_s']:.1f} tok/s "
+            f"({b.get('serve_tok_s', 0):.1f})")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[point] peak memory {stats['peak_mem_gib']:.2f} GiB")
+    del eng, cp, model
+    return stats, launches, km_row
+
+
+def act_quant_times(dev, peaks: dict) -> list:
+    """act_quant per call at the FFN's decode (4 × 6144) and prefill
+    (32 × 6144) bf16 shapes, relu6 at |A| = 32, output only (as the
+    serving site calls it), both forms: kernel, plain, the bound, and the
+    library call.  At relu6 with lo = 0 one PyTorch call computes the
+    kernel form's arithmetic: ``fake_quantize_per_tensor_affine(x, step,
+    0, 0, L − 1)`` = clamp(rint(x·(1/step)), 0, L − 1)·step (clamping
+    before or after the rounding is the same for relu6).  The act_apply
+    form rounds to bf16 after every operation, which that call does not;
+    it stands as the yardstick of both rows, and the elements where it
+    differs from each form are counted."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    g = torch.Generator(device=dev).manual_seed(6)
+    step = 6.0 / (ACT_LEVELS - 1)
+    lib = lambda x: torch.fake_quantize_per_tensor_affine(  # noqa: E731
+        x, step, 0, 0, ACT_LEVELS - 1)
+    res = []
+    for M in (MAX_BATCH, 32):
+        x = (torch.randn(M, D_FF, generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        n = x.numel()
+        b_bytes = 4 * n / peaks["bytes"]            # 2 B read, 2 B written
+        b_ops = 8 * n / peaks["f32"]
+        lib_y = lib(x)
+        lib_ms = time_ms(lambda: lib(x), reps=56)
+        for form in aq.FORMS:
+            y = aq.act_quant_cuda(x, "relu6", ACT_LEVELS, form=form,
+                                  with_index=False)[0]
+            res.append({
+                "M": M, "N": D_FF, "dtype": "bfloat16", "kind": "relu6",
+                "levels": ACT_LEVELS, "form": form,
+                "ms": time_ms(lambda: aq.act_quant_cuda(
+                    x, "relu6", ACT_LEVELS, form=form, with_index=False),
+                    reps=56),
+                "plain_ms": time_ms(lambda: aq.act_quant_plain(
+                    x, "relu6", ACT_LEVELS, form=form, with_index=False),
+                    reps=20),
+                "library_ms": lib_ms,
+                "library_call": "torch.fake_quantize_per_tensor_affine (the "
+                                "kernel form's arithmetic)",
+                "library_differs": int((lib_y != y).sum()),
+                "bound_ms": 1e3 * max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+    for r in res:
+        log(f"[time] act_quant {r['M']}×{r['N']} bf16 relu6 |A|={r['levels']}"
+            f" {r['form']} form: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
+            f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library "
+            f"fake_quantize_per_tensor_affine {r['library_ms']:.4f}, which "
+            f"differs from this form in {r['library_differs']}/"
+            f"{r['M'] * r['N']} elements)")
+    return res
+
+
 def gather_times(dev, peaks: dict) -> list:
     """page_gather per call at the decode (4 × 32) and prefill-chunk
     (1 × 32) page tables: kernel, plain and library times and the bound.
@@ -701,7 +1214,7 @@ def gather_times(dev, peaks: dict) -> list:
     return res
 
 
-# --- phase 7: kernel timings --------------------------------------------------
+# --- phase 8: kernel timings --------------------------------------------------
 
 def kernel_times(dev, peaks: dict) -> dict:
     """Per (M, site): kernel, plain and library times and the bound.
@@ -823,20 +1336,31 @@ def main() -> int:
     from repro_torch import configs
     vocab = configs.get("qwen3-1.7b").vocab
     prompts, chats = prompts_for(8, vocab), chat_prompts(8, vocab)
-    worst = parity(dev, path_rows(prompts, chats, MAX_BATCH))
+    rows = path_rows(prompts, chats, MAX_BATCH)
+    worst = parity(dev, rows)
     worst["page_gather"] = gather_parity(dev)
+    worst["act_quant"], _ = act_quant_parity(dev, rows)
+    worst["kmeans_assign"] = kmeans_parity(dev)
     reduced_against_cpu(dev)
+    reduced_working_point(dev)
     cfg, model, cp = compressed_model(dev)
     stats, launches = main_path(dev, cfg, model, cp, prompts)
     p_stats, p_launches = paged_path(dev, cfg, model, cp, chats)
     del model, cp
+    torch.cuda.empty_cache()
+    w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
+                                                peaks)
+    torch.cuda.empty_cache()
     times = kernel_times(dev, peaks)
     g_times = gather_times(dev, peaks)
+    a_times = act_quant_times(dev, peaks)
 
     by_path = {k: {"contiguous": launches.get(k, 0),
-                   "paged": p_launches.get(k, 0)} for k in TPU_KERNELS}
+                   "paged": p_launches.get(k, 0),
+                   "working_point": w_launches.get(k, 0)}
+               for k in TPU_KERNELS}
     kernels = []
-    for kname in ("codebook_matmul", "lut_matmul", "page_gather"):
+    for kname in TPU_KERNELS:
         if kname == "page_gather":
             head = next(r for r in g_times if r["dtype"] == "int8"
                         and (r["B"], r["P"]) == GATHER_TABLES[0])
@@ -844,6 +1368,17 @@ def main() -> int:
                      "dtype": "int8", "pool": [cfg.n_layers, N_PAGES]
                      + head["page"]}
             shapes = g_times
+        elif kname == "act_quant":
+            head = next(r for r in a_times if r["M"] == MAX_BATCH
+                        and r["form"] == "act_apply")
+            shape = {k_: head[k_] for k_ in ("M", "N", "dtype", "kind",
+                                             "levels", "form")}
+            shapes = a_times
+        elif kname == "kmeans_assign":
+            head = km_row
+            shape = {"n": km_row["n"], "k": km_row["k"],
+                     "values": km_row["values"]}
+            shapes = [km_row]
         else:
             head = next(r for r in times[kname]
                         if (r["M"], r["K"], r["N"]) == MAIN_SHAPE)
@@ -861,9 +1396,12 @@ def main() -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "shape": shape, "shapes": shapes})
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"{kname}: no launch on any path")
     log(f"[done] {time.time() - t_start:.1f}s in all; contiguous path "
         + json.dumps(stats))
     log("[done] paged path " + json.dumps(p_stats))
+    log("[done] working point " + json.dumps(w_stats))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
 """Parameter bridge: a ``repro`` parameter tree (as numpy arrays) → the same
-nested dict of torch tensors.
+nested dict of torch tensors, and a ``repro`` ``QuantizerState``'s codebooks
+→ the port's ``QuantizerState``.
 
-The caller converts the JAX tree first, e.g.
-``jax.tree_util.tree_map(np.asarray, params)``; this module never sees JAX.
-The index form passes through unchanged: int8/int16 ``w_idx`` keep their
-negative ids, and ``codebook``/``lut_table`` keep their values and dtypes.
+The caller converts the JAX objects first, e.g.
+``jax.tree_util.tree_map(np.asarray, params)`` and
+``{p: np.asarray(c) for p, c in state.codebooks.items()}``; this module
+never sees JAX.  The index form passes through unchanged: int8/int16
+``w_idx`` keep their negative ids, and ``codebook``/``lut_table`` keep their
+values and dtypes.
 """
 
 from __future__ import annotations
@@ -12,9 +15,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.quantizer import QuantizerState
 from repro_torch.device import resolve_device
 
-__all__ = ["from_jax_params", "to_numpy_tree"]
+__all__ = ["from_jax_params", "from_jax_state", "to_numpy_tree"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -37,6 +41,18 @@ def from_jax_params(tree, device=None):
         return _tensor(node, dev)
 
     return walk(tree)
+
+
+def from_jax_state(codebooks: dict, last_step: int = -1,
+                   device=None) -> QuantizerState:
+    """A reference ``QuantizerState`` as {path: numpy codebook} (``''`` for
+    the global scope, ``'blocks/mlp/w1/w'``-style paths for per_layer) →
+    the port's, codebooks as f32 tensors on ``device`` (the GPU when
+    None), bit for bit."""
+    dev = resolve_device(device)
+    return QuantizerState(codebooks={p: _tensor(c, dev)
+                                     for p, c in codebooks.items()},
+                          last_step=last_step)
 
 
 def to_numpy_tree(tree):

@@ -1,12 +1,14 @@
 """Weight clustering over parameter trees (paper §2.2), the port's copy of
-the parts of ``repro/core/quantizer.py`` that serving compression needs.
+``repro/core/quantizer.py``: one clustering event (``cluster_params``) and
+the index form of a clustered network (``codebook_indices``).
 
-``WeightQuantConfig`` and ``param_filter`` are copied as they are.
-``cluster_params`` implements the ``scope="global"`` branch for the
-``laplacian_l1`` method, which needs no random key: one codebook for the
-whole network, every included tensor snapped to its nearest center.  The
-k-means and uniform methods and the per-layer scope come with the training
-slice.
+Scopes: ``global`` (one codebook for the whole network, the paper's
+default) and ``per_layer`` (one codebook per parameter tensor, of
+``min(|W|, size)`` centers).  Methods: ``kmeans`` (``clustering.kmeans1d``),
+``laplacian_l1`` and ``uniform``; none needs a random key, so
+``cluster_params`` takes none.  The reference's key feeds only k-means'
+``subsample``, which comes with the training slice: a config that would
+subsample raises.
 """
 
 from __future__ import annotations
@@ -19,7 +21,10 @@ import torch
 from repro_torch.core import clustering
 
 __all__ = ["WeightQuantConfig", "QuantizerState", "init_state",
-           "cluster_params", "num_weights_at", "param_filter"]
+           "cluster_params", "codebook_indices", "num_weights_at",
+           "param_filter"]
+
+_SUBSAMPLE_ABOVE = 1_000_000       # the reference subsamples larger tensors
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,28 +116,73 @@ def _rebuild(params, new_leaves, prefix=()):
             for k, v in params.items()}
 
 
+def _centers(values: torch.Tensor, cfg: WeightQuantConfig,
+             k: int) -> torch.Tensor:
+    if cfg.method == "laplacian_l1":
+        return clustering.laplacian_l1_centers(values, k)
+    if cfg.method == "uniform":
+        return clustering.uniform_centers(values, k)
+    if cfg.subsample < 1.0 and values.numel() > _SUBSAMPLE_ABOVE:
+        raise NotImplementedError(
+            "k-means on a random subsample of the weights is not ported yet "
+            f"(subsample={cfg.subsample} over {values.numel()} values)")
+    return clustering.kmeans1d(values, k, iters=cfg.kmeans_iters)
+
+
 def cluster_params(params, cfg: WeightQuantConfig, state: QuantizerState,
                    step: int) -> tuple[dict, QuantizerState]:
     """One clustering event: snap every (included) weight to its centroid.
 
-    Global scope, ``laplacian_l1`` only: the closed form needs the mean and
-    the largest deviation of all included weights, and no random key.
+    Pure function over a nested dict of tensors; callers decide the cadence
+    (``cfg.due(step)``).  Codebooks are keyed ``''`` (global) or by the
+    tensor's path, ``'blocks/mlp/w1/w'`` (per_layer), as the reference's.
     """
     if not cfg.enabled:
         return params, state
-    if cfg.scope != "global" or cfg.method != "laplacian_l1":
-        raise NotImplementedError(
-            "the port clusters with scope='global', method='laplacian_l1' "
-            f"only; got scope={cfg.scope!r}, method={cfg.method!r}")
     k = num_weights_at(cfg, step)
     keep = param_filter(cfg)
     leaves = _flat_paths(params)
-    included = [v.reshape(-1).to(torch.float32)
-                for p, v in leaves if keep("/".join(p))]
-    flat = torch.cat(included)
-    centers = clustering.laplacian_l1_centers(flat, k)
-    del flat, included
-    new = {p: clustering.quantize_to_centers(v, centers)
-           if keep("/".join(p)) else v for p, v in leaves}
-    return _rebuild(params, new), QuantizerState(codebooks={"": centers},
+    if cfg.scope == "global":
+        included = [v.reshape(-1).to(torch.float32)
+                    for p, v in leaves if keep("/".join(p))]
+        flat = torch.cat(included)
+        del included
+        centers = _centers(flat, cfg, k)
+        del flat
+        new = {p: clustering.quantize_to_centers(v, centers)
+               if keep("/".join(p)) else v for p, v in leaves}
+        books = {"": centers}
+    else:
+        books, new = {}, {}
+        for p, v in leaves:
+            path = "/".join(p)
+            if keep(path) and v.numel() >= 2:
+                books[path] = _centers(v.reshape(-1).to(torch.float32), cfg,
+                                       min(k, v.numel()))
+                new[p] = clustering.quantize_to_centers(v, books[path])
+            else:
+                new[p] = v
+    return _rebuild(params, new), QuantizerState(codebooks=books,
                                                  last_step=step)
+
+
+def codebook_indices(params, cfg: WeightQuantConfig,
+                     state: QuantizerState) -> tuple[dict, dict]:
+    """Index representation of a clustered network (paper §4 deployment):
+    (nested dict of int32 index tensors mirroring params, codebooks dict).
+    Unclustered tensors are kept verbatim.  Raises if clustering never
+    ran."""
+    if not state.codebooks:
+        raise ValueError("no codebook yet — run cluster_params first")
+    keep = param_filter(cfg)
+    new = {}
+    for p, v in _flat_paths(params):
+        path = "/".join(p)
+        book = state.codebooks.get("" if cfg.scope == "global" else path)
+        if book is None or not keep(path):
+            new[p] = v
+            continue
+        new[p] = clustering.assign_to_centers(
+            v.to(torch.float32).reshape(-1),
+            book.to(v.device)).reshape(v.shape)
+    return _rebuild(params, new), dict(state.codebooks)

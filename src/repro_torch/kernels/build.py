@@ -25,7 +25,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "load", "source_path"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("codebook_matmul", "lut_matmul", "page_gather")
+SOURCES = ("codebook_matmul", "lut_matmul", "page_gather", "act_quant",
+           "kmeans_assign")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

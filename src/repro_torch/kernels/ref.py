@@ -1,13 +1,15 @@
-"""Plain-torch oracles, the port's copy of ``repro/kernels/ref.py`` for the
-two matmul kernels.  Deliberately naive: clarity over speed."""
+"""Plain-torch oracles, the port's copy of ``repro/kernels/ref.py``.
+Deliberately naive: clarity over speed."""
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.kmeans1d import kmeans_assign_plain
 from repro_torch.kernels.lut_matmul import wrap_int32
 
-__all__ = ["codebook_matmul_ref", "lut_matmul_ref"]
+__all__ = ["codebook_matmul_ref", "lut_matmul_ref", "act_quant_ref",
+           "kmeans_assign_ref"]
 
 
 def codebook_matmul_ref(x: torch.Tensor, w_idx: torch.Tensor,
@@ -32,3 +34,16 @@ def lut_matmul_ref(a_idx: torch.Tensor, w_idx: torch.Tensor,
     n_cols = table.shape[1]
     addr = a_idx.long()[:, :, None] * n_cols + w_idx.long()[None, :, :]
     return wrap_int32(flat[addr].sum(dim=1, dtype=torch.int64))
+
+
+def act_quant_ref(x: torch.Tensor, kind: str, levels: int) -> torch.Tensor:
+    """Quantized activation values (forward semantics only): the oracle
+    *is* ``act_apply``, as in the reference."""
+    from repro_torch.core.activations import ActQuantConfig, act_apply
+    return act_apply(ActQuantConfig(kind, levels), x)
+
+
+# (assignment, per-center sum, per-center count) for sorted centers: the
+# oracle *is* the plain version, ``searchsorted`` over the midpoints, then
+# f32 segment sums and integer counts.
+kmeans_assign_ref = kmeans_assign_plain

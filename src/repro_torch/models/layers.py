@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.activations import ActQuantConfig, act_apply
 from repro_torch.kernels import dispatch
 from repro_torch.kernels._common import canonical_idx
 
@@ -84,10 +85,19 @@ def embed_logits(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def ffn_act(x: torch.Tensor, kind: str, levels: int) -> torch.Tensor:
-    """The continuous nonlinearity (levels == 0).  The quantized sites of
-    the paper's activations come with the training slice."""
+    """The paper's activation-quantization site.
+
+    levels == 0: the continuous nonlinearity (baseline).
+    levels  > 0: ``act_apply`` (the ``act_quant`` kernel on the card); the
+                 unbounded kinds are swapped for relu6, as the paper swaps
+                 AlexNet's ReLU for ReLU6 (§3.3).  The reference's
+                 saturation probe (``probes.tap_act``) comes with the
+                 probes.
+    """
     if levels > 0:
-        raise NotImplementedError("quantized activations are not ported yet")
+        bounded = {"silu": "relu6", "gelu": "relu6",
+                   "relu": "relu6"}.get(kind, kind)
+        return act_apply(ActQuantConfig(bounded, levels), x)
     if kind == "silu":
         return F.silu(x)
     if kind == "gelu":

@@ -14,7 +14,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops, ref as tref  # noqa: E402
+from repro_torch.kernels import act_quant as aq  # noqa: E402
 from repro_torch.kernels import codebook_matmul as cm  # noqa: E402
+from repro_torch.kernels import kmeans1d as km  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import page_gather as pg  # noqa: E402
 from repro_torch.kernels._common import canonical_idx  # noqa: E402
@@ -164,7 +166,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 def test_launch_counters_start_and_reset():
     ops.reset_launch_counts()
     assert ops.launch_counts() == {"codebook_matmul": 0, "lut_matmul": 0,
-                                   "page_gather": 0}
+                                   "page_gather": 0, "act_quant": 0,
+                                   "kmeans_assign": 0}
     x, wi, book = _codebook_case(0, 2, 16, 8)
     ops.codebook_matmul(torch.from_numpy(x), torch.from_numpy(wi),
                         torch.from_numpy(book))
@@ -259,3 +262,89 @@ def test_cuda_page_gather_matches_plain(page_shape, dtype, B, P):
         torch.cuda.synchronize()
         assert got.dtype == pool.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_act_quant_parity_ties_rules():
+    """The rule the CUDA act_quant is held to: ties one level apart are
+    counted; two levels apart, a relu6 tie or an output off the ties
+    raises."""
+    x = torch.linspace(-3, 3, 1001)
+    y, i = aq.act_quant_plain(x, "tanh", 32)
+    assert aq.parity_ties(y, i, y.clone(), i.clone(), "tanh", 32) == 0
+    i2, y2 = i.clone(), y.clone()
+    i2[500] += 1
+    y2[500] = -1.0 + float(i2[500]) * (2.0 / 31)     # on its own level
+    assert aq.parity_ties(y2, i2, y, i, "tanh", 32) == 1
+    i2[500] += 1
+    with pytest.raises(AssertionError):
+        aq.parity_ties(y2, i2, y, i, "tanh", 32)
+    y3 = y.clone()
+    y3[10] = float(y3[10]) + 1e-3
+    with pytest.raises(AssertionError):
+        aq.parity_ties(y3, i, y, i, "tanh", 32)
+    yr, ir = aq.act_quant_plain(x, "relu6", 32)
+    ir2 = ir.clone()
+    ir2[900] -= 1
+    with pytest.raises(AssertionError):
+        aq.parity_ties(yr, ir2, yr, ir, "relu6", 32)
+
+
+# act_quant at every FFN row count the serving paths give it (× 6144),
+# plus odd sizes: 1 element and sizes that are no multiple of a block
+ACT_SHAPES = [(m, 6144) for m in (1, 4, 8, 16, 32, 64, 128, 256)] + [
+    (1,), (1000003,), (3, 257)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ACT_SHAPES)
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_cuda_act_quant_matches_plain(shape, xdt):
+    """Needs a GPU and nvcc: both forms, every kind, |A| 2/32/256, against
+    the plain version on the card — bit-equal but for counted ties."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    g = torch.Generator(device="cuda").manual_seed(len(shape) + shape[0])
+    x = (torch.randn(shape, generator=g, device="cuda") * 3).to(
+        getattr(torch, xdt))
+    for kind in aq.KINDS:
+        for levels in (2, 32, 256):
+            for form in aq.FORMS:
+                got = aq.act_quant_cuda(x, kind, levels, form=form)
+                want = aq.act_quant_plain(x, kind, levels, form=form)
+                torch.cuda.synchronize()
+                assert got[0].dtype == x.dtype and got[0].shape == x.shape
+                aq.parity_ties(*got, *want, kind, levels)
+                y_only, none = aq.act_quant_cuda(x, kind, levels, form=form,
+                                                 with_index=False)
+                assert none is None and torch.equal(y_only, got[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2, 1000, 4096])
+@pytest.mark.parametrize("n", [1, 4097, 10 ** 7])
+def test_cuda_kmeans_assign_matches_plain(k, n):
+    """Needs a GPU and nvcc: indices and counts exact, each version's sums
+    of the f64 sums within their limit (the kernel's ``sums_tolerance``,
+    the plain version's worst-case ``sums_bound``), values
+    on midpoints and a duplicate center pair included, and two runs
+    bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    rng = np.random.default_rng(k + n)
+    c = np.sort(rng.laplace(0, 0.05, k)).astype(np.float32)
+    if k > 3:
+        c[2] = c[1]
+    v = rng.laplace(0, 0.05, n).astype(np.float32)
+    special = np.concatenate([(c[:-1] + c[1:]) / np.float32(2), c])
+    v[:min(n // 4, special.size)] = special[:min(n // 4, special.size)]
+    tv, tc = torch.from_numpy(v).cuda(), torch.from_numpy(c).cuda()
+    got = km.kmeans_assign_cuda(tv, tc)
+    again = km.kmeans_assign_cuda(tv, tc)
+    want = km.kmeans_assign_plain(tv, tc)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    exact, abs_sum, n_c = km.exact_sums(tv, want[0], k)
+    for sums, limit in ((got[1], km.sums_tolerance(abs_sum, n_c, n)),
+                        (want[1], km.sums_bound(abs_sum, n_c))):
+        assert bool(((sums.double() - exact).abs() <= limit).all())
