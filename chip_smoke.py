@@ -10,11 +10,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    page_gather, act_quant, kmeans_assign) compiled with nvcc for sm_90a,
    in parallel;
 3. kernel parity: each matmul kernel against its plain PyTorch version at
-   every row count the serving paths give it and every (K, N) site of the
-   model (lut bit-exact, codebook within 16 × a summation-order estimate,
-   which weights left unrounded to bf16 must fail); page_gather bit-exact
-   on int8/bf16/f32 K/V pages, bf16 scale pages and a 15-byte page, at the
-   decode and prefill-chunk page tables, with out-of-range ids; act_quant
+   every row count the serving paths give it (and 17, across the tensor-
+   core route's tile boundary) and every (K, N) site of the model, int8,
+   int16 and int32 ids, f32 and bf16 x, on every route (codebook: mma,
+   fma; lut: staged rows, L2), each launch run twice and bit-identical
+   (lut bit-exact, also on out-of-range ids and wrapping sums; codebook
+   within 16 × a summation-order estimate, whose share each route reaches
+   is printed, and which weights left unrounded to bf16 must fail);
+   page_gather bit-exact on int8/bf16/f32 K/V pages, bf16 scale pages and
+   a 15-byte page, at the decode and prefill-chunk page tables, with
+   out-of-range ids; act_quant
    in both forms (4 kinds × |A| 2, 32, 256 × f32/bf16) at every FFN row
    count of the serving paths × 6144 and odd sizes, bit-equal but for
    counted level-boundary ties; kmeans_assign (k 2, 1000, 4096 × n 1,
@@ -29,7 +34,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    from a seeded generator, compressed to |W| = 1000 (laplacian_l1,
    global) and served through ``ServeEngine.serve``/``generate`` with the
    codebook and lut backends, kernel launch counts checked, logits held
-   against the dense backend;
+   against the dense backend; lut_matmul replayed on the serving path's own
+   activation ids (a captured decode forward and 1 × 32 prefill, 196
+   launches each) on its planned route and on each route forced, beside
+   random row ids of the same shapes, bit-exact on the middle layer;
 6. paged path: the same model served by ``ServeEngine(paged=True)``, page
    16, to 8 chat requests sharing a 96-token system prompt: codebook with
    int8 and with bf16 pages, lut with int8 pages.  page_gather and matmul
@@ -44,8 +52,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (contiguous) and codebook with int8 pages, with 28 act_quant launches a
    forward; the kernel held against its plain version on one layer's real
    w1 outputs; decode step and serve figures beside phase 5's;
-8. kernel timings: the matmuls at the decode (M=4) and prefill (M=32)
-   shapes, page_gather at the decode and prefill-chunk page tables,
+8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
+   (four 64-token prefills) × the 7 sites of a layer, with the route each
+   took (lut: and the other route forced), the bound, the plain version's
+   and (codebook) torch.matmul's times, and a K-split sweep at the decode
+   shape; page_gather at the decode and prefill-chunk page tables,
    act_quant at the decode (4 × 6144) and prefill (32 × 6144) FFN shapes,
    with the bound, the plain version's and the library call's times
    (kmeans_assign's are taken in phase 7, at the full n).
@@ -93,7 +104,13 @@ KM_RTOL = 1e-5                   # k-means codebooks: see centers_agree
 
 
 def log(*a):
+    """Print a line; with CHIP_SMOKE_LOG set, append it to that file too
+    (the JSON lines at the end can outgrow a terminal's tail)."""
     print(*a, flush=True)
+    path = os.environ.get("CHIP_SMOKE_LOG")
+    if path:
+        with open(path, "a") as f:
+            print(*a, file=f)
 
 
 def peaks_for(name: str) -> dict:
@@ -147,23 +164,85 @@ def path_rows(prompts, paged_prompts, max_batch: int) -> list[int]:
     return sorted(rows | {_bucket(len(p)) for p in prompts + paged_prompts})
 
 
-def parity(dev, rows) -> dict:
+def codebook_plans(x, wi):
+    """The route the wrapper plans for these operands and, for bf16 x, the
+    route it takes when the rows are not 16-byte aligned (the FMA tile), so
+    every route is held against the plain version: [(route, plan or
+    None)]."""
+    import torch
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import _common
+    plans = [(cm.plan_for(x, wi).route, None)]
+    if x.dtype == torch.bfloat16:
+        alt = _common.codebook_plan(
+            x.shape[0], x.shape[1], wi.shape[1], bf16=True, vec_ok=False,
+            sms=_common.sm_count(x.device))
+        plans.append((alt.route, alt))
+    return plans
+
+
+def lut_plans(a, wi, tab):
+    """The route the lut wrapper plans for these operands, then each route
+    forced (smem where the rows fit a ring): [(route, plan or None)]."""
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import _common
+    args = (a.shape[0], a.shape[1], wi.shape[1])
+    kw = dict(n_cols=tab.shape[1], idx_bytes=wi.element_size(),
+              sms=_common.sm_count(a.device))
+    plans = [("planned " + lm.plan_for(a, wi, tab).route, None),
+             ("l2", _common.lut_plan(*args, **kw, route="l2"))]
+    try:
+        plans.append(("smem", _common.lut_plan(*args, **kw, route="smem")))
+    except ValueError:               # rows too long to stage
+        pass
+    return plans
+
+
+def lut_out_of_range(g, dev, m, k, n, R, C):
+    """A lut case whose flat addresses a·C + w leave the staged row: int16
+    w ≥ C (the next row) and w < −C (negative after canonicalization), row
+    ids ≥ R and < −R, rows near 2³¹/C whose scaled id wraps int32, and
+    table entries near 2²⁵, so that the int32 sums wrap too."""
+    import torch
+    a = torch.randint(0, R, (m, k), generator=g, device=dev, dtype=torch.int64)
+    a[0, ::3] = torch.randint(R, 4 * R, a[0, ::3].shape, generator=g, device=dev)
+    a[1, ::5] = torch.randint(-4 * R, -R, a[1, ::5].shape, generator=g,
+                              device=dev)
+    a[2, ::7] = (1 << 31) // C + torch.randint(-2, 3, a[2, ::7].shape,
+                                               generator=g, device=dev)
+    w = torch.randint(0, C, (k, n), generator=g, device=dev, dtype=torch.int64)
+    w[::4, 0::3] = torch.randint(C, 3 * C, w[::4, 0::3].shape, generator=g,
+                                 device=dev)
+    w[1::4, 1::3] = torch.randint(-3 * C, -C, w[1::4, 1::3].shape, generator=g,
+                                  device=dev)
+    w[2::4, 2::3] = torch.randint(-C, 0, w[2::4, 2::3].shape, generator=g,
+                                  device=dev)
+    t = torch.randint(-(1 << 25), 1 << 25, (R, C), generator=g, device=dev,
+                      dtype=torch.int32)
+    return a.to(torch.int32), w.to(torch.int16), t
+
+
+def parity(dev, rows) -> tuple[dict, dict]:
     """Each kernel against its plain version at every M of ``rows`` and
-    every (K, N) site of the model, so every rows-per-block instance and
-    K split the main path takes is checked: lut bit-exact, codebook within
+    every (K, N) site of the model, int8, int16 and int32 ids, f32 and bf16
+    x, and every route (``codebook_plans``): lut bit-exact, codebook within
     ``parity_tolerance`` (16 × the summation-order estimate), which the
-    plain version without the cast of weights to bf16 must fail."""
+    plain version without the cast of weights to bf16 must fail; every
+    launch run twice, bit-identical; lut also on out-of-range ids
+    (``lut_out_of_range``).  Returns the worst errors and, per codebook
+    route, the largest share of the limit it reached."""
     import torch
     from repro_torch.kernels import codebook_matmul as cm
     from repro_torch.kernels import lut_matmul as lm
     from repro_torch.kernels._common import canonical_idx
     g = torch.Generator(device=dev).manual_seed(0)
     worst = {"codebook_matmul": 0.0, "lut_matmul": 0.0}
-    share = 0.0                                # worst err / limit
+    shares, n_cb, n_lut = {}, 0, 0
     cases = [(M, K, N) for M in rows for K, N in sorted(set(SITES.values()))]
-    cases.append((3, 100, 130))                       # ragged edges
+    cases += [(3, 100, 130), (40, 100, 130)]          # ragged edges
     for M, K, N in cases:
-        for idt, W in ((torch.int8, 256), (torch.int16, N_BOOK)):
+        for idt, W in ((torch.int8, 256), (torch.int16, N_BOOK),
+                       (torch.int32, 5000)):
             if idt == torch.int8:                     # ids ≥ 128 negative
                 wi = torch.randint(-128, 128, (K, N), generator=g,
                                    device=dev).to(idt)
@@ -173,35 +252,49 @@ def parity(dev, rows) -> dict:
             book = torch.randn(W, generator=g, device=dev) * 0.05
             for xdt in (torch.float32, torch.bfloat16):
                 x = torch.randn(M, K, generator=g, device=dev).to(xdt)
-                got = cm.codebook_matmul_cuda(x, wi, book)
                 want = cm.codebook_matmul_plain(x, wi, book)
                 tol = cm.parity_tolerance(x, wi, book)
-                err = (got - want).abs()
-                s = (err / tol).max().item()
-                if s > 1:
-                    raise AssertionError(
-                        f"codebook_matmul M={M} K={K} N={N} {idt} {xdt}: "
-                        f"max err {err.max().item()} at {s:.3f} of the "
-                        "limit")
-                share = max(share, s)
-                worst["codebook_matmul"] = max(worst["codebook_matmul"],
-                                               err.max().item())
+                for route, plan in codebook_plans(x, wi):
+                    got = cm.codebook_matmul_cuda(x, wi, book, plan=plan)
+                    again = cm.codebook_matmul_cuda(x, wi, book, plan=plan)
+                    err = (got - want).abs()
+                    sh = (err / tol).max().item()
+                    if sh > 1:
+                        raise AssertionError(
+                            f"codebook_matmul {route} M={M} K={K} N={N} {idt} "
+                            f"{xdt}: max err {err.max().item()} at {sh:.3f} "
+                            "of the limit")
+                    if not torch.equal(got, again):
+                        raise AssertionError(
+                            f"codebook_matmul {route} M={M} K={K} N={N} {idt} "
+                            f"{xdt}: two runs differ")
+                    key = f"{route} {str(xdt).split('.')[-1]}"
+                    shares[key] = max(shares.get(key, 0.0), sh)
+                    worst["codebook_matmul"] = max(worst["codebook_matmul"],
+                                                   err.max().item())
+                    n_cb += 1
                 if xdt == torch.bfloat16:
                     no_cast = x.float() @ book[canonical_idx(wi, W).long()]
                     if bool(((no_cast - want).abs() <= tol).all()):
                         raise AssertionError(
                             f"M={M} K={K} N={N} {idt}: the codebook limit "
                             "passes weights left unrounded to bf16")
+            C = 256 if idt == torch.int8 else N_BOOK
+            lw = wi if idt != torch.int32 else torch.randint(
+                0, C, (K, N), generator=g, device=dev).to(idt)
             a = torch.randint(0, LEVELS, (M, K), generator=g, device=dev,
                               dtype=torch.int32)
-            tab = torch.randint(-(1 << 20), 1 << 20, (LEVELS, W), generator=g,
+            tab = torch.randint(-(1 << 20), 1 << 20, (LEVELS, C), generator=g,
                                 device=dev, dtype=torch.int32)
-            got = lm.lut_matmul_cuda(a, wi, tab)
-            want = lm.lut_matmul_plain(a, wi, tab)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"lut_matmul M={M} K={K} N={N} {idt}: "
-                                     "not bit-exact")
+            want = lm.lut_matmul_plain(a, lw, tab)
+            for route, plan in lut_plans(a, lw, tab):
+                got = lm.lut_matmul_cuda(a, lw, tab, plan=plan)
+                again = lm.lut_matmul_cuda(a, lw, tab, plan=plan)
+                if not (torch.equal(got, want) and torch.equal(got, again)):
+                    raise AssertionError(
+                        f"lut_matmul {route} M={M} K={K} N={N} {idt}: not "
+                        "bit-exact, or two runs differ")
+                n_lut += 1
     # overflow-adjacent: |T| near 2^25, 2048 terms → sums wrap int32
     a = torch.randint(0, 9, (5, 2048), generator=g, device=dev,
                       dtype=torch.int32)
@@ -209,16 +302,31 @@ def parity(dev, rows) -> dict:
                        ).to(torch.int8)
     tab = torch.randint(-(1 << 25), 1 << 25, (9, 256), generator=g,
                         device=dev, dtype=torch.int32)
-    if not torch.equal(lm.lut_matmul_cuda(a, wi, tab),
-                       lm.lut_matmul_plain(a, wi, tab)):
-        raise AssertionError("lut_matmul overflow-adjacent case not exact")
+    oor = [(a, wi, tab)] + [lut_out_of_range(g, dev, *shape) for shape in (
+        (6, 300, 40, 9, 65), (MAX_BATCH, 2048, 1024, LEVELS, N_BOOK),
+        (32, 2048, 6144, LEVELS, N_BOOK))]
+    for args in oor:
+        want = lm.lut_matmul_plain(*args)
+        for route, plan in lut_plans(*args):
+            got = lm.lut_matmul_cuda(*args, plan=plan)
+            if not (torch.equal(got, want) and torch.equal(
+                    got, lm.lut_matmul_cuda(*args, plan=plan))):
+                raise AssertionError(
+                    f"lut_matmul {route} out-of-range or wrapping case "
+                    f"{tuple(args[0].shape)} x {tuple(args[1].shape)} not "
+                    "exact, or two runs differ")
     log(f"[parity] M in {rows} × {len(set(SITES.values()))} (K, N) sites, "
-        f"and M=3 K=100 N=130; int8/int16 ids × f32/bf16 x: codebook max "
-        f"abs err {worst['codebook_matmul']:.3e}, at most {share:.4f} of "
-        f"its limit ({16 * share:.3f} × the summation-order estimate); "
-        f"uncast weights fail the limit in every bf16 case; lut bit-exact "
-        f"incl. wrap-around")
-    return worst
+        f"and M=3, 40 at K=100 N=130; int8/int16/int32 ids × f32/bf16 x: "
+        f"{n_cb} codebook launches over its routes, each run twice "
+        f"bit-identical, max abs err {worst['codebook_matmul']:.3e}; share "
+        f"of the limit by route: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(shares.items()))
+        + f"; uncast weights fail the limit in every bf16 case; lut "
+        f"bit-exact and bit-identical twice in {n_lut} launches (planned, "
+        f"then each route forced), and so in the wrapping case and "
+        f"{len(oor) - 1} out-of-range cases (w ≥ C, w < −C, a ≥ R, a < −R, "
+        f"a·C past 2³¹)")
+    return worst, shares
 
 
 # the page shapes of the paged path: int8, bf16 and f32 K/V pages of
@@ -681,6 +789,8 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
     # step timings (after the counted runs)
     stats = {"peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     t32, l32 = eng["dense"]._pad_prompts([(prompts[0] * 4)[:32]])
+    stats["lut_path_ids"] = lut_path_ids(dev, eng["lut"], prompts, t32, l32,
+                                         cfg.n_layers)
     for be, e in eng.items():
         pre = [timed(lambda: e._prefill(t32, l32))[1] for _ in range(4)][1:]
         cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
@@ -708,6 +818,78 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
         f"{stats['tied_logits_ms']:.3f} ms; peak memory "
         f"{stats['peak_mem_gib']:.2f} GiB")
     return stats, launches
+
+
+def lut_path_ids(dev, e, prompts, t32, l32, n_layers) -> dict:
+    """lut_matmul on the serving path's own activation ids: every call of a
+    4-request serve and of a 1 × 32 prefill through engine ``e`` captured
+    (a_idx copied; ids and table are the model's), then one decode forward
+    (M = 4) and the prefill forward (M = 32), 7 × n_layers launches each,
+    replayed on each lut route, and again with uniformly random row ids of
+    the same shapes.  The middle layer's calls are held bit-exact against
+    the plain version on both routes.  Returns ms per forward by route and
+    ids, and per site of the middle layer."""
+    import torch
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import ops
+    per_fwd = 7 * n_layers
+    calls, orig = [], ops.lut_matmul
+
+    def rec(a, w, t):
+        calls.append((a.clone(), w, t))
+        return orig(a, w, t)
+    ops.lut_matmul = rec
+    try:
+        e.serve(prompts[:4], max_new=16)
+        n_serve = len(calls)
+        e._prefill(t32, l32)
+    finally:
+        ops.lut_matmul = orig
+    fwds = [calls[i:i + per_fwd] for i in range(0, n_serve, per_fwd)]
+    dec = [f for f in fwds if all(c[0].shape[0] == MAX_BATCH for c in f)]
+    pre = calls[n_serve:]
+    if not dec or len(pre) != per_fwd or pre[0][0].shape[0] != 32:
+        raise AssertionError(f"lut calls captured: {len(calls)}, decode "
+                             f"forwards {len(dec)}, prefill {len(pre)}")
+    g = torch.Generator(device=dev).manual_seed(11)
+    res, mid = {}, n_layers // 2
+    for tag, fwd in (("decode", dec[len(dec) // 2]), ("prefill_32", pre)):
+        rnd = [(torch.randint(0, LEVELS, a.shape, generator=g, device=dev,
+                              dtype=torch.int32), w, t) for a, w, t in fwd]
+        for ids, cs in (("path", fwd), ("random", rnd)):
+            for route in ("planned", "smem", "l2"):
+                plans = [dict((r.split()[0], p) for r, p in lut_plans(*c))
+                         [route] for c in cs]
+                res[f"{tag} {ids} {route}"] = time_ms(
+                    lambda: [lm.lut_matmul_cuda(*c, plan=p)
+                             for c, p in zip(cs, plans)], reps=3, warm=1)
+        for i in range(7 * mid, 7 * mid + 7):             # the middle layer
+            a, w, t = fwd[i]
+            want = lm.lut_matmul_plain(a, w, t)
+            for route, plan in lut_plans(a, w, t):
+                if not torch.equal(lm.lut_matmul_cuda(a, w, t, plan=plan),
+                                   want):
+                    raise AssertionError(f"lut_matmul {route} on the path's "
+                                         f"ids ({tag}, call {i}) not exact")
+                res[f"{tag} site {i % 7} {route.split()[0]}"] = time_ms(
+                    lambda: lm.lut_matmul_cuda(a, w, t, plan=plan))
+        # distinct rows the forward's ids touch, of the table's LEVELS
+        res[f"{tag} distinct rows"] = sum(
+            int(torch.unique(a).numel()) for a, _, _ in fwd) / len(fwd)
+    log("[main] lut_matmul on the path's own ids (a forward = "
+        f"{per_fwd} launches; ms a forward by route, path ids then random "
+        "row ids): " + "; ".join(
+            f"{tag}: " + ", ".join(
+                f"{ids} {r} {res[f'{tag} {ids} {r}']:.3f}"
+                for ids in ("path", "random") for r in ("planned", "smem", "l2"))
+            + f" (distinct row ids a call {res[f'{tag} distinct rows']:.0f}"
+            f" of {LEVELS})" for tag in ("decode", "prefill_32")))
+    log("[main] lut_matmul on the path's ids, middle layer by site, ms "
+        "planned / smem / l2: " + "; ".join(f"{tag} " + ", ".join(
+            f"{site} " + "/".join(f"{res[f'{tag} site {j} {r}']:.4f}"
+                                  for r in ("planned", "smem", "l2"))
+            for j, site in enumerate(SITES)) for tag in ("decode", "prefill_32")))
+    return res
 
 
 def _pool_clean(pool) -> bool:
@@ -1216,8 +1398,60 @@ def gather_times(dev, peaks: dict) -> list:
 
 # --- phase 8: kernel timings --------------------------------------------------
 
-def kernel_times(dev, peaks: dict) -> dict:
-    """Per (M, site): kernel, plain and library times and the bound.
+TIMED_ROWS = (1, MAX_BATCH, 32, 256)   # a single row, decode, prefill, 4 × 64
+
+
+def split_sweep(dev) -> dict:
+    """What the K split costs and buys at the headline shape (decode, w1
+    site): each matmul timed with its planned split and with others (the
+    planned tiles and route), ms by splits."""
+    import torch
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import lut_matmul as lm
+    g = torch.Generator(device=dev).manual_seed(7)
+    M, K, N = MAIN_SHAPE
+    sets = [(torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16),
+             torch.randint(0, N_BOOK, (K, N), generator=g, device=dev
+                           ).to(torch.int16),
+             torch.randn(N_BOOK, generator=g, device=dev) * 0.05,
+             torch.randint(0, LEVELS, (M, K), generator=g, device=dev,
+                           dtype=torch.int32),
+             torch.randint(-(1 << 20), 1 << 20, (LEVELS, N_BOOK), generator=g,
+                           device=dev, dtype=torch.int32)) for _ in range(4)]
+    it = [0]
+
+    def cyc(f):
+        def run():
+            it[0] += 1
+            return f(sets[it[0] % 4])
+        return run
+
+    def with_splits(p, s):
+        kc = -(-(-(-K // s)) // p.stage) * p.stage
+        sp = -(-K // kc)
+        return p._replace(splits=sp, k_chunk=kc)
+    x, wi, book, a, tab = sets[0]
+    out = {"codebook_matmul": {}, "lut_matmul": {}}
+    p0 = cm.plan_for(x, wi)
+    for s in sorted({1, 2, 4, 8, p0.splits}):
+        p = with_splits(p0, s)
+        out["codebook_matmul"][p.splits] = time_ms(cyc(
+            lambda t: cm.codebook_matmul_cuda(*t[:3], plan=p)))
+    q0 = lm.plan_for(a, wi, tab)
+    for s in sorted({32, 64, q0.splits}):
+        p = with_splits(q0, s)
+        out["lut_matmul"][p.splits] = time_ms(cyc(
+            lambda t: lm.lut_matmul_cuda(t[3], t[1], t[4], plan=p)), reps=10)
+    log(f"[time] K splits at {MAIN_SHAPE} (planned: codebook {p0.splits}, "
+        f"lut {q0.splits}): " + "; ".join(
+            f"{k} " + ", ".join(f"{s} splits {ms:.4f} ms" for s, ms in v.items())
+            for k, v in out.items()))
+    return out
+
+
+def kernel_times(dev, peaks: dict, shares: dict) -> dict:
+    """Per (M, site) at M in TIMED_ROWS: kernel, plain and library times,
+    the bound and the route taken.
 
     Four copies of each operand set are cycled, so the 2 × 25 MB of ids
     of the widest site do not sit in the 50 MB L2 from the previous call,
@@ -1227,7 +1461,7 @@ def kernel_times(dev, peaks: dict) -> dict:
     from repro_torch.kernels import lut_matmul as lm
     g = torch.Generator(device=dev).manual_seed(1)
     res = {"codebook_matmul": [], "lut_matmul": []}
-    for M in (4, 32):
+    for M in TIMED_ROWS:
         for site, (K, N) in SITES.items():
             sets = []
             for _ in range(4):
@@ -1251,12 +1485,15 @@ def kernel_times(dev, peaks: dict) -> dict:
                     it[0] += 1
                     return f(s)
                 return run
+            slow = M >= 256
             # codebook: bytes = x + ids + codebook + f32 out; 2MKN bf16 ops
             nbytes = M * K * 2 + K * N * 2 + N_BOOK * 4 + M * N * 4
             b_bytes = nbytes / peaks["bytes"]
             b_ops = 2 * M * K * N / peaks["bf16"]
+            route = cm.plan_for(sets[0][0], sets[0][1]).route
             res["codebook_matmul"].append({
-                "M": M, "K": K, "N": N, "site": site,
+                "M": M, "K": K, "N": N, "site": site, "route": route,
+                "share_of_limit": shares.get(f"{route} bfloat16"),
                 "ms": time_ms(cyc(lambda s: cm.codebook_matmul_cuda(*s[:3]))),
                 "plain_ms": time_ms(cyc(
                     lambda s: cm.codebook_matmul_plain(*s[:3])), reps=5),
@@ -1277,21 +1514,37 @@ def kernel_times(dev, peaks: dict) -> dict:
                       + M * N * 4)
             b_bytes = nbytes / peaks["bytes"]
             b_ops = 2 * M * K * N / peaks["int32"]
+            # the route not planned here, timed beside the planned one
+            route = lm.plan_for(a, wi, tab).route
+            other = [(r, p) for r, p in lut_plans(a, wi, tab)[1:]
+                     if r != route]
             res["lut_matmul"].append({
-                "M": M, "K": K, "N": N, "site": site,
+                "M": M, "K": K, "N": N, "site": site, "route": route,
+                "other_routes_ms": {r: time_ms(cyc(
+                    lambda s, p=p: lm.lut_matmul_cuda(s[3], s[1], s[4],
+                                                      plan=p)),
+                    reps=3 if slow else 20, warm=1 if slow else 3)
+                    for r, p in other},
                 "ms": time_ms(cyc(lambda s: lm.lut_matmul_cuda(s[3], s[1],
-                                                               s[4]))),
+                                                               s[4])),
+                              reps=3 if slow else 20, warm=1 if slow else 3),
                 "plain_ms": time_ms(cyc(lambda s: lm.lut_matmul_plain(
-                    s[3], s[1], s[4])), reps=3, warm=1),
+                    s[3], s[1], s[4])), reps=1 if slow else 3, warm=1),
                 "library_ms": None,
                 "bound_ms": 1e3 * max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
             del sets
+    res["split_sweep"] = split_sweep(dev)
     for name, rows in res.items():
-        for M in (4, 32):
+        if name == "split_sweep":
+            continue
+        for M in TIMED_ROWS:
             rs = [r for r in rows if r["M"] == M]
             log(f"[time] {name} M={M}: " + ", ".join(
-                f"{r['site']} {r['ms']:.4f}ms (bound {r['bound_ms']:.4f} "
+                f"{r['site']} {r['ms']:.4f}ms ({r['route']}"
+                + "".join(f"; {o} route {ms:.4f}"
+                          for o, ms in r.get("other_routes_ms", {}).items())
+                + f") (bound {r['bound_ms']:.4f} "
                 f"{r['bound_by']}, plain {r['plain_ms']:.3f}"
                 + (f", library {r['library_ms']:.4f}"
                    if r["library_ms"] is not None else "") + ")"
@@ -1303,6 +1556,8 @@ def kernel_times(dev, peaks: dict) -> dict:
             log(f"[time] {name} M={M} one layer (7 sites): kernel "
                 f"{layer['ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms, "
                 f"plain {layer['plain_ms']:.3f} ms{lib}")
+    log("[time] codebook_matmul share of its parity limit by route (phase 3): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(shares.items())))
     return res
 
 
@@ -1337,7 +1592,7 @@ def main() -> int:
     vocab = configs.get("qwen3-1.7b").vocab
     prompts, chats = prompts_for(8, vocab), chat_prompts(8, vocab)
     rows = path_rows(prompts, chats, MAX_BATCH)
-    worst = parity(dev, rows)
+    worst, shares = parity(dev, sorted(set(rows) | {17}))
     worst["page_gather"] = gather_parity(dev)
     worst["act_quant"], _ = act_quant_parity(dev, rows)
     worst["kmeans_assign"] = kmeans_parity(dev)
@@ -1351,7 +1606,7 @@ def main() -> int:
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
                                                 peaks)
     torch.cuda.empty_cache()
-    times = kernel_times(dev, peaks)
+    times = kernel_times(dev, peaks, shares)
     g_times = gather_times(dev, peaks)
     a_times = act_quant_times(dev, peaks)
 
@@ -1383,10 +1638,17 @@ def main() -> int:
             head = next(r for r in times[kname]
                         if (r["M"], r["K"], r["N"]) == MAIN_SHAPE)
             shape = {"M": MAIN_SHAPE[0], "K": MAIN_SHAPE[1],
-                     "N": MAIN_SHAPE[2], "ids": "int16", "x": "bfloat16"}
+                     "N": MAIN_SHAPE[2], "ids": "int16", "x": "bfloat16",
+                     "kernel_route": head["route"]}
             shapes = times[kname]
+            if kname == "lut_matmul":     # w1 of the middle layer, decode
+                w1 = list(SITES).index("w1")
+                shape["path_ids_ms"] = {
+                    r: stats["lut_path_ids"][f"decode site {w1} {r}"]
+                    for r in ("planned", "smem", "l2")}
         kernels.append({
             "name": kname, "route": "cuda",
+            "kernel_route": head.get("route", "cuda"),
             "source": f"src/repro_torch/csrc/{kname}.cu",
             "replaces": TPU_KERNELS[kname],
             "launches": sum(by_path[kname].values()),

@@ -5,19 +5,34 @@
 // (int8 for |W| <= 256, int16 up to 65536, int32 beyond) and are dequantized
 // on chip through a codebook held in shared memory.
 //
-// What bounds it: at the decode shapes of the serving path (M = 1..4 rows)
-// the kernel must stream the K x N id matrix once and does 2 flops per id and
-// row, so it is bound by device-memory bytes, and the ids are the bytes.  At
-// prefill shapes (M = 32..256) the same ids feed more rows and the FMA pipe
-// starts to matter.
+// What bounds it: the kernel must stream the K x N id matrix once; at every
+// row count the serving path gives it (M <= 256) that takes longer than the
+// 2MKN products at the bf16 tensor-core rate, so the bound is device-memory
+// bytes, and the ids are the bytes.  PERF.md has the measured times; what
+// keeps the kernel from its bound (per-block set-up and reduction, and at
+// decode too few blocks to keep enough loads in flight) is written there.
 //
-// What the design does about that: every id is read from device memory once
-// per row tile (the row tile covers all of M at decode), converted in shared
-// memory, and reused from there by every row of the tile.  Few output tiles
-// exist at small M, so K is split across blockIdx.z to put enough blocks on
-// the 132 SMs; each split writes its own partial plane and a second kernel
-// sums the planes in split order, so the result does not depend on
-// scheduling.  This is a plain FMA tile kernel; wgmma/TMA come later.
+// Two routes, picked by kernels/_common.py::codebook_plan from the shape,
+// the dtype of x and the alignment of the rows:
+//
+// * mma (bf16 x, 16-byte aligned rows, every M): tensor cores.  A block owns
+//   16 (M <= 16) or 64 rows and 64 columns; each 128-deep stage, its threads
+//   load 16-byte chunks of x and of the raw ids straight into registers two
+//   stages ahead, dequantize the ids to bf16 into a padded shared-memory
+//   tile that ldmatrix.trans reads without bank conflicts, and 8 warps each
+//   run a 16-deep slice with mma.sync.m16n8k16 (bf16 in, f32 accumulate;
+//   the tensor cores add in their own order).  The warps' sums meet in warp
+//   order.  Register loads, not per-thread cp.async rings: on the H100 the
+//   rings streamed the same ids more slowly.
+// * fma (f32 x, and bf16 rows that are not 16-byte aligned): a plain FMA
+//   tile of 64 x 64 outputs, 32 K rows a stage.
+//
+// Few output tiles: K is split across blocks (every split a whole number of
+// 32-deep stages, at most 8 splits), and the splits of a tile form one
+// thread block cluster: each block adds one slice of the tile over the
+// cluster's blocks through distributed shared memory, in rank order
+// (common.cuh).  So the result does not depend on scheduling, and neither a
+// second launch nor float atomics touch the values.
 //
 // Numerics: each codebook entry is rounded to x's dtype before the product
 // (codebook_matmul.py casts w to x.dtype), products and sums are f32.  For
@@ -29,15 +44,11 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBN = 64;                    // output columns per block (one per thread column)
-constexpr int kBK = 32;                    // K depth of one shared-memory stage
-constexpr int kRowGroups = kThreads / kBN; // 4 thread rows
 
 __device__ __forceinline__ float load_x(const float* p) { return *p; }
 __device__ __forceinline__ float load_x(const __nv_bfloat16* p) { return __bfloat162float(*p); }
@@ -48,50 +59,272 @@ __device__ __forceinline__ float as_x_dtype(float v, const __nv_bfloat16*) {
     return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename XT, typename IT, int BM>
-__global__ void __launch_bounds__(kThreads)
-codebook_matmul_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
-                       const float* __restrict__ codebook, float* __restrict__ out,
-                       int M, int K, int N, int n_book, int k_chunk) {
-    constexpr int RPT = BM / kRowGroups;   // rows per thread
-    extern __shared__ float book_s[];      // n_book entries, already in x's dtype
-    __shared__ float xs[kBK][BM];
-    __shared__ float ws[kBK][kBN];
+__device__ __forceinline__ int canon(int id, int n_book) {
+    if (id < 0) id += n_book;
+    return min(max(id, 0), n_book - 1);
+}
+
+// ------------------------------------------------------------------- mma route
+
+constexpr int kMmaThreads = 256;                 // 8 warps, each a 16-deep slice of a stage
+constexpr int kMmaWarps = kMmaThreads / 32;
+constexpr int kMBN = 64, kMSK = 128;             // columns a block, K rows a stage
+constexpr int kAStride = kMSK + 8;               // 272-byte rows: ldmatrix conflict-free
+constexpr int kStride = kMBN + 8;                // 144-byte rows: ldmatrix.trans conflict-free
+constexpr int kRedStride = kMBN + 8;             // f32 sums: float2 stores conflict-free
+
+template <int BM>
+struct MmaTile {
+    static constexpr size_t A = (size_t)BM * kAStride * 2;    // x of a stage, bf16
+    static constexpr size_t B = (size_t)kMSK * kStride * 2;   // dequantized ids, bf16
+};
+
+template <int BM>
+size_t mma_smem(int n_book) {
+    return 2 * (MmaTile<BM>::A + MmaTile<BM>::B) + (size_t)BM * kRedStride * 4 +
+           (((size_t)n_book * 2 + 15) & ~(size_t)15);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(csrc::smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(csrc::smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A block owns a (BM x 64) output tile and a K split.  Each 128-deep stage:
+// every thread loads 16-byte chunks of x and of the raw ids into registers
+// two stages ahead, dequantizes the ids through the bf16 codebook in shared
+// memory into a padded bf16 tile, and the 8 warps each run the stage's
+// 16-deep slice on the tensor cores (ldmatrix, ldmatrix.trans,
+// mma.m16n8k16); the warps' sums meet in warp order at the end.
+template <typename IT, int BM>
+__global__ void __launch_bounds__(kMmaThreads)
+mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
+           const float* __restrict__ codebook, float* __restrict__ out, int M, int K, int N,
+           int n_book, int k_chunk) {
+    constexpr int IDS16 = 16 / (int)sizeof(IT);            // ids in one 16-byte chunk
+    constexpr int CPR = kMBN / IDS16;                       // id chunks a row of the tile
+    constexpr int NID = kMSK * CPR / kMmaThreads;           // id chunks a thread a stage
+    constexpr int NX = BM * (kMSK / 8) / kMmaThreads;       // x chunks a thread a stage
+    constexpr int MT = BM / 16;
+    static_assert(NID >= 1 && NX >= 1, "tile");
+    extern __shared__ __align__(16) unsigned char msm[];
+    __nv_bfloat16* a_s[2];
+    __nv_bfloat16* b_s[2];
+    a_s[0] = reinterpret_cast<__nv_bfloat16*>(msm);
+    a_s[1] = a_s[0] + BM * kAStride;
+    b_s[0] = a_s[1] + BM * kAStride;
+    b_s[1] = b_s[0] + kMSK * kStride;
+    float* red = reinterpret_cast<float*>(b_s[1] + kMSK * kStride);   // [BM][kRedStride]
+    __nv_bfloat16* book_h = reinterpret_cast<__nv_bfloat16*>(red + BM * kRedStride);
+
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int n0 = blockIdx.x * kMBN, m0 = blockIdx.y * BM, z = blockIdx.z;
+    const int k_begin = z * k_chunk, k_end = min(K, k_begin + k_chunk);
+    const int n_steps = max(0, (k_end - k_begin + kMSK - 1) / kMSK);
+    const int rows = min(BM, M - m0), cols = min(kMBN, N - n0);
+
+    auto load = [&](int step, uint4 (&xr)[NX], uint4 (&ir)[NID]) {
+        const int k0 = k_begin + step * kMSK;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            const int c = tid + i * kMmaThreads, r = c / (kMSK / 8), k = k0 + (c % (kMSK / 8)) * 8;
+            xr[i] = r < rows && k < k_end
+                        ? __ldg(reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k))
+                        : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int i = 0; i < NID; ++i) {
+            const int c = tid + i * kMmaThreads, r = c / CPR, n = n0 + (c % CPR) * IDS16;
+            const int k = k0 + r;
+            ir[i] = k < k_end && n < N
+                        ? __ldg(reinterpret_cast<const uint4*>(w_idx + (size_t)k * N + n))
+                        : make_uint4(0u, 0u, 0u, 0u);
+        }
+    };
+    auto store = [&](int step, int buf, const uint4 (&xr)[NX], const uint4 (&ir)[NID]) {
+        const int k0 = k_begin + step * kMSK;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) {
+            const int c = tid + i * kMmaThreads, r = c / (kMSK / 8), kc = (c % (kMSK / 8)) * 8;
+            *reinterpret_cast<uint4*>(a_s[buf] + r * kAStride + kc) = xr[i];
+        }
+#pragma unroll
+        for (int i = 0; i < NID; ++i) {
+            const int c = tid + i * kMmaThreads, r = c / CPR, cc = (c % CPR) * IDS16;
+            IT ids[IDS16];
+            memcpy(ids, &ir[i], sizeof(ids));
+            __align__(16) __nv_bfloat16 w[IDS16];
+            const bool k_in = k0 + r < k_end;   // the K tail is zero on both operands
+#pragma unroll
+            for (int j = 0; j < IDS16; ++j)
+                w[j] = k_in ? book_h[canon((int)ids[j], n_book)] : __float2bfloat16_rn(0.f);
+            __nv_bfloat16* dst = b_s[buf] + r * kStride + cc;
+#pragma unroll
+            for (int h = 0; h < IDS16 / 8; ++h)
+                reinterpret_cast<uint4*>(dst)[h] = reinterpret_cast<const uint4*>(w)[h];
+            if constexpr (IDS16 == 4)
+                *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(w);
+        }
+    };
+
+    uint4 xa[NX], ia[NID], xb[NX], ib[NID];
+    if (n_steps > 0) load(0, xa, ia);
+    if (n_steps > 1) load(1, xb, ib);
+    constexpr int XB = 8;                        // codebook loads in flight a thread
+    for (int i0 = tid; i0 < n_book; i0 += kMmaThreads * XB) {
+        float v[XB];
+#pragma unroll
+        for (int u = 0; u < XB; ++u) {
+            const int i = i0 + u * kMmaThreads;
+            v[u] = i < n_book ? codebook[i] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < XB; ++u) {
+            const int i = i0 + u * kMmaThreads;
+            if (i < n_book) book_h[i] = __float2bfloat16_rn(v[u]);
+        }
+    }
+    __syncthreads();
+
+    constexpr int NT8 = kMBN / 8;                          // n8 tiles a warp
+    float acc[MT][NT8][4];
+#pragma unroll
+    for (int a = 0; a < MT; ++a)
+#pragma unroll
+        for (int b = 0; b < NT8; ++b)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[a][b][c] = 0.f;
+
+    const int j = lane >> 3, r8 = lane & 7;
+    auto mma_stage = [&](int buf) {
+        unsigned af[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+            ldsm_x4(af[mt], a_s[buf] + (mt * 16 + (j & 1) * 8 + r8) * kAStride + warp * 16 +
+                                (j >> 1) * 8);
+#pragma unroll
+        for (int np = 0; np < NT8 / 2; ++np) {
+            unsigned bf[4];
+            ldsm_x4_t(bf, b_s[buf] + (warp * 16 + (j & 1) * 8 + r8) * kStride + np * 16 +
+                              (j >> 1) * 8);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                mma_bf16(acc[mt][np * 2], af[mt], bf[0], bf[1]);
+                mma_bf16(acc[mt][np * 2 + 1], af[mt], bf[2], bf[3]);
+            }
+        }
+    };
+    // two register buffers alternate, so two stages of loads are in flight
+    for (int step = 0; step < n_steps; step += 2) {
+        store(step, 0, xa, ia);
+        if (step + 2 < n_steps) load(step + 2, xa, ia);
+        __syncthreads();
+        mma_stage(0);
+        if (step + 1 < n_steps) {
+            store(step + 1, 1, xb, ib);
+            if (step + 3 < n_steps) load(step + 3, xb, ib);
+            __syncthreads();
+            mma_stage(1);
+        }
+    }
+
+    // the warps' sums, in warp order
+    const int g = lane >> 2, t4 = lane & 3;
+    for (int w = 0; w < kMmaWarps; ++w) {
+        if (warp == w) {
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int nt = 0; nt < NT8; ++nt)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h) {
+                        float2* r = reinterpret_cast<float2*>(
+                            red + (mt * 16 + g + h * 8) * kRedStride + nt * 8 + t4 * 2);
+                        float2 v = make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+                        if (w > 0) {
+                            const float2 o = *r;
+                            v = make_float2(o.x + v.x, o.y + v.y);
+                        }
+                        *r = v;
+                    }
+        }
+        __syncthreads();
+    }
+
+    if (gridDim.z == 1) {
+        for (int i = tid; i < rows * kMBN; i += kMmaThreads) {
+            const int m = i / kMBN, c = i - m * kMBN;
+            if (c < cols) out[(size_t)(m0 + m) * N + n0 + c] = red[m * kRedStride + c];
+        }
+        return;
+    }
+    csrc::cluster_sum(red, out, rows, kRedStride, cols, m0, n0, N);   // the splits of this tile
+}
+
+// ------------------------------------------------------------------- fma route
+
+constexpr int kFmaThreads = 256;
+constexpr int kFBM = 64, kFBN = 64, kFBK = 32;
+constexpr int kRowGroups = kFmaThreads / kFBN;   // 4 thread rows
+
+template <typename XT, typename IT>
+__global__ void __launch_bounds__(kFmaThreads)
+fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
+           const float* __restrict__ codebook, float* __restrict__ out, int M, int K, int N,
+           int n_book, int k_chunk) {
+    constexpr int RPT = kFBM / kRowGroups;   // rows per thread
+    extern __shared__ float book_s[];        // n_book entries, already in x's dtype
+    // a stage's x [kFBK][kFBM] and weights [kFBK][kFBN]; then the block's
+    // sums [kFBM][kFBN]
+    __shared__ __align__(16) float tile_s[2 * kFBK * kFBM];
+    float (*xs)[kFBM] = reinterpret_cast<float (*)[kFBM]>(tile_s);
+    float (*ws)[kFBN] = reinterpret_cast<float (*)[kFBN]>(tile_s + kFBK * kFBM);
+    static_assert(2 * kFBK * kFBM >= kFBM * kFBN, "the sums reuse the tiles");
 
     const int tid = threadIdx.x;
-    const int tx = tid % kBN, ty = tid / kBN;
-    const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * BM;
+    const int tx = tid % kFBN, ty = tid / kFBN;
+    const int n0 = blockIdx.x * kFBN, m0 = blockIdx.y * kFBM;
     const int k_begin = blockIdx.z * k_chunk;
     const int k_end = min(K, k_begin + k_chunk);
 
-    for (int i = tid; i < n_book; i += kThreads) book_s[i] = as_x_dtype(codebook[i], x);
+    for (int i = tid; i < n_book; i += kFmaThreads) book_s[i] = as_x_dtype(codebook[i], x);
     __syncthreads();
 
     float acc[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) acc[r] = 0.f;
 
-    for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-        for (int i = tid; i < BM * kBK; i += kThreads) {
-            const int mm = i / kBK, kk = i % kBK;
+    for (int k0 = k_begin; k0 < k_end; k0 += kFBK) {
+        for (int i = tid; i < kFBM * kFBK; i += kFmaThreads) {
+            const int mm = i / kFBK, kk = i % kFBK;
             const int m = m0 + mm, k = k0 + kk;
             xs[kk][mm] = (m < M && k < k_end) ? load_x(x + (size_t)m * K + k) : 0.f;
         }
-        for (int i = tid; i < kBK * kBN; i += kThreads) {
-            const int kk = i / kBN, nn = i % kBN;
+        for (int i = tid; i < kFBK * kFBN; i += kFmaThreads) {
+            const int kk = i / kFBN, nn = i % kFBN;
             const int k = k0 + kk, n = n0 + nn;
-            float w = 0.f;
-            if (k < k_end && n < N) {
-                int id = (int)w_idx[(size_t)k * N + n];
-                if (id < 0) id += n_book;
-                id = min(max(id, 0), n_book - 1);
-                w = book_s[id];
-            }
-            ws[kk][nn] = w;
+            ws[kk][nn] = (k < k_end && n < N) ? book_s[canon((int)w_idx[(size_t)k * N + n], n_book)]
+                                              : 0.f;
         }
         __syncthreads();
 #pragma unroll 8
-        for (int kk = 0; kk < kBK; ++kk) {
+        for (int kk = 0; kk < kFBK; ++kk) {
             const float w = ws[kk][tx];
 #pragma unroll
             for (int r = 0; r < RPT; ++r) acc[r] = fmaf(xs[kk][ty * RPT + r], w, acc[r]);
@@ -99,57 +332,89 @@ codebook_matmul_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
         __syncthreads();
     }
 
-    float* dst = out + (size_t)blockIdx.z * M * N;
-    const int n = n0 + tx;
-    if (n < N) {
+    const int rows = min(kFBM, M - m0), cols = min(kFBN, N - n0);
+    if (gridDim.z == 1) {
+        const int n = n0 + tx;
+        if (n < N) {
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-            const int m = m0 + ty * RPT + r;
-            if (m < M) dst[(size_t)m * N + n] = acc[r];
+            for (int r = 0; r < RPT; ++r) {
+                const int m = m0 + ty * RPT + r;
+                if (m < M) out[(size_t)m * N + n] = acc[r];
+            }
         }
+        return;
     }
+    float* red = tile_s;                     // the stage loop ended on a barrier
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) red[(ty * RPT + r) * kFBN + tx] = acc[r];
+    csrc::cluster_sum(red, out, rows, kFBN, cols, m0, n0, N);   // the splits of this tile
 }
 
-template <typename XT>
-cudaError_t launch(const void* x, int idx_bytes, const void* w_idx, const float* codebook,
-                   float* dst, int M, int K, int N, int n_book, int bm, int splits,
-                   int k_chunk, cudaStream_t stream) {
-    return csrc::with_id_type(idx_bytes, [&](auto id) {
-        using IT = decltype(id);
-        return csrc::with_rows_per_block(bm, [&](auto rows) {
-            constexpr int BM = decltype(rows)::value;
-            auto kernel = codebook_matmul_kernel<XT, IT, BM>;
-            const size_t smem = (size_t)n_book * sizeof(float);
-            // static tiles take 16 KB at BM = 64; past 48 KB in all the
-            // dynamic part needs the opt-in
-            if (smem > 32 * 1024) {
-                cudaError_t e = cudaFuncSetAttribute(
-                    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-                if (e != cudaSuccess) return e;
-            }
-            dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM, splits);
-            kernel<<<grid, kThreads, smem, stream>>>(static_cast<const XT*>(x),
-                                                     static_cast<const IT*>(w_idx), codebook,
-                                                     dst, M, K, N, n_book, k_chunk);
-            return cudaGetLastError();
-        });
-    });
+enum Route { kMma = 0, kFma = 1 };
+
+template <typename XT, typename IT>
+cudaError_t launch(int route, const void* x, const void* w_idx, const float* codebook, float* out,
+                   int M, int K, int N, int n_book, int bm, int splits, int k_chunk, int vec_ok,
+                   cudaStream_t s) {
+    const XT* xp = static_cast<const XT*>(x);
+    const IT* wp = static_cast<const IT*>(w_idx);
+    // the splits of a tile form one cluster: at most 8 (the portable size),
+    // each a whole number of 32-deep stages covering K
+    if (splits < 1 || splits > 8 || k_chunk <= 0 || k_chunk % 32 ||
+        (long long)(splits - 1) * k_chunk >= K || (long long)splits * k_chunk < K)
+        return cudaErrorInvalidValue;
+    const dim3 cluster(1, 1, splits);
+    if (route == kMma) {
+        // 16-byte loads of x and of the id rows
+        if (!std::is_same<XT, __nv_bfloat16>::value || !vec_ok || K % 8) return cudaErrorInvalidValue;
+        auto go = [&](auto kernel, size_t smem, int bm_) -> cudaError_t {
+            cudaError_t e = csrc::allow_smem(kernel, smem);
+            if (e != cudaSuccess) return e;
+            return csrc::launch_clustered(
+                kernel, dim3((N + kMBN - 1) / kMBN, (M + bm_ - 1) / bm_, splits),
+                dim3(kMmaThreads), smem, s, cluster,
+                reinterpret_cast<const __nv_bfloat16*>(xp), wp, codebook, out, M, K, N, n_book,
+                k_chunk);
+        };
+        if (bm == 16) return go(mma_kernel<IT, 16>, mma_smem<16>(n_book), 16);
+        if (bm == 64) return go(mma_kernel<IT, 64>, mma_smem<64>(n_book), 64);
+        return cudaErrorInvalidValue;
+    }
+    if (route == kFma) {
+        if (bm != kFBM) return cudaErrorInvalidValue;
+        auto kernel = fma_kernel<XT, IT>;
+        const size_t smem = (size_t)n_book * sizeof(float);
+        cudaError_t e = csrc::allow_smem(kernel, smem);
+        if (e != cudaSuccess) return e;
+        return csrc::launch_clustered(kernel,
+                                      dim3((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM, splits),
+                                      dim3(kFmaThreads), smem, s, cluster, xp, wp, codebook, out,
+                                      M, K, N, n_book, k_chunk);
+    }
+    return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// x_is_bf16: 0 = f32 x, 1 = bf16 x.  idx_bytes: 1, 2 or 4.  bm: rows per block (4, 16, 64).
-// partial: (splits, M, N) f32 scratch when splits > 1, else unused (may be null).
-// Returns cudaGetLastError() after the launches (0 = success).
+// x_is_bf16: 0 = f32 x, 1 = bf16 x.  idx_bytes: 1, 2 or 4.  route: 0 mma
+// (bf16 x, bm 16 or 64), 1 fma (bm 64), as kernels/_common.py::codebook_plan
+// picks them.  splits: K splits of k_chunk rows (a multiple of 32), at most
+// 8; the splits of a tile meet in one thread block cluster.  vec_ok: the
+// rows of x and of w_idx may be read as 16-byte vectors (the mma route needs
+// it).  One launch; returns cudaErrorInvalidValue for parameters the routes
+// do not take, else cudaGetLastError() after it (0 = success).
 extern "C" int codebook_matmul_launch(const void* x, int x_is_bf16, const void* w_idx,
                                       int idx_bytes, const float* codebook, int n_book,
-                                      float* out, float* partial, int M, int K, int N,
-                                      int bm, int splits, int k_chunk, void* stream) {
+                                      float* out, int M, int K, int N, int route, int bm,
+                                      int splits, int k_chunk, int vec_ok, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    float* dst = splits > 1 ? partial : out;
-    cudaError_t e = x_is_bf16
-        ? launch<__nv_bfloat16>(x, idx_bytes, w_idx, codebook, dst, M, K, N, n_book, bm, splits, k_chunk, s)
-        : launch<float>(x, idx_bytes, w_idx, codebook, dst, M, K, N, n_book, bm, splits, k_chunk, s);
-    if (e == cudaSuccess && splits > 1) e = csrc::sum_splits(partial, out, splits, (size_t)M * N, s);
+    cudaError_t e = csrc::with_id_type(idx_bytes, [&](auto id) {
+        using IT = decltype(id);
+        return x_is_bf16
+            ? launch<__nv_bfloat16, IT>(route, x, w_idx, codebook, out, M, K, N, n_book, bm,
+                                        splits, k_chunk, vec_ok, s)
+            : launch<float, IT>(route, x, w_idx, codebook, out, M, K, N, n_book, bm, splits,
+                                k_chunk, vec_ok, s);
+    });
     return (int)e;
 }

@@ -3,15 +3,18 @@
 Replaces ``repro/kernels/codebook_matmul.py::codebook_matmul_kernel`` (the
 Pallas TPU kernel, reached through ``codebook_matmul_pallas``).  The CUDA
 kernel is ``csrc/codebook_matmul.cu``; its header says what bounds it on the
-card (device-memory bytes of the narrow id matrix at decode shapes) and what
-its design does about that (ids read once per row tile and dequantized
-through a codebook held in shared memory, K split across blocks when output
-tiles are few, partial planes summed in a fixed order).
+card (device-memory bytes of the narrow id matrix, at every row count the
+serving path gives it) and its two routes: tensor cores for bf16 x with
+16-byte aligned rows at every M (ids dequantized to bf16 in shared memory,
+``mma.sync``), and an FMA tile for the rest (f32 x on the reduced model).
+``_common.codebook_plan`` picks the route and the K split; the splits of a
+tile meet in one thread block cluster of the same launch, in a fixed
+order.
 
 ``codebook_matmul_plain`` is the same function in plain PyTorch: the CPU
 path, and what ``chip_smoke.py`` holds the kernel against on the card,
-within ``parity_tolerance``.  ``codebook_matmul_cuda`` launches the kernel; it is never replaced by the
-plain version.
+within ``parity_tolerance``.  ``codebook_matmul_cuda`` launches the kernel;
+it is never replaced by the plain version.
 """
 
 from __future__ import annotations
@@ -22,10 +25,12 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels._common import canonical_idx, launch_tiling
+from repro_torch.kernels._common import (MAX_CLUSTER, Plan, canonical_idx,
+                                        check_plan, codebook_plan, is_aligned,
+                                        sm_count)
 
 __all__ = ["codebook_matmul_plain", "codebook_matmul_cuda", "parity_tolerance",
-           "MAX_BOOK"]
+           "plan_for", "MAX_BOOK"]
 
 MAX_BOOK = 16384                       # codebook entries held in shared memory
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -72,18 +77,39 @@ def _lib():
     fn = lib.codebook_matmul_launch
     if fn.argtypes is None:
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp,
-                       ci, ci, ci, ci, ci, ci, vp]
+        fn.argtypes = [vp, ci, vp, ci, vp, ci, vp,
+                       ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
     return fn
 
 
+_ROUTES = ("mma", "fma")                   # codebook_matmul.cu's Route
+
+
+def _plan(x: torch.Tensor, w_idx: torch.Tensor):
+    M, K = x.shape
+    N = w_idx.shape[1]
+    vec_ok = is_aligned(w_idx, N) and is_aligned(x, K)
+    return codebook_plan(M, K, N, bf16=x.dtype == torch.bfloat16,
+                         vec_ok=vec_ok, sms=sm_count(x.device)), vec_ok
+
+
+def plan_for(x: torch.Tensor, w_idx: torch.Tensor) -> Plan:
+    """The route and tiling ``codebook_matmul_cuda`` takes for these CUDA
+    operands."""
+    return _plan(x, w_idx)[0]
+
+
 def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
-                         codebook: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on CUDA tensors; (M, N) f32.
+                         codebook: torch.Tensor, plan: Plan | None = None
+                         ) -> torch.Tensor:
+    """Launch the CUDA kernel on CUDA tensors; (M, N) f32.  ``plan``
+    overrides the planned route and tiling (``_common.codebook_plan`` with
+    other arguments), for holding each route against the plain version.
 
     Raises on anything the kernel does not take (device, dtype, shape,
-    contiguity, codebook size) and when the launch reports an error.
+    contiguity, codebook size, a plan these operands cannot take) and when
+    the launch reports an error.
     """
     if not (x.is_cuda and w_idx.is_cuda and codebook.is_cuda):
         raise ValueError("codebook_matmul_cuda takes CUDA tensors")
@@ -107,14 +133,17 @@ def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0 or K == 0:
         return out.zero_()
-    bm, splits, k_chunk = launch_tiling(M, K, N, x.device)
-    part = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    planned, vec_ok = _plan(x, w_idx)
+    if plan is None:
+        plan = planned
+    else:
+        mma_ok = x.dtype == torch.bfloat16 and vec_ok and K % 8 == 0
+        check_plan(plan, K, {"mma": mma_ok and plan.bm in (16, 64),
+                             "fma": plan.bm == 64}, MAX_CLUSTER)
     err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                  w_idx.data_ptr(), w_idx.element_size(), codebook.data_ptr(),
-                 n_book, out.data_ptr(),
-                 part.data_ptr() if part is not None else None,
-                 M, K, N, bm, splits, k_chunk,
+                 n_book, out.data_ptr(), M, K, N, _ROUTES.index(plan.route),
+                 plan.bm, plan.splits, plan.k_chunk, int(vec_ok),
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"codebook_matmul kernel launch failed: "

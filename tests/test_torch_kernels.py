@@ -19,6 +19,7 @@ from repro_torch.kernels import codebook_matmul as cm  # noqa: E402
 from repro_torch.kernels import kmeans1d as km  # noqa: E402
 from repro_torch.kernels import lut_matmul as lm  # noqa: E402
 from repro_torch.kernels import page_gather as pg  # noqa: E402
+from repro_torch.kernels import _common  # noqa: E402
 from repro_torch.kernels._common import canonical_idx  # noqa: E402
 
 torch.set_num_threads(2)
@@ -152,6 +153,152 @@ def test_lut_overflow_adjacent(J, k):
         got, np.asarray(J.ref.lut_matmul_ref(ja, jw, jt)))
 
 
+def _lut_out_of_range_case(seed, m=6, k=300, n=40, R=9, C=65):
+    """Ids the flat address a·C + w must carry through: int16 w ≥ C (the
+    next row) and w < −C (still negative after canonicalization), row ids
+    ≥ R and < −R, and rows near 2³¹/C whose scaled id wraps int32; table
+    entries near 2²⁵, so that 300 terms wrap the int32 sums too."""
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, R, (m, k)).astype(np.int64)
+    a[0, ::3] = rng.integers(R, 4 * R, a[0, ::3].shape)            # a ≥ R
+    a[1, ::5] = rng.integers(-4 * R, -R, a[1, ::5].shape)          # a < −R
+    a[2, ::7] = (1 << 31) // C + rng.integers(-2, 3, a[2, ::7].shape)
+    w = rng.integers(0, C, (k, n)).astype(np.int64)
+    w[::4, 0::3] = rng.integers(C, 3 * C, w[::4, 0::3].shape)      # w ≥ C
+    w[1::4, 1::3] = rng.integers(-3 * C, -C, w[1::4, 1::3].shape)  # w < −C
+    w[2::4, 2::3] = rng.integers(-C, 0, w[2::4, 2::3].shape)       # stored negative
+    t = rng.integers(-(1 << 25), 1 << 25, (R, C)).astype(np.int32)
+    return a.astype(np.int32), w.astype(np.int16), t
+
+
+def test_lut_out_of_range_ids_match_pallas(J):
+    """The flat-address semantics a shared-memory row must keep: terms whose
+    w lies outside [0, C) or whose row lies outside the table, and int32
+    wrap of the scaled row id, bit for bit against the Pallas kernel."""
+    a, w, t = _lut_out_of_range_case(21)
+    got = lm.lut_matmul_plain(torch.from_numpy(a), torch.from_numpy(w),
+                              torch.from_numpy(t)).numpy()
+    ja, jw, jt = (J.jnp.asarray(v) for v in (a, w, t))
+    pallas = np.asarray(J.lut_matmul_pallas(ja, jw, jt, bm=8, bn=16, bk=16,
+                                            interpret=True))
+    np.testing.assert_array_equal(got, pallas)
+    # the case reaches every kind of address: clamped low and high, another
+    # row than a's, and a wrapped row offset
+    aa = a.astype(np.int64)
+    ac = np.where(aa < 0, aa + t.shape[0], aa) * t.shape[1]
+    wc = np.where(w < 0, w.astype(np.int64) + t.shape[1], w)
+    flat = ((ac[:, :, None] + wc[None]) + (1 << 31)) % (1 << 32) - (1 << 31)
+    assert (flat < 0).any() and (flat >= t.size).any()
+    assert ((wc >= t.shape[1]) | (wc < 0)).any()
+    assert (ac >= 1 << 31).any()
+
+
+SERVE_ROWS = (1, 4, 8, 16, 32, 64, 256)
+SERVE_SITES = ((2048, 2048), (2048, 1024), (2048, 6144), (6144, 2048))
+
+
+@pytest.mark.parametrize("M", SERVE_ROWS)
+@pytest.mark.parametrize("idx_bytes", [1, 2, 4])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_codebook_plan_routes(M, idx_bytes, bf16):
+    """Each row count the serving path gives maps to its route: tensor
+    cores for bf16 x with 16-byte aligned rows (16 rows a block at M ≤ 16,
+    64 beyond), the FMA tile for the rest (f32 x, or rows of ids or of x
+    that are not 16-byte aligned: int8 ids at N = 130); every split is a
+    whole number of stages, the splits cover K once and are at most the 8
+    blocks of one cluster, and the grid puts a block on nearly every one of
+    the 132 SMs, unless the limit of 8 splits binds first; the mma route
+    splits K as far as one wave of blocks allows (two an SM at 16 rows, one
+    at 64)."""
+    for K, N in SERVE_SITES + ((100, 130),):
+        x_bytes = 2 if bf16 else 4
+        aligned = (N * idx_bytes) % 16 == 0 and (K * x_bytes) % 16 == 0
+        for vec_ok in {aligned, False}:
+            p = _common.codebook_plan(M, K, N, bf16=bf16, vec_ok=vec_ok,
+                                      sms=132)
+            want = "mma" if bf16 and vec_ok and K % 8 == 0 else "fma"
+            assert p.route == want, (M, K, N, p)
+            assert p.bm == (64 if p.route == "fma" or M > 16 else 16)
+            assert 1 <= p.splits <= _common.MAX_CLUSTER
+            assert p.k_chunk % p.stage == 0 and p.stage == _common.STAGE
+            assert (p.splits - 1) * p.k_chunk < K <= p.splits * p.k_chunk
+            if (K, N) != (100, 130):
+                blocks = p.tiles * p.splits
+                if p.route == "mma":   # one wave of 2 (16 rows) or 1 blocks an SM
+                    per_sm = 2 if p.bm == 16 else 1
+                    assert p.splits == 1 or blocks <= per_sm * 132, p
+                    assert p.splits == 8 or (p.splits + 1) * p.tiles > per_sm * 132, p
+                else:
+                    assert blocks >= min(128, 8 * p.tiles), p
+
+
+@pytest.mark.parametrize("M", SERVE_ROWS)
+@pytest.mark.parametrize("idx_bytes", [1, 2, 4])
+def test_lut_plan_routes(M, idx_bytes):
+    """Tables of the serving path (|W| 256 and 1000) stage their rows in
+    shared memory, in a ring of at least two stages that fits a block and
+    with the rows a block stages used by at least 512 columns at the serving
+    sites, except at M ≤ 4 on sites of at most 1024 columns, which look up
+    through L2; rows too long for two stages take the L2 route.  Splits as
+    for codebook."""
+    for K, N in SERVE_SITES + ((100, 130),):
+        for C in (256, 1000):
+            planned = _common.lut_plan(M, K, N, n_cols=C,
+                                       idx_bytes=idx_bytes, sms=132)
+            narrow = M <= 4 and N <= _common.LUT_L2_MAX_N
+            assert planned.route == ("l2" if narrow else "smem"), \
+                (M, K, N, C, planned)
+            p = _common.lut_plan(M, K, N, n_cols=C, idx_bytes=idx_bytes,
+                                 sms=132, route="smem")
+            assert p.route == "smem" and (narrow or p == planned)
+            assert p.bm >= min(M, 16) and 2 <= p.stages <= _common.LUT_MAX_STAGES
+            assert p.threads % 32 == 0 and p.threads <= \
+                _common.lut_max_threads(p.bm, idx_bytes)
+            vec = min(16 // idx_bytes, 128 // p.bm)
+            stage = _common.lut_stage_bytes(p.bm, C)
+            assert max(p.stages * stage, p.bm * p.threads * vec * 4) \
+                <= _common.SMEM_BUDGET
+            if (K, N) != (100, 130):
+                assert p.threads * vec >= min(N, 512)
+            assert p.k_chunk % p.stage == 0
+            assert (p.splits - 1) * p.k_chunk < K <= p.splits * p.k_chunk
+            forced = _common.lut_plan(M, K, N, n_cols=C, idx_bytes=idx_bytes,
+                                      sms=132, route="l2")
+            assert forced.route == "l2" and forced.bm >= min(M, 64)
+            assert forced.k_chunk % forced.stage == 0
+            assert (forced.splits - 1) * forced.k_chunk < K \
+                <= forced.splits * forced.k_chunk
+        p = _common.lut_plan(M, 2048, 2048, n_cols=65536,
+                             idx_bytes=idx_bytes, sms=132)
+        assert p.route == "l2" and p.k_chunk % p.stage == 0
+        with pytest.raises(ValueError, match="too long"):
+            _common.lut_plan(M, 2048, 2048, n_cols=65536,
+                             idx_bytes=idx_bytes, sms=132, route="smem")
+
+
+def test_check_plan_refuses_what_operands_cannot_take():
+    """A plan passed in by a caller is held to what the route takes before
+    any launch: mma only where the operands allow it, at most 8 splits (one
+    cluster) for codebook, every split whole stages covering K once."""
+    p = _common.codebook_plan(4, 2048, 6144, bf16=True, vec_ok=True, sms=132)
+    takes = {"mma": True, "fma": True}
+    _common.check_plan(p, 2048, takes, _common.MAX_CLUSTER)
+    with pytest.raises(ValueError, match="route"):
+        _common.check_plan(p, 2048, {"mma": False, "fma": True}, 8)
+    for bad in (p._replace(k_chunk=p.k_chunk + 8),      # not whole stages
+                p._replace(k_chunk=p.k_chunk // 2),     # K not covered
+                p._replace(splits=p.splits + 1),        # a split past K
+                p._replace(splits=16, k_chunk=128)):    # more than a cluster
+        with pytest.raises(ValueError, match="split"):
+            _common.check_plan(bad, 2048, takes, _common.MAX_CLUSTER)
+    q = _common.lut_plan(4, 2048, 6144, n_cols=1000, idx_bytes=2, sms=132,
+                         route="l2")
+    _common.check_plan(q, 2048, {"l2": True}, 1 << 30)
+    with pytest.raises(ValueError, match="split"):
+        _common.check_plan(q._replace(k_chunk=q.k_chunk - 1), 2048,
+                           {"l2": True}, 1 << 30)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     x, wi, book = _codebook_case(0, 2, 16, 8)
     with pytest.raises(ValueError):
@@ -198,36 +345,85 @@ def test_codebook_parity_tolerance(k, xdt):
 
 # every row count the serving path gives the kernels (decode at 4 slots,
 # one-request prefills at buckets 8..64, four-request prefills of 4 × 64)
-# at the four (K, N) sites of qwen3-1.7b, and a ragged shape
-CUDA_SHAPES = [(m, k, n) for m in (1, 4, 8, 16, 32, 64, 256)
+# and both sides of the mma route's 16-row tile boundary (16, 17) at the four
+# (K, N) sites of qwen3-1.7b, and a ragged shape
+CUDA_SHAPES = [(m, k, n) for m in (1, 4, 8, 16, 17, 32, 64, 256)
                for k, n in ((2048, 2048), (2048, 1024), (2048, 6144),
-                            (6144, 2048))] + [(3, 100, 130)]
+                            (6144, 2048))] + [(3, 100, 130), (40, 100, 130)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", CUDA_SHAPES)
 def test_cuda_kernels_match_plain(m, k, n):
     """Needs a GPU and nvcc: the hand-written kernels against their plain
-    versions on the card (run by ``pytest -m cuda`` on the GPU machine)."""
+    versions on the card (run by ``pytest -m cuda`` on the GPU machine),
+    int8, int16 and int32 ids, every route of both kernels (codebook: mma,
+    fma; lut: staged rows, L2); a second run bit-identical."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on the card")
     dev = torch.device("cuda")
-    for idt, W in ((np.int8, 256), (np.int16, 1000)):
+    for idt, W in ((np.int8, 256), (np.int16, 1000), (np.int32, 5000)):
         x, wi, book = _codebook_case(1, m, k, n, W=W, idt=idt)
         twi, tbook = (torch.from_numpy(v).to(dev) for v in (wi, book))
         for xdt in (torch.float32, torch.bfloat16):
             tx = torch.from_numpy(x).to(dev, xdt)
-            got = cm.codebook_matmul_cuda(tx, twi, tbook)
             want = cm.codebook_matmul_plain(tx, twi, tbook)
             tol = cm.parity_tolerance(tx, twi, tbook)
-            assert bool(((got - want).abs() <= tol).all())
+            # the planned route, and for bf16 x the route it takes without
+            # 16-byte aligned rows (the FMA tile)
+            plans = [None]
+            if xdt == torch.bfloat16:
+                plans.append(_common.codebook_plan(
+                    m, k, n, bf16=True, vec_ok=False,
+                    sms=_common.sm_count(dev)))
+            for plan in plans:
+                got = cm.codebook_matmul_cuda(tx, twi, tbook, plan=plan)
+                assert bool(((got - want).abs() <= tol).all())
+                assert torch.equal(
+                    got, cm.codebook_matmul_cuda(tx, twi, tbook, plan=plan))
             if xdt == torch.bfloat16:     # the limit catches a missing cast
                 no_cast = tx.float() @ tbook[canonical_idx(twi, W).long()]
                 assert not bool(((no_cast - want).abs() <= tol).all())
-        a, w, t = _lut_case(2, m, k, n, C=W, idt=idt)
+        a, w, t = _lut_case(2, m, k, n, C=min(W, 1000), idt=idt)
         args = [torch.from_numpy(v).to(dev) for v in (a, w, t)]
-        assert torch.equal(lm.lut_matmul_cuda(*args),
-                           lm.lut_matmul_plain(*args))
+        want = lm.lut_matmul_plain(*args)
+        for plan in _lut_plans(*args):
+            got = lm.lut_matmul_cuda(*args, plan=plan)
+            assert torch.equal(got, want)
+            assert torch.equal(got, lm.lut_matmul_cuda(*args, plan=plan))
+
+
+def _lut_plans(a, w, t):
+    """The planned lut route, then each route forced (smem where the rows
+    fit a ring)."""
+    args = (a.shape[0], a.shape[1], w.shape[1])
+    kw = dict(n_cols=t.shape[1], idx_bytes=w.element_size(),
+              sms=_common.sm_count(a.device))
+    plans = [None, _common.lut_plan(*args, **kw, route="l2")]
+    try:
+        plans.append(_common.lut_plan(*args, **kw, route="smem"))
+    except ValueError:               # rows too long to stage
+        pass
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,R,C", [(6, 300, 40, 9, 65),
+                                       (4, 2048, 1024, 4096, 1000),
+                                       (32, 2048, 1024, 4096, 1000)])
+def test_cuda_lut_out_of_range_ids(m, k, n, R, C):
+    """Needs a GPU and nvcc: the out-of-range case of
+    ``test_lut_out_of_range_ids_match_pallas`` (and at a serving site's
+    width) through the kernel, bit for bit against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    args = [torch.from_numpy(v).cuda()
+            for v in _lut_out_of_range_case(22, m, k, n, R, C)]
+    want = lm.lut_matmul_plain(*args)
+    for plan in _lut_plans(*args):
+        got = lm.lut_matmul_cuda(*args, plan=plan)
+        assert torch.equal(got, want)
+        assert torch.equal(got, lm.lut_matmul_cuda(*args, plan=plan))
 
 
 # the page shapes of the paged serving path (int8 and bf16 K/V pages of
