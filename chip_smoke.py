@@ -19,12 +19,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    is printed, and which weights left unrounded to bf16 must fail);
    page_gather bit-exact on int8/bf16/f32 K/V pages, bf16 scale pages and
    a 15-byte page, at the decode and prefill-chunk page tables, with
-   out-of-range ids; act_quant
+   out-of-range ids, and its multi-pool launch bit-identical to one launch a pool; act_quant
    in both forms (4 kinds × |A| 2, 32, 256 × f32/bf16) at every FFN row
    count of the serving paths × 6144 and odd sizes, bit-equal but for
    counted level-boundary ties; kmeans_assign (k 2, 1000, 4096 × n 1,
    4097, 10⁷, values on midpoints, duplicate centers) with exact indices
-   and counts, sums within a summation-order limit, bit-identical twice;
+   and counts, sums within a summation-order limit, bit-identical twice,
+   its sums-only form bit-identical to the full form;
 4. reduced model: a 2-layer qwen3 serves contiguous and paged (bf16 and
    int8 pages) through every backend on the card and on the CPU, with
    equal greedy tokens; then the same at the paper's working point
@@ -40,23 +41,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    random row ids of the same shapes, bit-exact on the middle layer;
 6. paged path: the same model served by ``ServeEngine(paged=True)``, page
    16, to 8 chat requests sharing a 96-token system prompt: codebook with
-   int8 and with bf16 pages, lut with int8 pages.  page_gather and matmul
-   launches per forward, prefix-cache hits, the pool's refcounts and a
-   second serve's tokens are checked, and the paged bf16 prefill logits are
-   held against the contiguous engine's;
+   int8 and with bf16 pages, lut with int8 pages.  page_gather (one
+   launch a layer) and matmul launches per forward, prefix-cache hits,
+   the pool's refcounts and a second serve's tokens are checked, and the
+   paged bf16 prefill logits are held against the contiguous engine's;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
-   (exactly 2 × 25 kmeans_assign launches), k-means MSE beside
-   laplacian_l1's, kmeans_assign at the full n against its plain version
-   (and run twice, bit-identical), then served through codebook and lut
-   (contiguous) and codebook with int8 pages, with 28 act_quant launches a
-   forward; the kernel held against its plain version on one layer's real
-   w1 outputs; decode step and serve figures beside phase 5's;
+   (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
+   MSE beside laplacian_l1's, kmeans_assign at the full n against its
+   plain version (and run twice, bit-identical; both forms), its three
+   forms timed (search alone, sums only, full), then served through
+   codebook and lut (contiguous) and codebook with int8 pages, with 28
+   act_quant launches a forward; the kernel held against its plain
+   version on one layer's real w1 outputs; decode step and serve
+   figures beside phase 5's;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
    and (codebook) torch.matmul's times, and a K-split sweep at the decode
-   shape; page_gather at the decode and prefill-chunk page tables,
+   shape; page_gather at the decode and prefill-chunk page tables, and
+   one paged layer's four pools in one launch against
+   four single-pool launches and four library calls,
    act_quant at the decode (4 × 6144) and prefill (32 × 6144) FFN shapes,
    with the bound, the plain version's and the library call's times
    (kmeans_assign's are taken in phase 7, at the full n).
@@ -147,6 +152,15 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         if queued or cycles >= 1 << 30:
             return e0.elapsed_time(e1) / reps
         cycles *= 2
+
+
+def time_turns(fns: dict, reps: int) -> dict:
+    """``time_ms`` of each callable, taken in turns (in order, then in
+    reverse) and averaged: at a few µs a call, the first timing of a
+    sequence reads some 0.1 µs high."""
+    first = {k: time_ms(f, reps=reps) for k, f in fns.items()}
+    second = {k: time_ms(fns[k], reps=reps) for k in reversed(list(fns))}
+    return {k: (first[k] + second[k]) / 2 for k in fns}
 
 
 # --- phase 3: kernel parity --------------------------------------------------
@@ -342,31 +356,65 @@ GATHER_TABLES = ((MAX_BATCH, PAGED_MAX_LEN // PAGE),      # decode
 def gather_parity(dev) -> float:
     """page_gather against its plain version, bit for bit, on one layer's
     view of a (3, n_pages, ...) pool, int32 and int64 page tables holding
-    0, negatives and ids ≥ n_pages.  Returns the max abs error (0)."""
+    0, negatives and ids ≥ n_pages (bulk copies, byte copies for the
+    15-byte page).  Then the multi-pool launch against
+    one single-pool launch a pool, bit for bit: int8, bf16 and f32 K and V
+    pages with two bf16 scale pools, and with the 15-byte page among them.
+    Returns the max abs error (0)."""
     import torch
     from repro_torch.kernels import page_gather as pg
     g = torch.Generator(device=dev).manual_seed(2)
+
+    def same(a, b):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+            a.view(torch.uint8), b.view(torch.uint8))
+
+    def table(B, P):
+        pt = torch.randint(-4, N_PAGES + 5, (B, P), generator=g, device=dev,
+                           dtype=torch.int32)
+        pt[0, :3] = torch.tensor([0, -1, N_PAGES], device=dev)
+        return pt
+
+    def layer_pool(shape, dt):
+        return torch.randint(-128, 128, (3, N_PAGES) + shape, generator=g,
+                             device=dev).to(getattr(torch, dt))[1]
+
     n = 0
     for shape, dt in GATHER_CASES:
-        full = torch.randint(-128, 128, (3, N_PAGES) + shape, generator=g,
-                             device=dev).to(getattr(torch, dt))
+        pool = layer_pool(shape, dt)
         for B, P in GATHER_TABLES:
-            pt = torch.randint(-4, N_PAGES + 5, (B, P), generator=g,
-                               device=dev, dtype=torch.int32)
-            pt[0, :3] = torch.tensor([0, -1, N_PAGES], device=dev)
+            pt = table(B, P)
             for ids in (pt, pt.long()):
-                got = pg.page_gather_cuda(full[1], ids)
-                want = pg.page_gather_plain(full[1], ids)
+                want = pg.page_gather_plain(pool, ids)
+                got = pg.page_gather_cuda(pool, ids)
                 torch.cuda.synchronize()
-                if got.shape != want.shape or not torch.equal(
-                        got.view(torch.uint8), want.view(torch.uint8)):
+                if not same(got, want):
                     raise AssertionError(f"page_gather {shape} {dt} table "
                                          f"{(B, P)}: not bit-exact")
                 n += 1
+    n_many = 0
+    for dt in ("int8", "bfloat16", "float32"):
+        kv = [layer_pool((PAGE, 8, 128), dt) for _ in range(2)]
+        sc = [layer_pool((PAGE, 8), "bfloat16") for _ in range(2)]
+        odd = layer_pool((3, 5), "int8")
+        for pools in (kv + sc, kv[:1] + [odd] + sc):
+            for B, P in GATHER_TABLES:
+                pt = table(B, P)
+                for ids in (pt, pt.long()):
+                    want = [pg.page_gather_cuda(p, ids) for p in pools]
+                    got = pg.page_gather_many_cuda(pools, ids)
+                    torch.cuda.synchronize()
+                    if not all(same(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(
+                            f"page_gather_many {dt} table {(B, P)}: not "
+                            "bit-identical to single launches")
+                    n_many += 1
     log(f"[parity] page_gather bit-exact in {n} cases: pages "
         + ", ".join(f"{s} {d}" for s, d in GATHER_CASES)
-        + f" × tables {GATHER_TABLES} × int32/int64 ids, with 0, negative "
-        f"and ≥ n_pages ({N_PAGES}) ids")
+        + f" × tables {GATHER_TABLES} × int32/int64 ids, with 0, negative and ≥ n_pages ({N_PAGES}) ids; the multi-pool launch "
+        f"bit-identical to one launch a pool in {n_many} cases (int8/bf16/"
+        f"f32 K and V pages + two bf16 scale pools, and with the 15-byte "
+        f"page among them)")
     return 0.0
 
 
@@ -406,31 +454,41 @@ def act_quant_parity(dev, rows) -> tuple[float, int]:
 
 
 def kmeans_case(values, centers) -> dict:
-    """kmeans_assign kernel against the plain version on one input: exact
-    indices and counts, a second run bit-identical, the kernel's sums
-    within ``sums_tolerance`` (16 × its tree's random-walk estimate) of
-    the f64 sums and the plain version's within their worst-case
+    """kmeans_assign kernel against the plain version on one input, in
+    both forms: exact indices and counts, a second run bit-identical, the
+    sums-only form (given the extremes the full form finds itself)
+    bit-identical to the full form's sums and counts, the kernel's sums
+    within ``sums_tolerance`` of the f64 sums (the contract) and within
+    ``fixed_point_bound`` (its own arithmetic's bound, nearly 10³ times
+    tighter at the full n), the plain version's within their worst-case
     ``sums_bound`` (its float atomics repeat their roundings on a
     cluster's few distinct values).  Returns the worst errors: kernel −
     plain, and each against the f64 sums, relative to Σ|v| and as a share
-    of its limit."""
+    of each limit."""
     import torch
     from repro_torch.kernels import kmeans1d as km
     n, k = values.numel(), centers.numel()
     got = km.kmeans_assign_cuda(values, centers)
     again = km.kmeans_assign_cuda(values, centers)
+    ext = km.finite_extremes(values)
+    stats = km.kmeans_stats_cuda(values, centers, ext)
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(got, again)):
         raise AssertionError(f"kmeans_assign n={n} k={k}: two runs differ")
-    del again
+    if not (torch.equal(stats[0], got[1]) and torch.equal(stats[1], got[2])):
+        raise AssertionError(f"kmeans_assign n={n} k={k}: the sums-only "
+                             "form differs from the full form")
+    del again, stats
     want = km.kmeans_assign_plain(values, centers)
     if not (torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])):
         raise AssertionError(f"kmeans_assign n={n} k={k}: idx or counts "
                              "differ")
     exact, abs_sum, n_c = km.exact_sums(values, want[0], k)
     out = {"max_abs_err": (got[1] - want[1]).abs().max().item()}
+    fixed = km.fixed_point_bound(exact, abs_sum, n_c, centers, ext, n)
     for name, sums, limit in (
             ("kernel", got[1], km.sums_tolerance(abs_sum, n_c, n)),
+            ("kernel_fixed_point", got[1], fixed),
             ("plain", want[1], km.sums_bound(abs_sum, n_c))):
         err = (sums.double() - exact).abs()
         if bool((err > limit).any()):
@@ -467,22 +525,23 @@ def kmeans_parity(dev) -> float:
                 n += 1
     log(f"[parity] kmeans_assign in {n} cases (k 2/1000/4096 × n 1/4097/"
         f"1e7, midpoints and centers among the values, with and without "
-        f"duplicate centers): idx and counts exact, two runs bit-identical; "
+        f"duplicate centers): idx and counts exact, two runs bit-identical, "
+        f"the sums-only form bit-identical to the full form; "
         f"sums kernel − plain max abs {worst['max_abs_err']:.3e}; against "
         f"the f64 sums, relative to Σ|v|: kernel "
         f"{worst['kernel_rel_err']:.2e} ({worst['kernel_share_of_limit']:.4f}"
-        f" of its tolerance), plain {worst['plain_rel_err']:.2e} "
+        f" of its tolerance, "
+        f"{worst['kernel_fixed_point_share_of_limit']:.4f} of its "
+        f"fixed-point bound), plain {worst['plain_rel_err']:.2e} "
         f"({worst['plain_share_of_limit']:.4f} of its bound)")
     return worst["max_abs_err"]
 
 
-def centers_agree(got, want, values) -> tuple[int, float]:
-    """Two k-means codebooks of the same values, from sums added in other
-    orders: each center within KM_RTOL of the largest, or, where a value
-    near a midpoint fell to the other side in some Lloyd step, within 4
-    neighbouring gaps over the center's count (at most 1 % of centers).
-    Returns (values whose index differs, the largest |Δ| over the
-    largest center)."""
+def centers_diff(got, want, values) -> tuple:
+    """Two k-means codebooks of the same values: (|Δ| by center, its limit
+    by center, values whose index differs).  The limit: KM_RTOL of the
+    largest center, plus, where a value near a midpoint fell to the other
+    side in some Lloyd step, 4 neighbouring gaps over the center's count."""
     import torch
     from repro_torch.core.clustering import assign_to_centers
     got, want = got.double().cpu(), want.double().cpu()
@@ -493,13 +552,78 @@ def centers_agree(got, want, values) -> tuple[int, float]:
     gap = torch.maximum(torch.diff(want, prepend=want[:1]),
                         torch.diff(want, append=want[-1:]))
     tol = KM_RTOL * scale + 4 * gap / n_c.clamp(min=1)
-    d = (got - want).abs()
+    return (got - want).abs(), tol, int((gi != wi).sum())
+
+
+def centers_agree(got, want, values) -> tuple[int, float]:
+    """Two k-means codebooks of the same values, from sums added in other
+    orders: each center within KM_RTOL of the largest, or, where a value
+    near a midpoint fell to the other side in some Lloyd step, within 4
+    neighbouring gaps over the center's count (at most 1 % of centers).
+    Returns (values whose index differs, the largest |Δ| over the
+    largest center)."""
+    d, tol, n_diff = centers_diff(got, want, values)
+    scale = want.abs().max().item()
     if bool((d > tol).any()) or float((d > KM_RTOL * scale).double().mean()) \
             > 0.01:
         raise AssertionError(f"k-means codebooks differ: max |Δ| "
                              f"{d.max().item():.3e}, {(d / tol).max():.2f} "
                              "of the limit")
-    return int((gi != wi).sum()), d.max().item() / scale
+    return n_diff, d.max().item() / scale
+
+
+def exact_stats(values, centers, extremes=None):
+    """A Lloyd step's (sums, counts) with the sums added in f64 and
+    rounded to f32 once: the yardstick of the kernel's sums."""
+    from repro_torch.core.clustering import assign_to_centers
+    from repro_torch.kernels import kmeans1d as km
+    v = values.reshape(-1).float()
+    sums, _, n_c = km.exact_sums(v, assign_to_centers(v, centers),
+                                 centers.numel())
+    return sums.float(), n_c.float()
+
+
+def drift_recorder(stats_fn, iters: int):
+    """An ``ops.kmeans_stats`` for ``kmeans1d``'s Lloyd loop that returns
+    ``stats_fn``'s (sums, counts) unchanged and carries, per center, a
+    limit on how far another k-means of the same values, from the same
+    init, may drift from this one through rounding.  Each step adds, per
+    center, this run's f32 running sums' worst-case error (``sums_bound``)
+    and the kernel's fixed-point error (``fixed_point_bound``), over the
+    center's count, and one rounding of each mean; the new centers' sort
+    carries the sums with them; a candidate's first step starts from 0.
+    A step does not grow the drift it inherits: Lloyd's map in 1-D does
+    not expand distances for a log-concave density (Kieffer 1983), which
+    is the assumption this limit rests on.  Returns (stats function,
+    [(final centers, limit) per candidate])."""
+    import torch
+    from repro_torch.core.clustering import assign_to_centers
+    from repro_torch.kernels import kmeans1d as km
+    done, state = [], {"step": 0, "limit": None}
+
+    def stats(values, centers, extremes=None):
+        sums, counts = stats_fn(values, centers, extremes)
+        v = values.reshape(-1).float()
+        k = centers.numel()
+        exact, abs_sum, n_c = km.exact_sums(
+            v, assign_to_centers(v, centers), k)
+        ext = km.finite_extremes(v) if extremes is None else extremes
+        step = (km.sums_bound(abs_sum, n_c)
+                + km.fixed_point_bound(exact, abs_sum, n_c, centers, ext,
+                                       v.numel())) / n_c.clamp(min=1)
+        new = torch.where(counts > 0, sums / torch.clamp(counts, min=1.0),
+                          centers)
+        step = torch.where(n_c > 0, step + 2 * 2.0 ** -24
+                           * new.double().abs(), torch.zeros_like(step))
+        if state["step"] % iters == 0:
+            state["limit"] = torch.zeros_like(step)
+        order = torch.sort(new).indices
+        state["limit"] = (state["limit"] + step)[order]
+        state["step"] += 1
+        if state["step"] % iters == 0:
+            done.append((new[order], state["limit"]))
+        return sums, counts
+    return stats, done
 
 
 # --- phases 4-6: the reduced model, the contiguous and the paged path ---------
@@ -569,7 +693,12 @@ def reduced_working_point(dev):
     |W| = 1000, global), clustered on the CPU; its index-form params served
     on the card and on the CPU (dense/codebook/lut contiguous, codebook and
     lut with int8 pages): greedy tokens must agree.  Then k-means of the
-    same weights on the card against the CPU's (``centers_agree``)."""
+    same weights on the card against a CPU k-means whose Lloyd steps add
+    their sums in f64 and round once (``centers_agree``; the kernel sums
+    exactly but for its fixed-point rounding), and beside the CPU path's
+    own, whose f32 running sums drift further: held to the rounding those
+    sums and the kernel's fixed-point sums can add up over the Lloyd steps
+    (``drift_recorder``)."""
     import torch
     from repro_torch import configs
     from repro_torch.core.quantizer import cluster_params, init_state
@@ -581,7 +710,12 @@ def reduced_working_point(dev):
     model = build(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
     wq = cfg.wq
-    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    stats_fn = ops.kmeans_stats
+    ops.kmeans_stats, candidates = drift_recorder(stats_fn, wq.kmeans_iters)
+    try:
+        pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    finally:
+        ops.kmeans_stats = stats_fn
     cp = to_codebook_params(pq, wq, st)
     cp_dev = _to(cp, dev)
     prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8]]
@@ -611,15 +745,41 @@ def reduced_working_point(dev):
         raise AssertionError(f"reduced k-means: {ops.launch_counts()} "
                              "launches")
     flat = torch.cat([v.reshape(-1).float() for v in _leaves(params)])
-    n_diff, rel = centers_agree(st_dev.codebooks[""], st.codebooks[""], flat)
+    ops.kmeans_stats = exact_stats
+    try:
+        _, st_exact = cluster_params(params, wq, init_state(wq), wq.interval)
+    finally:
+        ops.kmeans_stats = stats_fn
+    book = st_dev.codebooks[""]
+    n_diff, rel = centers_agree(book, st_exact.codebooks[""], flat)
+    d, tol, f32_diff = centers_diff(book, st.codebooks[""], flat)
+    # the drift from the CPU path's own f32 running sums, held to the
+    # rounding carried through the steps of the candidate that won there
+    won = [lim for c, lim in candidates
+           if torch.equal(c, st.codebooks[""])]
+    if len(candidates) != 2 or not won:
+        raise AssertionError("reduced k-means: the CPU path's codebook is "
+                             "neither candidate's final centers")
+    drift = torch.where(d == 0, torch.zeros_like(d), d / won[0])
+    if bool((drift > 1).any()):
+        raise AssertionError(f"reduced k-means: the card's codebook drifts "
+                             f"from the CPU path's f32 one by "
+                             f"{drift.max().item():.2f} of the rounding "
+                             "carried through the Lloyd steps")
     log(f"[reduced] working point (|A|={ACT_LEVELS}, k-means |W|={N_BOOK}, "
         f"clustered on the CPU): dense/codebook/lut contiguous and "
         f"codebook/lut int8-paged tokens on the card equal the CPU's; "
         f"{counts['act_quant']} act_quant launches (= {cfg.n_layers} × "
         f"{n_fwd} forwards); k-means on the card ({2 * wq.kmeans_iters} "
-        f"kmeans_assign launches) vs the CPU: max |Δ center| {rel:.3e} of "
-        f"the largest, w_idx differs for {n_diff}/{flat.numel()} weights "
-        f"({n_diff / flat.numel():.2e})")
+        f"kmeans_assign launches) vs the CPU with f64 sums: max |Δ center| "
+        f"{rel:.3e} of the largest, w_idx differs for {n_diff}/"
+        f"{flat.numel()} weights ({n_diff / flat.numel():.2e}); vs the CPU "
+        f"path's f32 running sums: max |Δ center| "
+        f"{d.max().item() / st.codebooks[''].abs().max().item():.3e}, "
+        f"{drift.max().item():.3f} of the rounding its sums and the "
+        f"kernel's can carry through the Lloyd steps (at center "
+        f"{int(drift.argmax())}; {(d / tol).max().item():.2f} of the "
+        f"centers_agree limit), w_idx differs for {f32_diff} weights")
 
 
 def _leaves(tree):
@@ -668,6 +828,29 @@ def device_time(fn, top: int = 5, match: str = "page_gather"):
                   if match in e.key) / 1e3
     return busy, [(e.key[:48], e.self_device_time_total / 1e3, e.count)
                   for e in evs[:top]], matched
+
+
+def kernel_ms(fn, match: str, reps: int = 3) -> float:
+    """Device ms of one call of ``fn``, which launches each kernel whose
+    name holds ``match`` once: the sum of those kernels' mean durations
+    over ``reps`` profiled calls.  For a wrapper that syncs with the host
+    (the k-means forms read their overflow flag), which ``time_ms`` cannot
+    queue behind a device-side sleep."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and match in e.key
+           and e.count]
+    if not evs:
+        raise AssertionError(f"no {match} kernel in the profile")
+    return sum(e.self_device_time_total / e.count for e in evs) / 1e3
 
 
 def timed(fn):
@@ -901,8 +1084,8 @@ def _pool_clean(pool) -> bool:
 def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     """The paged path at full width: ServeEngine(paged=True), page PAGE,
     max_len PAGED_MAX_LEN, MAX_BATCH slots, 16 new tokens per request.
-    Each run is counted alone: page_gather launches must be gathers per
-    layer (4 for int8 pages: K, V and their scales; 2 for bf16) × layers ×
+    Each run is counted alone: page_gather launches must be one a layer
+    (K, V and, with int8 pages, their scales in one launch) × layers ×
     forwards, matmul launches 7 × layers × forwards."""
     import numpy as np
     import torch
@@ -938,9 +1121,8 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
         if again != first:
             raise AssertionError(f"paged {be} {kv}: the second serve's "
                                  "tokens differ from the first's")
-        per_gather = 4 if kv == "int8" else 2
         other = "lut_matmul" if be == "codebook" else "codebook_matmul"
-        if (counts["page_gather"] != per_gather * n_l * fwd
+        if (counts["page_gather"] != n_l * fwd
                 or counts[f"{be}_matmul"] != 7 * n_l * fwd
                 or counts[other] != 0):
             raise AssertionError(f"paged {be} {kv}: launches {counts} over "
@@ -962,7 +1144,7 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
             "slab_bytes": e.dense_cache_bytes()}
         log(f"[paged] {be} {kv} pages: {n} requests twice, {fwd} forwards "
             f"({fwd1} in the first serve), {counts['page_gather']} "
-            f"page_gather launches (= {per_gather} × {n_l} × {fwd}), "
+            f"page_gather launches (= one a layer × {n_l} × {fwd}), "
             f"{counts[f'{be}_matmul']} {be}_matmul (= 7 × {n_l} × {fwd}); "
             f"first serve {16 * n} tokens in {secs:.3f}s → "
             f"{16 * n / secs:.1f} tok/s, again {secs2:.3f}s with the same "
@@ -1051,8 +1233,8 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     log(f"[paged] codebook decode step, 4 slots at pos 120, max_len "
         f"{PAGED_MAX_LEN}: paged int8 {med(dec):.2f} ms, device busy "
         + (f"{busy:.2f} ms of which page_gather {pg_ms:.3f} ms "
-           f"({pg_ms / busy:.3f}; {4 * n_l} launches, "
-           f"{1e3 * pg_ms / (4 * n_l):.2f} us each); top: "
+           f"({pg_ms / busy:.3f}; {n_l} launches, "
+           f"{1e3 * pg_ms / n_l:.2f} us each); top: "
            + "; ".join(f"{k} {ms:.3f}ms×{n}" for k, ms, n in top)
            if busy else "not measured (the profiler saw no device time)")
         + f" | contiguous bf16 {med(c_dec):.2f} ms, device busy "
@@ -1114,22 +1296,42 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
                  mse_laplacian_l1=clustering.quantization_mse(flat, lap))
     km_err = kmeans_case(flat, book)
     bounds = ((book[:-1] + book[1:]) / 2.0).contiguous()
-    nbytes = 8 * n + 12 * N_BOOK
-    b_bytes = nbytes / peaks["bytes"]
+    ext = km.finite_extremes(flat)
     b_ops = 2 * n * int(np.ceil(np.log2(N_BOOK))) / peaks["f32"]
+    forms = {}
+    # bytes each form must move: values read; idx written (full, search);
+    # centers read; sums and counts written (full, stats).  Device time of
+    # the kernels alone: the full and sums-only wrappers read the overflow
+    # flag after the launch (one sync), and the full form's finds its
+    # extremes first
+    for form, fn, nbytes in (
+            ("search", lambda: km.kmeans_search_cuda(flat, book),
+             8 * n + 4 * N_BOOK),
+            ("stats", lambda: km.kmeans_stats_cuda(flat, book, ext),
+             4 * n + 12 * N_BOOK),
+            ("full", lambda: km.kmeans_assign_cuda(flat, book),
+             8 * n + 12 * N_BOOK)):
+        b_bytes = nbytes / peaks["bytes"]
+        forms[form] = {"ms": kernel_ms(fn, "kmeans"),
+                       "bound_ms": 1e3 * max(b_bytes, b_ops),
+                       "bound_by": ("bytes" if b_bytes >= b_ops
+                                    else "operations")}
+    # the search form does not sync: CUDA events around queued calls, as
+    # every other kernel is timed, check the profiler's reading
+    forms["search"]["events_ms"] = time_ms(
+        lambda: km.kmeans_search_cuda(flat, book), reps=3, warm=1)
+    # the row is the form the clustering event launches (sums only); the
+    # others stand under "forms"
     km_row = {"n": n, "k": N_BOOK, "values": "qwen3-1.7b weights, f32",
-              **km_err,
-              "ms": time_ms(lambda: km.kmeans_assign_cuda(flat, book),
-                            reps=3, warm=1),
-              "plain_ms": time_ms(lambda: km.kmeans_assign_plain(flat, book),
+              "form": "stats (kmeans_stats_cuda)",
+              **km_err, **forms["stats"], "forms": forms,
+              "plain_ms": time_ms(lambda: km.kmeans_stats_plain(flat, book),
                                   reps=1, warm=1),
               "library_ms": None,
               "partial_library_ms": {"torch.searchsorted": time_ms(
                   lambda: torch.searchsorted(bounds, flat, right=True,
                                              out_int32=True), reps=3,
-                  warm=1)},
-              "bound_ms": 1e3 * max(b_bytes, b_ops),
-              "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+                  warm=1)}}
     del flat, bounds
     log(f"[point] qwen3-1.7b at quantized(levels={ACT_LEVELS}, "
         f"n_weights={N_BOOK}, method='kmeans'): cluster_params on the card "
@@ -1138,14 +1340,21 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         f"memory {stats['cluster_peak_mem_gib']:.2f} GiB; quantization MSE "
         f"k-means {stats['mse_kmeans']:.4e} vs laplacian_l1 "
         f"{stats['mse_laplacian_l1']:.4e}; kmeans_assign at the full n: "
-        f"idx/counts exact, two runs bit-identical, sums against the f64 "
+        f"idx/counts exact, two runs bit-identical, sums-only form "
+        f"bit-identical to the full form, sums against the f64 "
         f"sums relative to Σ|v|: kernel {km_err['kernel_rel_err']:.2e} "
-        f"({km_err['kernel_share_of_limit']:.4f} of its tolerance), plain "
+        f"({km_err['kernel_share_of_limit']:.4f} of its tolerance, "
+        f"{km_err['kernel_fixed_point_share_of_limit']:.4f} of its "
+        f"fixed-point bound), plain "
         f"{km_err['plain_rel_err']:.2e} ({km_err['plain_share_of_limit']:.4f}"
-        f" of its bound); {km_row['ms']:.3f} ms (bound "
-        f"{km_row['bound_ms']:.3f}"
-        f", plain {km_row['plain_ms']:.2f}, torch.searchsorted alone "
-        f"{km_row['partial_library_ms']['torch.searchsorted']:.3f})")
+        f" of its bound)")
+    log(f"[time] kmeans_assign n={n} k={N_BOOK}, by form (ms, bound): "
+        + ", ".join(f"{f} {r['ms']:.3f} ({r['bound_ms']:.3f} {r['bound_by']})"
+                    for f, r in forms.items())
+        + f" from the profiler's kernel times; search from CUDA events "
+        f"{forms['search']['events_ms']:.3f}"
+        + f"; plain {km_row['plain_ms']:.2f}, torch.searchsorted alone "
+        f"{km_row['partial_library_ms']['torch.searchsorted']:.3f}")
 
     cp = to_codebook_params(pq, wq, state)
     del pq
@@ -1166,7 +1375,7 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         out, secs = timed(lambda: e.serve(reqs, max_new=16))
         counts, fwd = ops.launch_counts(), e.n_forwards - f0
         want = {"act_quant": n_l * fwd, f"{be}_matmul": 7 * n_l * fwd,
-                "page_gather": 4 * n_l * fwd if name == "paged" else 0}
+                "page_gather": n_l * fwd if name == "paged" else 0}
         if any(counts[k_] != v for k_, v in want.items()):
             raise AssertionError(f"working point {name}: launches {counts} "
                                  f"over {fwd} forwards, want {want}")
@@ -1346,54 +1555,91 @@ def act_quant_times(dev, peaks: dict) -> list:
     return res
 
 
-def gather_times(dev, peaks: dict) -> list:
+def gather_times(dev, peaks: dict) -> tuple[list, list]:
     """page_gather per call at the decode (4 × 32) and prefill-chunk
-    (1 × 32) page tables: kernel, plain and library times and the bound.
+    (1 × 32) page tables: kernel, plain and library times and
+    the bound; then one layer's gather of the paged int8 path (K and V
+    pages, their bf16 scales) as one multi-pool launch, four single-pool
+    launches and four library calls, against the summed bound.
 
-    The pool is a full (layers, n_pages, ...) pool and every call gathers
+    The pools are full (layers, n_pages, ...) pools and every call gathers
     from the next layer's slice, so the 28 slices (59 MB of int8 K pages)
     do not sit in the 50 MB L2 as they would not on the serving path.  The
     tables hold distinct live pages, as a full batch's do.  Library: one
     advanced-indexing call on ids clamped beforehand; the plain version is
-    the same call after the cast and clamp of the ids."""
+    the same call after the cast and clamp of the ids.  Each row's calls
+    are timed in turns (``time_turns``).  Returns (single-pool rows,
+    multi-pool rows)."""
     import torch
     from repro_torch.kernels import page_gather as pg
     g = torch.Generator(device=dev).manual_seed(3)
-    n_l, res = 28, []
-    for shape, dt in (((PAGE, 8, 128), "int8"), ((PAGE, 8, 128), "bfloat16"),
-                      ((PAGE, 8), "bfloat16")):
-        full = torch.randint(-128, 128, (n_l, N_PAGES) + shape, generator=g,
-                             device=dev).to(getattr(torch, dt))
-        page_bytes = full[0, 0].numel() * full.element_size()
+    n_l, res, many = 28, [], []
+    it = [0]
+
+    def cyc(pools, f):
+        def run():
+            it[0] += 1
+            return f(*(p[it[0] % n_l] for p in pools))
+        return run
+
+    def tables():
         for B, P in GATHER_TABLES:
             perm = torch.randperm(N_PAGES - 1, generator=g, device=dev) + 1
-            pt = perm[:B * P].reshape(B, P).to(torch.int32)
-            ids = pt.long()
-            it = [0]
+            yield B, P, perm[:B * P].reshape(B, P).to(torch.int32)
 
-            def cyc(f):
-                def run():
-                    it[0] += 1
-                    return f(full[it[0] % n_l])
-                return run
+    def pool_of(shape, dt):
+        return torch.randint(-128, 128, (n_l, N_PAGES) + shape, generator=g,
+                             device=dev).to(getattr(torch, dt))
+    for shape, dt in (((PAGE, 8, 128), "int8"), ((PAGE, 8, 128), "bfloat16"),
+                      ((PAGE, 8), "bfloat16")):
+        full = pool_of(shape, dt)
+        page_bytes = full[0, 0].numel() * full.element_size()
+        for B, P, pt in tables():
+            ids = pt.long()
             nbytes = 2 * B * P * page_bytes + B * P * 4
-            res.append({
-                "B": B, "P": P, "page": list(shape), "dtype": dt,
-                "page_bytes": page_bytes,
-                "ms": time_ms(cyc(lambda pool: pg.page_gather_cuda(pool, pt)),
-                              reps=56),
-                "plain_ms": time_ms(cyc(
-                    lambda pool: pg.page_gather_plain(pool, pt)), reps=56),
-                "library_ms": time_ms(cyc(lambda pool: pool[ids]), reps=56),
-                "bound_ms": 1e3 * nbytes / peaks["bytes"],
-                "bound_by": "bytes"})
+            t = time_turns({
+                "library": cyc([full], lambda p: p[ids]),
+                "kernel": cyc([full], lambda p: pg.page_gather_cuda(p, pt)),
+                "plain": cyc([full], lambda p: pg.page_gather_plain(p, pt))},
+                reps=56)
+            res.append({"B": B, "P": P, "page": list(shape), "dtype": dt,
+                        "page_bytes": page_bytes,
+                        "ms": t["kernel"],
+                        "plain_ms": t["plain"], "library_ms": t["library"],
+                        "bound_ms": 1e3 * nbytes / peaks["bytes"],
+                        "bound_by": "bytes"})
         del full
+    pools = [pool_of((PAGE, 8, 128), "int8") for _ in range(2)] + [
+        pool_of((PAGE, 8), "bfloat16") for _ in range(2)]
+    page_bytes = sum(p[0, 0].numel() * p.element_size() for p in pools)
+    for B, P, pt in tables():
+        ids = pt.long()
+        nbytes = 2 * B * P * page_bytes + B * P * 4
+        t = time_turns({
+            "library": cyc(pools, lambda *ps: [p[ids] for p in ps]),
+            "kernel": cyc(pools, lambda *ps: pg.page_gather_many_cuda(ps, pt)),
+            "single": cyc(pools, lambda *ps: [pg.page_gather_cuda(p, pt)
+                                              for p in ps]),
+            "plain": cyc(pools, lambda *ps:
+                         pg.page_gather_many_plain(ps, pt))}, reps=28)
+        many.append({"B": B, "P": P, "pools": "int8 K, V (16, 8, 128) + "
+                     "bf16 scales (16, 8)", "page_bytes": page_bytes,
+                     "ms": t["kernel"], "single_launches_ms": t["single"],
+                     "plain_ms": t["plain"], "library_ms": t["library"],
+                     "bound_ms": 1e3 * nbytes / peaks["bytes"],
+                     "bound_by": "bytes"})
+    del pools
     for r in res:
         log(f"[time] page_gather {r['B']}×{r['P']} pages {tuple(r['page'])} "
-            f"{r['dtype']} ({r['page_bytes']} B): {r['ms']:.4f} ms (bound "
-            f"{r['bound_ms']:.4f} bytes, plain {r['plain_ms']:.4f}, library "
-            f"{r['library_ms']:.4f})")
-    return res
+            f"{r['dtype']} ({r['page_bytes']} B): {r['ms']:.5f} ms (bound {r['bound_ms']:.4f} bytes, plain "
+            f"{r['plain_ms']:.5f}, library pool[ids] {r['library_ms']:.5f})")
+    for r in many:
+        log(f"[time] page_gather_many {r['B']}×{r['P']} one paged int8 "
+            f"layer ({r['pools']}, {r['page_bytes']} B a page slot) in one "
+            f"launch: {r['ms']:.5f} ms (summed bound {r['bound_ms']:.4f}; four single-pool "
+            f"launches {r['single_launches_ms']:.5f}, four pool[ids] "
+            f"{r['library_ms']:.5f}, plain {r['plain_ms']:.5f})")
+    return res, many
 
 
 # --- phase 8: kernel timings --------------------------------------------------
@@ -1607,7 +1853,7 @@ def main() -> int:
                                                 peaks)
     torch.cuda.empty_cache()
     times = kernel_times(dev, peaks, shares)
-    g_times = gather_times(dev, peaks)
+    g_times, g_many = gather_times(dev, peaks)
     a_times = act_quant_times(dev, peaks)
 
     by_path = {k: {"contiguous": launches.get(k, 0),
@@ -1617,12 +1863,13 @@ def main() -> int:
     kernels = []
     for kname in TPU_KERNELS:
         if kname == "page_gather":
-            head = next(r for r in g_times if r["dtype"] == "int8"
-                        and (r["B"], r["P"]) == GATHER_TABLES[0])
-            shape = {"B": head["B"], "P": head["P"], "page": head["page"],
-                     "dtype": "int8", "pool": [cfg.n_layers, N_PAGES]
-                     + head["page"]}
-            shapes = g_times
+            # the multi-pool launch at the decode table: the form every
+            # paged layer launches (single-pool rows under "shapes")
+            head = next(r for r in g_many
+                        if (r["B"], r["P"]) == GATHER_TABLES[0])
+            shape = {"B": head["B"], "P": head["P"], "pools": head["pools"],
+                     "pool": [cfg.n_layers, N_PAGES]}
+            shapes = g_many + g_times
         elif kname == "act_quant":
             head = next(r for r in a_times if r["M"] == MAX_BATCH
                         and r["form"] == "act_apply")

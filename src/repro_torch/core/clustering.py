@@ -3,9 +3,10 @@
 (``kmeans1d``, the paper's default; the closed-form ``laplacian_l1``;
 ``uniform``), ``assign_to_centers`` and ``quantize_to_centers``.
 
-``kmeans1d`` runs each Lloyd step through ``ops.kmeans_assign`` (the
-``kmeans_assign`` kernel for CUDA tensors).  ``subsample``, whose
-``jax.random`` draw cannot be reproduced, comes with the training slice.
+``kmeans1d`` runs each Lloyd step through ``ops.kmeans_stats`` (the
+``kmeans_assign`` kernel's sums-only form for CUDA tensors).
+``subsample``, whose ``jax.random`` draw cannot be reproduced, comes with
+the training slice.
 """
 
 from __future__ import annotations
@@ -159,8 +160,9 @@ def kmeans1d(values: torch.Tensor, k: int, iters: int = 50) -> torch.Tensor:
     the f32 reciprocal of k) and a uniform min..max grid, ``iters`` steps
     each; the candidate with the lower MSE wins, the first on a tie (as
     ``jnp.argmin``).  Empty clusters keep their previous center.  Each
-    step is one ``ops.kmeans_assign``, so a clustering event launches the
-    kernel ``2 · iters`` times.  The candidates run one after the other
+    step is one ``ops.kmeans_stats`` (the kernel's sums-only form, given
+    the extreme values), so a clustering event launches the kernel
+    ``2 · iters`` times.  The candidates run one after the other
     (the reference's ``vmap`` is not a semantic).
     """
     v = values.reshape(-1).to(torch.float32)
@@ -172,11 +174,12 @@ def kmeans1d(values: torch.Tensor, k: int, iters: int = 50) -> torch.Tensor:
     lo, hi = sorted_v[0].clone(), sorted_v[-1].clone()
     del sorted_v
     init_u = lo + (hi - lo) * qs
+    extremes = torch.stack([lo, hi])
 
     best, best_mse = None, None
     for centers in (init_q, init_u):
         for _ in range(iters):
-            _, sums, counts = ops.kmeans_assign(v, centers)
+            sums, counts = ops.kmeans_stats(v, centers, extremes)
             new = torch.where(counts > 0,
                               sums / torch.clamp(counts, min=1.0), centers)
             centers = torch.sort(new).values

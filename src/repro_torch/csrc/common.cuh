@@ -161,6 +161,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
         : "memory");
 }
 
+// bytes (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory as one bulk group; bulk_store_wait_read returns once the
+// shared memory of every group this thread committed has been read
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+        "cp.async.bulk.commit_group;\n" ::"l"(dst), "r"(smem_addr(src)), "r"(bytes)
+        : "memory");
+}
+
+__device__ __forceinline__ void bulk_store_wait_read() {
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Count this block in on its tile's counter after its stores; true in the
 // block that arrives last (of `total`), which then sees every other
 // block's stores.  Every thread of the block must call it.

@@ -16,8 +16,9 @@ from repro_torch.kernels import kmeans1d as _km
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import page_gather as _pg
 
-__all__ = ["codebook_matmul", "lut_matmul", "gather_pages", "act_quant",
-           "act_quant_index", "act_apply_quant", "kmeans_assign",
+__all__ = ["codebook_matmul", "lut_matmul", "gather_pages",
+           "gather_pages_many", "act_quant", "act_quant_index",
+           "act_apply_quant", "kmeans_assign", "kmeans_stats",
            "launch_counts", "reset_launch_counts", "KERNELS"]
 
 KERNELS = {"codebook_matmul": _cm.codebook_matmul_cuda,
@@ -57,6 +58,15 @@ def gather_pages(pool, page_table):
     if _route(pool, page_table) == "cuda":
         return _pg.page_gather_cuda(pool, page_table)
     return _pg.page_gather_plain(pool, page_table)
+
+
+def gather_pages_many(pools, page_table):
+    """``[gather_pages(pool, page_table) for pool in pools]``: up to four
+    pools that share one page table (a paged layer's K, V and their
+    scales), one kernel launch on the card."""
+    if _route(page_table, *pools) == "cuda":
+        return _pg.page_gather_many_cuda(pools, page_table)
+    return _pg.page_gather_many_plain(pools, page_table)
 
 
 def _act_quant(x, kind: str, levels: int, form: str, with_index: bool):
@@ -120,6 +130,18 @@ def kmeans_assign(values, centers):
     if _route(v, c) == "cuda":
         return _km.kmeans_assign_cuda(v, c)
     return _km.kmeans_assign_plain(v, c)
+
+
+def kmeans_stats(values, centers, extremes=None):
+    """(sums, counts) of ``kmeans_assign``: what a Lloyd step reads, from
+    the kernel's sums-only form, which writes no index.  ``extremes``
+    (lo, hi), the smallest and largest finite value, spare the kernel a
+    pass to find them; the plain version does not need them."""
+    v = values.reshape(-1).to(torch.float32)
+    c = centers.to(torch.float32)
+    if _route(v, c) == "cuda":
+        return _km.kmeans_stats_cuda(v, c, extremes)
+    return _km.kmeans_stats_plain(v, c)
 
 
 def launch_counts() -> dict:

@@ -6,7 +6,8 @@ decode step with int8 pages (the port's copy of the single-device parts of
 Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
 caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
 Attention is plain torch (einsum, mask, softmax); page gathers go through
-``kernels.ops.gather_pages``.  The port writes caches and pools in place.
+``kernels.ops.gather_pages_many``.  The port writes caches and pools in
+place.
 """
 
 from __future__ import annotations
@@ -229,21 +230,19 @@ def dequantize_kv(q, scale):
 
 def _gather_paged_kv(k_pool, v_pool, page_table, layer: int, scales=None):
     """(B, P·page, KV, hd) K/V of one layer, dequantized to f32 when
-    ``scales`` (ks, vs), each (L, n_pages, page, KV), are given."""
+    ``scales`` (ks, vs), each (L, n_pages, page, KV), are given.  One
+    gather of every pool of the layer (one kernel launch on the card)."""
     B, P = page_table.shape
     page, KV, hd = k_pool.shape[2:]
-    k_l = ops.gather_pages(k_pool[layer], page_table).reshape(B, P * page,
-                                                               KV, hd)
-    v_l = ops.gather_pages(v_pool[layer], page_table).reshape(B, P * page,
-                                                               KV, hd)
+    pools = [k_pool[layer], v_pool[layer]]
     if scales is not None:
-        ks_all, vs_all = scales
-        ks = ops.gather_pages(ks_all[layer], page_table).reshape(B, P * page,
-                                                                 KV)
-        vs = ops.gather_pages(vs_all[layer], page_table).reshape(B, P * page,
-                                                                 KV)
-        k_l = dequantize_kv(k_l, ks)
-        v_l = dequantize_kv(v_l, vs)
+        pools += [scales[0][layer], scales[1][layer]]
+    got = ops.gather_pages_many(pools, page_table)
+    k_l = got[0].reshape(B, P * page, KV, hd)
+    v_l = got[1].reshape(B, P * page, KV, hd)
+    if scales is not None:
+        k_l = dequantize_kv(k_l, got[2].reshape(B, P * page, KV))
+        v_l = dequantize_kv(v_l, got[3].reshape(B, P * page, KV))
     return k_l, v_l
 
 

@@ -17,8 +17,8 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
   the page pool (``serving/kvcache.PagePool``) can supply their pages, not
   when a slot is free; prompts stream through page-sized prefill chunks,
   shared prompt pages come from the prefix cache, and decode gathers each
-  slot's pages through ``kernels.ops.gather_pages``.  ``generate`` stays on
-  the contiguous cache.
+  slot's pages through ``kernels.ops.gather_pages_many``.  ``generate``
+  stays on the contiguous cache.
 
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.

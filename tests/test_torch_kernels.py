@@ -434,13 +434,71 @@ PAGE_CASES = [((16, 8, 128), "int8"), ((16, 8, 128), "bfloat16"),
               ((3, 5), "int8")]
 
 
+def _page_case(rng, page_shape, dtype, n_pages, B, P):
+    """A (3, n_pages, *page) pool (the kernel reads its middle layer) and a
+    (B, P) table holding 0, negatives and ids ≥ n_pages."""
+    full = torch.from_numpy(rng.integers(-100, 100, (3, n_pages) + page_shape)
+                            ).to(getattr(torch, dtype))
+    pt = rng.integers(-3, n_pages + 4, (B, P)).astype(np.int32)
+    pt[0, :3] = [0, -1, n_pages]
+    return full, torch.from_numpy(pt)
+
+
+@pytest.fixture(scope="module")
+def page_gather_pallas():
+    pytest.importorskip("jax")
+    from repro.kernels.page_gather import page_gather_pallas
+    return page_gather_pallas
+
+
+@pytest.mark.parametrize("page_shape,dtype", PAGE_CASES)
+def test_page_gather_many_plain_matches_single_and_pallas(
+        page_gather_pallas, page_shape, dtype):
+    """Four pools under one table (K/V pages, their scale pages, a page of
+    15 bytes, f32 pages) equal one ``page_gather_plain`` a pool and the
+    Pallas kernel in interpret mode, bit for bit."""
+    jnp = pytest.importorskip("jax.numpy")
+    rng = np.random.default_rng(len(page_shape) * 11 + len(dtype))
+    shapes = [page_shape, page_shape, (16, 8), (3, 5)]
+    pools = [_page_case(rng, s_, dtype, 9, 3, 5)[0][1] for s_ in shapes]
+    _, pt = _page_case(rng, page_shape, dtype, 9, 3, 5)
+    for ids in (pt, pt.long()):
+        many = pg.page_gather_many_plain(pools, ids)
+        assert len(many) == 4
+        for pool, got in zip(pools, many):
+            want = pg.page_gather_plain(pool, ids)
+            assert got.dtype == pool.dtype and got.shape == want.shape
+            assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+            jpool = jnp.asarray(pool.float().numpy()).astype(
+                jnp.bfloat16 if dtype == "bfloat16" else getattr(jnp, dtype))
+            ref = page_gather_pallas(jpool, jnp.asarray(pt.numpy()),
+                                     interpret=True)
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(ref).astype(np.float32))
+        via_ops = ops.gather_pages_many(pools, ids)
+        assert all(torch.equal(a, b) for a, b in zip(via_ops, many))
+
+
+def test_page_gather_many_refusals_and_cpu_is_no_launch():
+    rng = np.random.default_rng(0)
+    pool, pt = _page_case(rng, (4, 2), "int8", 5, 2, 3)
+    ops.reset_launch_counts()
+    assert len(ops.gather_pages_many([pool[1]] * 4, pt)) == 4
+    assert ops.launch_counts()["page_gather"] == 0
+    with pytest.raises(ValueError):
+        pg.page_gather_many_cuda([pool[1]], pt)
+    with pytest.raises(ValueError):
+        ops.gather_pages_many([pool[1]], pt.float())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("page_shape,dtype", PAGE_CASES)
 @pytest.mark.parametrize("B,P", [(4, 32), (1, 32)])
 def test_cuda_page_gather_matches_plain(page_shape, dtype, B, P):
     """Needs a GPU and nvcc: the page gather against its plain version,
     bit for bit, on one layer's view of a pool, with ids that include 0,
-    negatives and ids ≥ n_pages."""
+    negatives and ids ≥ n_pages: bulk copies for pages of whole 16-byte
+    vectors, byte copies for the 15-byte page."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on the card")
     dev = torch.device("cuda")
@@ -453,11 +511,47 @@ def test_cuda_page_gather_matches_plain(page_shape, dtype, B, P):
                        dtype=torch.int32)
     pt[0, :3] = torch.tensor([0, -1, n_pages], device=dev)
     for ids in (pt, pt.long()):
-        got = pg.page_gather_cuda(pool, ids)
         want = pg.page_gather_plain(pool, ids)
+        got = pg.page_gather_cuda(pool, ids)
         torch.cuda.synchronize()
         assert got.dtype == pool.dtype and got.shape == want.shape
         assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("B,P", [(4, 32), (1, 32)])
+def test_cuda_page_gather_many_matches_single(dtype, B, P):
+    """Needs a GPU and nvcc: one launch over four pools under one table
+    (K and V pages, their bf16 scale pages; then with a 15-byte page among
+    them) bit-identical to one single-pool launch a pool; one launch
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    dev = torch.device("cuda")
+    n_pages = 129
+    g = torch.Generator(device=dev).manual_seed(B * 7 + P)
+
+    def pool_of(shape, dt):
+        return torch.randint(-128, 128, (3, n_pages) + shape, generator=g,
+                             device=dev).to(getattr(torch, dt))[1]
+    kv = [pool_of((16, 8, 128), dtype) for _ in range(2)]
+    sc = [pool_of((16, 8), "bfloat16") for _ in range(2)]
+    pt = torch.randint(-4, n_pages + 5, (B, P), generator=g, device=dev,
+                       dtype=torch.int32)
+    pt[0, :3] = torch.tensor([0, -1, n_pages], device=dev)
+    for pools in (kv + sc, kv, kv[:1] + [pool_of((3, 5), "int8")] + sc):
+        for ids in (pt, pt.long()):
+            ops.reset_launch_counts()
+            many = pg.page_gather_many_cuda(pools, ids)
+            assert ops.launch_counts()["page_gather"] == 1
+            for pool, got in zip(pools, many):
+                want = pg.page_gather_cuda(pool, ids)
+                torch.cuda.synchronize()
+                assert got.dtype == pool.dtype
+                assert got.shape == want.shape
+                assert torch.equal(got.view(torch.uint8),
+                                   want.view(torch.uint8))
 
 
 def test_act_quant_parity_ties_rules():
@@ -520,10 +614,13 @@ def test_cuda_act_quant_matches_plain(shape, xdt):
 @pytest.mark.parametrize("n", [1, 4097, 10 ** 7])
 def test_cuda_kmeans_assign_matches_plain(k, n):
     """Needs a GPU and nvcc: indices and counts exact, each version's sums
-    of the f64 sums within their limit (the kernel's ``sums_tolerance``,
-    the plain version's worst-case ``sums_bound``), values
+    of the f64 sums within their limit (the kernel's ``sums_tolerance``
+    and ``fixed_point_bound``, the plain version's worst-case
+    ``sums_bound``), values
     on midpoints and a duplicate center pair included, and two runs
-    bit-identical."""
+    bit-identical.  The sums-only form gives the full form's sums and
+    counts bit for bit, both equal the torch mirror of the kernel's
+    fixed-point sums, and the search alone its indices."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device: the CUDA kernels run only on the card")
     rng = np.random.default_rng(k + n)
@@ -544,3 +641,72 @@ def test_cuda_kmeans_assign_matches_plain(k, n):
     for sums, limit in ((got[1], km.sums_tolerance(abs_sum, n_c, n)),
                         (want[1], km.sums_bound(abs_sum, n_c))):
         assert bool(((sums.double() - exact).abs() <= limit).all())
+    ext = (float(tv.min()), float(tv.max()))
+    own = km.fixed_point_bound(exact, abs_sum, n_c, tc, ext, n)
+    assert bool(((got[1].double() - exact).abs() <= own).all())
+    stats = km.kmeans_stats_cuda(tv, tc, ext)
+    assert torch.equal(stats[0], got[1]) and torch.equal(stats[1], got[2])
+    assert torch.equal(km.kmeans_stats_cuda(tv, tc, torch.tensor(
+        ext, device="cuda"))[0], got[1])
+    assert torch.equal(got[1], km.fixed_point_sums(tv, want[0], tc, ext))
+    assert torch.equal(km.kmeans_search_cuda(tv, tc), want[0])
+
+
+@pytest.mark.cuda
+def test_cuda_kmeans_stats_flags_values_beyond_extremes():
+    """Needs a GPU and nvcc: a finite value beyond the extremes the sums
+    were scaled for, far enough to overflow its center's fixed-point sum,
+    makes the call raise; with the wrapper's own extremes, or where that
+    center holds an infinity (its sum is the infinity), it does not."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    c = torch.tensor([-1.0, 0.0, 1.0], device="cuda")
+    v = torch.tensor([0.1, -0.3, 0.7, 1e30, -0.9], device="cuda")
+    with pytest.raises(ValueError, match="overflow"):
+        km.kmeans_stats_cuda(v, c, (-1.0, 1.0))
+    sums, counts = km.kmeans_stats_cuda(v, c)
+    want = km.kmeans_assign_plain(v, c)
+    assert torch.equal(counts, want[2])
+    assert torch.equal(sums, km.fixed_point_sums(v, want[0], c,
+                                                 km.finite_extremes(v)))
+    v_inf = torch.cat([v, torch.tensor([float("inf")], device="cuda")])
+    sums, _ = km.kmeans_stats_cuda(v_inf, c, (-1.0, 1.0))
+    assert float(sums[2]) == float("inf")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 7, 1000, 4096])
+def test_cuda_kmeans_search_adversarial(k):
+    """Needs a GPU and nvcc: the kernel's bucketed search on ±0, midpoints
+    and their f32 neighbours, subnormals, ±inf and values beyond the
+    extreme midpoints, centers at ±0 and duplicates, equals
+    torch.searchsorted(right); and on an unaligned view of the values.
+    The full form's counts equal the plain version's and its sums the
+    torch mirror of its arithmetic bit for bit, infinities and NaN (a
+    center holding both infinities) included."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the CUDA kernels run only on the card")
+    rng = np.random.default_rng(k)
+    c = np.sort(rng.laplace(0, 0.05, k)).astype(np.float32)
+    if k > 3:
+        c[1], c[k // 2], c[k // 2 + 1] = c[2], -0.0, 0.0
+        c = np.sort(c)
+    mids = ((c[:-1] + c[1:]) / np.float32(2)).astype(np.float32)
+    big = np.float32(np.finfo(np.float32).max)
+    v = np.concatenate([
+        np.array([0.0, -0.0, big, -big, np.inf, -np.inf, 1e-38, -1e-38,
+                  1e-45, -1e-45], np.float32),
+        mids, np.nextafter(mids, np.float32(np.inf)),
+        np.nextafter(mids, np.float32(-np.inf)), c,
+        rng.laplace(0, 0.05, 100003).astype(np.float32)])
+    tv, tc = torch.from_numpy(v).cuda(), torch.from_numpy(c).cuda()
+    bounds = ((tc[:-1] + tc[1:]) / 2.0).contiguous()
+    for x in (tv, tv[1:]):
+        want = torch.searchsorted(bounds, x, right=True, out_int32=True)
+        assert torch.equal(km.kmeans_search_cuda(x, tc), want)
+        idx, sums, counts = km.kmeans_assign_cuda(x, tc)
+        assert torch.equal(idx, want)
+        assert torch.equal(counts, km.kmeans_assign_plain(x, tc)[2])
+        torch.testing.assert_close(
+            sums, km.fixed_point_sums(x, want, tc, km.finite_extremes(x)),
+            rtol=0, atol=0, equal_nan=True)

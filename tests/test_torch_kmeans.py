@@ -120,6 +120,146 @@ def test_kmeans_assign_launches_and_refusals():
         km.kmeans_assign_plain(torch.randn(10).double(), torch.randn(3))
 
 
+def _adversarial(c):
+    """Values the bucketed search must place as a full search does: ±0,
+    every midpoint and its two f32 neighbours, every center, values far
+    beyond the extreme midpoints (±inf included), and Laplace draws."""
+    mids = ((c[:-1] + c[1:]) / np.float32(2)).astype(np.float32)
+    big = np.float32(np.finfo(np.float32).max)
+    v = np.concatenate([
+        np.array([0.0, -0.0, big, -big, np.inf, -np.inf, 1e-38, -1e-38,
+                  1e-45, -1e-45], np.float32),
+        mids, np.nextafter(mids, np.float32(np.inf)),
+        np.nextafter(mids, np.float32(-np.inf)), c,
+        np.random.default_rng(c.size).laplace(0, 0.05, 5000)
+        .astype(np.float32)])
+    return v
+
+
+SEARCH_CASES = [(1, False), (2, False), (2, True), (7, True), (1000, False),
+                (1000, True), (4096, False), (4096, True)]
+
+
+@pytest.mark.parametrize("k,dup", SEARCH_CASES)
+def test_bucketed_search_matches_searchsorted_and_ref(k, dup):
+    """The kernel's search, mirrored in torch (bucket table, then a search
+    over the value's bucket range alone), equals torch.searchsorted(right)
+    and the JAX reference on adversarial values, centers at ±0 and
+    duplicate centers included.  Against JAX only finite values that are
+    not subnormal: XLA on the CPU flushes subnormal inputs to zero, where
+    torch and the kernel compare them as they are."""
+    c = _centers(k * 3 + dup, k, dup)
+    if k > 3:
+        c[k // 2], c[k // 2 + 1] = np.float32(-0.0), np.float32(0.0)
+        c = np.sort(c)
+    v = _adversarial(c)
+    tv, tc = torch.from_numpy(v), torch.from_numpy(c)
+    got = km.bucketed_search(tv, tc)
+    bounds = ((tc[:-1] + tc[1:]) / 2.0).contiguous()
+    want = torch.searchsorted(bounds, tv, right=True, out_int32=True)
+    assert torch.equal(got, want)
+    finite = np.isfinite(v) & ((v == 0) | (np.abs(v) >= np.finfo(
+        np.float32).tiny))
+    w_idx = np.asarray(jref.kmeans_assign_ref(jnp.asarray(v[finite]),
+                                              jnp.asarray(c))[0])
+    np.testing.assert_array_equal(got.numpy()[finite], w_idx)
+    table = km.bucket_table(tc)
+    assert table.numel() == km.BUCKETS + 1
+    assert int(table[0]) == 0 and int(table[-1]) == k - 1
+    assert bool((table[1:] >= table[:-1]).all())
+
+
+@pytest.mark.parametrize("k,n", ASSIGN_CASES)
+def test_fixed_point_sums_within_tolerance(k, n):
+    """The kernel's fixed-point sums, mirrored in torch, sit within the
+    unchanged ``sums_tolerance`` of the f64 sums and within the bound of
+    their own arithmetic (``fixed_point_bound``), with the exact extremes
+    or looser ones; bf16 values sum exactly but for the final f32
+    rounding."""
+    c = _centers(k + n, k, True)
+    v = torch.from_numpy(_values(k * n, n, c))
+    tc = torch.from_numpy(c)
+    idx = km.bucketed_search(v, tc)
+    exact, abs_sum, n_c = km.exact_sums(v, idx, k)
+    limit = km.sums_tolerance(abs_sum, n_c, n)
+    lo, hi = float(v.min()), float(v.max())
+    for ext in ((lo, hi), (4 * lo, 4 * hi)):
+        sums = km.fixed_point_sums(v, idx, tc, ext)
+        err = (sums.double() - exact).abs()
+        assert bool((err <= limit).all())
+        own = km.fixed_point_bound(exact, abs_sum, n_c, tc, ext, n)
+        assert bool((err <= own).all())
+    vb = v.to(torch.bfloat16).float()
+    idx_b = km.bucketed_search(vb, tc)
+    exact_b, _, _ = km.exact_sums(vb, idx_b, k)
+    sums_b = km.fixed_point_sums(vb, idx_b, tc, (vb.min(), vb.max()))
+    assert torch.equal(sums_b, exact_b.float())
+
+
+def test_fixed_point_sums_non_finite():
+    """Infinities and NaNs are flagged, not summed: a center holding +inf
+    sums to +inf, one holding −inf to −inf, one holding both or a NaN to
+    NaN, as the plain version's f32 sums; the others are unchanged."""
+    c = _centers(4, 64)
+    v = torch.from_numpy(_values(4, 9000, c))
+    v[:5] = torch.tensor([float("inf"), -float("inf"), float("inf"),
+                          -float("inf"), float("nan")])
+    tc = torch.from_numpy(c)
+    idx = km.bucketed_search(v, tc)
+    assert idx[0] == 63 and idx[1] == 0 and idx[2] == 63
+    v[3] = float(tc[0]) - 1.0          # finite, on center 0 with the −inf
+    idx = km.bucketed_search(v, tc)
+    _, want, _ = km.kmeans_assign_plain(v, tc)
+    got = km.fixed_point_sums(v, idx, tc, (-float("inf"), float("inf")))
+    nan = torch.isnan(want)
+    assert torch.equal(nan, torch.isnan(got)) and bool(nan.any())
+    assert bool(torch.isinf(got).any())
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin, finite = torch.isfinite(want), torch.isfinite(v)
+    clean = km.fixed_point_sums(v[finite], idx[finite], tc,
+                                (float(v[finite].min()),
+                                 float(v[finite].max())))
+    assert torch.equal(got[fin], clean[fin])
+
+
+def test_fixed_point_bound_tighter_than_the_tolerance_at_full_n():
+    """At the full model's n the fixed-point bound of a center's sums is
+    nearly 10³ times tighter than ``sums_tolerance``: the final f32 rounding
+    (2⁻²⁴·|sum|) and 2⁻³² of the center's largest |v| a value."""
+    n = 1_720_837_120
+    c = torch.tensor([-0.1, 0.0, 0.1])
+    n_c = torch.full((3,), 1e7, dtype=torch.float64)
+    abs_sum = n_c * 0.05
+    exact = abs_sum * torch.tensor([-1.0, 0.0, 1.0], dtype=torch.float64)
+    own = km.fixed_point_bound(exact, abs_sum, n_c, c, (-1.0, 1.0), n)
+    tol = km.sums_tolerance(abs_sum, n_c, n)
+    assert bool((own < tol / 900).all())
+    assert float(own[0] / abs_sum[0]) < 2 * 2.0 ** -24
+
+
+def test_finite_extremes_skip_non_finite():
+    """The extremes the kernel scales its sums for: the smallest and
+    largest finite value, whatever infinities or NaNs are among them."""
+    v = torch.tensor([0.5, -2.0, float("inf"), 3.0, float("nan"),
+                      -float("inf")])
+    assert km.finite_extremes(v).tolist() == [-2.0, 3.0]
+    assert km.finite_extremes(v[:2]).tolist() == [-2.0, 0.5]
+    assert km.finite_extremes(v[2:3]).tolist() == [0.0, 0.0]
+    assert km.finite_extremes(torch.empty(0)).tolist() == [0.0, 0.0]
+
+
+def test_kmeans_stats_plain_is_assign_sums_and_counts():
+    c = _centers(3, 1000)
+    v = torch.from_numpy(_values(3, 20000, c))
+    _, sums, counts = ops.kmeans_assign(v, torch.from_numpy(c))
+    ops.reset_launch_counts()
+    s2, c2 = ops.kmeans_stats(v, torch.from_numpy(c))
+    assert torch.equal(sums, s2) and torch.equal(counts, c2)
+    assert ops.launch_counts()["kmeans_assign"] == 0
+    with pytest.raises(ValueError):
+        km.kmeans_stats_cuda(v, torch.from_numpy(c))
+
+
 @pytest.mark.parametrize("n", [1, 255, 4097, 10 ** 7, 1_720_837_120])
 def test_launch_grid_covers_every_value(n):
     blocks, chunk = km.launch_grid(n)

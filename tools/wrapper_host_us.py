@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Host microseconds per call of the port's two matmul wrappers.
+"""Host microseconds per call of the port's matmul wrappers and per paged
+layer's page gather.
 
     python3 tools/wrapper_host_us.py [--root DIR] [--calls 64]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
 its kernels, and times ``codebook_matmul_cuda`` (bf16 x, int16 ids) and
 ``lut_matmul_cuda`` (int32 row ids, int16 ids, a 4096 × 1000 table) at the
-decode shape 4 × 2048 × 6144 on one CUDA card.  The calls are queued behind
-a device-side sleep, so the host clock measures what the host spends on a
-call (checks, plan, allocation, launch) and never waits on the card.
+decode shape 4 × 2048 × 6144 on one CUDA card, and one paged int8 layer's
+gather at the decode table (4 slots × 32 pages of K and V (16, 8, 128) int8
+and their bf16 scales (16, 8)): ``ops.gather_pages_many`` where the checkout
+has it (one launch), else four ``ops.gather_pages`` calls.  The calls are
+queued behind a device-side sleep, so the host clock measures what the
+host spends on a call (checks, plan, allocation, launch) and never waits
+on the card.
 Prints one JSON line: the root, µs per call of each wrapper (median of 7
 rounds) and the card's name and power limit.  Only the wrappers' public
 signatures are used, so two checkouts can be compared in one run.
@@ -41,7 +46,8 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import codebook_matmul as cm
     from repro_torch.kernels import lut_matmul as lm
-    build.build_all(("codebook_matmul", "lut_matmul"))
+    from repro_torch.kernels import ops
+    build.build_all(("codebook_matmul", "lut_matmul", "page_gather"))
 
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -54,8 +60,21 @@ def main() -> int:
                       dtype=torch.int32)
     tab = torch.randint(-(1 << 20), 1 << 20, (4096, 1000), generator=g,
                         device=dev, dtype=torch.int32)
+    n_pages = 129
+    pools = [torch.zeros((n_pages, 16, 8, 128), dtype=torch.int8,
+                         device=dev) for _ in range(2)] + [
+        torch.zeros((n_pages, 16, 8), dtype=torch.bfloat16, device=dev)
+        for _ in range(2)]
+    pt = torch.arange(1, n_pages, dtype=torch.int32, device=dev).reshape(4, 32)
+    if hasattr(ops, "gather_pages_many"):
+        def layer_gather():
+            return ops.gather_pages_many(pools, pt)
+    else:
+        def layer_gather():
+            return [ops.gather_pages(p, pt) for p in pools]
     calls = {"codebook_matmul": lambda: cm.codebook_matmul_cuda(x, wi, book),
-             "lut_matmul": lambda: lm.lut_matmul_cuda(a, wi, tab)}
+             "lut_matmul": lambda: lm.lut_matmul_cuda(a, wi, tab),
+             "page_gather_layer": layer_gather}
     res = {}
     for name, fn in calls.items():
         for _ in range(5):
