@@ -20,15 +20,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    page_gather bit-exact on int8/bf16/f32 K/V pages, bf16 scale pages and
    a 15-byte page, at the decode and prefill-chunk page tables, with
    out-of-range ids, and its multi-pool launch bit-identical to one launch a pool; act_quant
-   in both forms (4 kinds × |A| 2, 32, 256 × f32/bf16) at every FFN row
-   count of the serving paths × 6144 and odd sizes, bit-equal but for
-   counted level-boundary ties; kmeans_assign (k 2, 1000, 4096 × n 1,
+   in both forms (4 kinds × |A| 2, 32, 256 × f32/bf16), without and with
+   its multiplier, at every FFN row count of the serving paths × 6144 and
+   odd sizes, bit-equal but for counted level-boundary ties; the gated
+   launch codebook_swiglu (the FFN's gate and up products with act_quant
+   as their epilogue) at every FFN row count and 17 and an odd N, on both
+   routes, bit-equal to the unfused chain of CUDA launches and (relu6) to
+   the plain epilogue of its accumulators, twice bit-identical;
+   kmeans_assign (k 2, 1000, 4096 × n 1,
    4097, 10⁷, values on midpoints, duplicate centers) with exact indices
    and counts, sums within a summation-order limit, bit-identical twice,
    its sums-only form bit-identical to the full form;
 4. reduced model: a 2-layer qwen3 serves contiguous and paged (bf16 and
    int8 pages) through every backend on the card and on the CPU, with
-   equal greedy tokens; then the same at the paper's working point
+   equal greedy tokens; codeqwen1.5-7b reduced with its int8 contiguous
+   cache (``kv_quant``, untied head) the same; then at the paper's
+   working point
    (|A| = 32 activations, k-means |W| = 1000, clustered on the CPU), and
    k-means of its weights on the card against the CPU's;
 5. contiguous path: qwen3-1.7b at full width and depth, random weights
@@ -51,10 +58,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    MSE beside laplacian_l1's, kmeans_assign at the full n against its
    plain version (and run twice, bit-identical; both forms), its three
    forms timed (search alone, sums only, full), then served through
-   codebook and lut (contiguous) and codebook with int8 pages, with 28
-   act_quant launches a forward; the kernel held against its plain
-   version on one layer's real w1 outputs; decode step and serve
-   figures beside phase 5's;
+   codebook and lut (contiguous) and codebook with int8 pages: codebook
+   launches 5 × 28 codebook_matmul, 28 codebook_swiglu and no act_quant
+   a forward, lut 7 × 28 lut_matmul and 28 act_quant (with its
+   multiplier); act_quant and the gated launch held against their plain
+   versions on one layer's real FFN input; decode step and serve figures
+   beside phase 5's, and the codebook step with the gated launch against
+   the unfused chain it replaced, in turns;
+   [kvq]: codeqwen1.5-7b at full width, 4 of its 32 layers, compressed as
+   ``launch/serve.py --compress`` does, served through the codebook
+   backend with its int8 contiguous cache: launches, cache bytes against
+   a bf16 cache's, decode step with each, and the gap between their
+   decode logits;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -63,8 +78,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one paged layer's four pools in one launch against
    four single-pool launches and four library calls,
    act_quant at the decode (4 × 6144) and prefill (32 × 6144) FFN shapes,
-   with the bound, the plain version's and the library call's times
-   (kmeans_assign's are taken in phase 7, at the full n).
+   with the bound, the plain version's and the library call's times;
+   codebook_swiglu at M 1, 4, 32, 256 against its two products alone, the
+   unfused chain and the library yardstick (kmeans_assign's are taken in
+   phase 7, at the full n).
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when no CUDA device is present.
@@ -85,13 +102,18 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # boost clock of the Hopper white paper.
 H100_SXM = {"bytes": 3.35e12, "bf16": 989e12, "f32": 67e12,
             "int32": 132 * 64 * 1.98e9}
+# Each kernel of the port and the TPU kernel it replaces.  codebook_swiglu,
+# the gated launch, is act_quant redesigned as the epilogue of the FFN's two
+# codebook products, in codebook_matmul's source.
 TPU_KERNELS = {
     "codebook_matmul": "src/repro/kernels/codebook_matmul.py:55",
     "lut_matmul": "src/repro/kernels/lut_matmul.py:58",
     "page_gather": "src/repro/kernels/page_gather.py:37",
     "act_quant": "src/repro/kernels/act_quant.py:35",
+    "codebook_swiglu": "src/repro/kernels/act_quant.py:35",
     "kmeans_assign": "src/repro/kernels/kmeans1d.py:27",
 }
+SOURCES = {"codebook_swiglu": "src/repro_torch/csrc/codebook_matmul.cu"}
 SITES = {"wq": (2048, 2048), "wk": (2048, 1024), "wv": (2048, 1024),
          "wo": (2048, 2048), "w1": (2048, 6144), "w3": (2048, 6144),
          "w2": (6144, 2048)}
@@ -434,23 +456,130 @@ def act_quant_parity(dev, rows) -> tuple[float, int]:
     worst, ties, n = 0.0, 0, 0
     for shape in sizes:
         base = torch.randn(shape, generator=g, device=dev) * 3
+        ubase = torch.randn(shape, generator=g, device=dev)
         for xdt in (torch.float32, torch.bfloat16):
-            x = base.to(xdt)
+            x, u = base.to(xdt), ubase.to(xdt)
             for kind in ACT_KINDS:
                 for levels in (2, ACT_LEVELS, 256):
                     for form in aq.FORMS:
-                        got = aq.act_quant_cuda(x, kind, levels, form=form)
-                        want = aq.act_quant_plain(x, kind, levels, form=form)
-                        torch.cuda.synchronize()
-                        ties += aq.parity_ties(*got, *want, kind, levels)
-                        worst = max(worst, (got[0].float() - want[0].float()
-                                            ).abs().max().item())
-                        n += 1
+                        # without and with the multiplier the dense and
+                        # lut FFNs give it; the last ``got`` (with it) is
+                        # held to the kernel's own output times it below
+                        for mul in (None, u):
+                            got = aq.act_quant_cuda(x, kind, levels,
+                                                    form=form, mul=mul)
+                            want = aq.act_quant_plain(x, kind, levels,
+                                                      form=form, mul=mul)
+                            torch.cuda.synchronize()
+                            ties += aq.parity_ties(*got, *want, kind, levels,
+                                                   mul=mul)
+                            worst = max(worst, (got[0].float()
+                                                - want[0].float()
+                                                ).abs().max().item())
+                            n += 1
+                        alone = aq.act_quant_cuda(x, kind, levels, form=form,
+                                                  with_index=False)[0]
+                        if not torch.equal(got[0], alone * u):
+                            raise AssertionError(
+                                f"act_quant {kind} {form} {xdt} {shape}: "
+                                "with mul differs from the output times mul")
     log(f"[parity] act_quant in {n} cases (forms kernel/act_apply × "
         f"{len(ACT_KINDS)} kinds × |A| 2/{ACT_LEVELS}/256 × f32/bf16 × "
-        f"shapes {sizes}): bit-equal but for {ties} level-boundary ties "
-        f"(each one level apart); relu6 bit-equal; max abs err {worst:.3e}")
+        f"shapes {sizes}, without and with a multiplier): bit-equal but for "
+        f"{ties} level-boundary ties (each one level apart); relu6 "
+        f"bit-equal; with mul equal to the kernel's output times mul; max "
+        f"abs err {worst:.3e}")
     return worst, ties
+
+
+def swiglu_parity(dev, rows) -> tuple[float, dict]:
+    """The gated launch (codebook_swiglu) at every FFN row count of the
+    serving paths × the w1/w3 site, and an odd N (K 100, N 131: the FMA
+    tile), int8/int16/int32 ids, f32/bf16 x, 4 kinds × |A| 2, 32, 256, on
+    the planned route and (bf16) the FMA tile: bit-equal to the unfused
+    chain of CUDA launches with the same plan (two codebook_matmul, their
+    casts, act_quant with its multiplier), and to the plain epilogue of
+    those accumulators (``swiglu_epilogue_plain``; relu6, the kind the
+    paths serve: the chain's act_quant is held to the plain version with
+    ties counted above); each launch run twice, bit-identical.  Against
+    the fully plain chain (``codebook_swiglu_plain``, whose f32 sums add
+    in another order) the bf16 relu6 outputs that differ are counted.
+    Returns (max abs err against the plain epilogue, counts)."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import _common
+    g = torch.Generator(device=dev).manual_seed(8)
+    K, N = SITES["w1"]
+    cases = [(m, K, N) for m in rows] + [(3, 100, 131), (40, 100, 131)]
+    n, flips, total, worst = 0, 0, 0, 0.0
+    for M, K_, N_ in cases:
+        for idt, W in ((torch.int8, 256), (torch.int16, N_BOOK),
+                       (torch.int32, 5000)):
+            lo_id = -128 if idt == torch.int8 else 0
+            hi_id = 128 if idt == torch.int8 else W
+            w1, w3 = (torch.randint(lo_id, hi_id, (K_, N_), generator=g,
+                                    device=dev).to(idt) for _ in range(2))
+            b1, b3 = (torch.randn(W, generator=g, device=dev) * 0.05
+                      for _ in range(2))
+            xf = torch.randn(M, K_, generator=g, device=dev) * 2
+            for xdt in (torch.float32, torch.bfloat16):
+                x = xf.to(xdt)
+                plans = [None]
+                if xdt == torch.bfloat16:
+                    plans.append(_common.codebook_plan(
+                        M, K_, N_, bf16=True, vec_ok=False,
+                        sms=_common.sm_count(dev)))
+                for plan in plans:
+                    gs = cm.codebook_matmul_cuda(x, w1, b1, plan=plan)
+                    us = cm.codebook_matmul_cuda(x, w3, b3, plan=plan)
+                    for kind in ACT_KINDS:
+                        for levels in (2, ACT_LEVELS, 256):
+                            got = cm.codebook_swiglu_cuda(
+                                x, w1, b1, w3, b3, kind, levels, plan=plan)
+                            again = cm.codebook_swiglu_cuda(
+                                x, w1, b1, w3, b3, kind, levels, plan=plan)
+                            chain = aq.act_quant_cuda(
+                                gs.to(xdt), kind, levels, form="act_apply",
+                                with_index=False, mul=us.to(xdt))[0]
+                            torch.cuda.synchronize()
+                            route = "planned" if plan is None else plan.route
+                            tag = (f"codebook_swiglu M={M} K={K_} N={N_} "
+                                   f"{idt} {xdt} {kind} |A|={levels} "
+                                   f"plan={route}")
+                            if not (torch.equal(got, chain)
+                                    and torch.equal(got, again)):
+                                raise AssertionError(
+                                    f"{tag}: differs from the unfused chain "
+                                    "or between two runs")
+                            if kind == "relu6":
+                                want = cm.swiglu_epilogue_plain(
+                                    gs, us, xdt, kind, levels)
+                                if not torch.equal(got, want):
+                                    raise AssertionError(
+                                        f"{tag}: differs from the plain "
+                                        "epilogue of its accumulators")
+                                worst = max(worst, (got.float() - want.float()
+                                                    ).abs().max().item())
+                            if (kind == "relu6" and xdt == torch.bfloat16
+                                    and plan is None):
+                                plain = cm.codebook_swiglu_plain(
+                                    x, w1, b1, w3, b3, kind, levels)
+                                flips += int((got != plain).sum())
+                                total += got.numel()
+                            n += 1
+    counts = {"launches": 2 * n, "flips_vs_plain": flips,
+              "elements_vs_plain": total}
+    log(f"[parity] codebook_swiglu in {n} cases (M in {rows} at the w1/w3 "
+        f"site {K}×{N}, and M=3, 40 at K=100 N=131; int8/int16/int32 ids × "
+        f"f32/bf16 x × {len(ACT_KINDS)} kinds × |A| 2/{ACT_LEVELS}/256; "
+        f"planned route and, bf16, the FMA tile): bit-equal to the unfused "
+        f"chain of CUDA launches and, relu6, to the plain epilogue of its "
+        f"accumulators; each run twice, bit-identical; against the fully "
+        f"plain chain (f32 sums in torch.matmul's order) {flips}/{total} "
+        f"bf16 relu6 outputs differ ({flips / max(total, 1):.2e}: G or U "
+        f"rounding to another bf16 value or level)")
+    return worst, counts
 
 
 def kmeans_case(values, centers) -> dict:
@@ -688,6 +817,63 @@ def reduced_against_cpu(dev):
         "equal the CPU path's, contiguous and paged (bf16 and int8 pages)")
 
 
+def reduced_kv_quant(dev):
+    """codeqwen1.5-7b reduced (2 layers, d 128, f32, untied head) with its
+    ``kv_quant`` int8 contiguous cache, compressed on the CPU (laplacian_l1,
+    |W| = 256), through every backend on the card and on the CPU: ``serve``
+    (5 requests over 2 slots: planes spliced into reused slots) and
+    ``generate`` (planes grown), greedy tokens equal; codebook launches
+    7 × 2 + 1 (the head) a forward; the cache's bytes the int8 planes' and
+    their bf16 scales'."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, init_state)
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine, to_codebook_params
+    cfg = configs.get("codeqwen1.5-7b").reduced()
+    if not cfg.kv_quant:
+        raise AssertionError("codeqwen1.5-7b has lost kv_quant")
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    wq = WeightQuantConfig(num_weights=256)
+    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    cp = to_codebook_params(pq, wq, st, min_size=1024)
+    cp_dev = _to(cp, dev)
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8],
+               [1, 2, 3, 4, 5, 6, 7]]
+    kw = dict(max_len=64, max_batch=2)
+    for be in ("dense", "codebook", "lut"):
+        on_cpu = ServeEngine(model, cp, backend=be, device="cpu", **kw)
+        on_dev = ServeEngine(model, cp_dev, backend=be, device=dev, **kw)
+        want = (on_cpu.serve(prompts, max_new=8),
+                on_cpu.generate(prompts[:3], max_new=8))
+        ops.reset_launch_counts()
+        got = (on_dev.serve(prompts, max_new=8),
+               on_dev.generate(prompts[:3], max_new=8))
+        if got != want:
+            raise AssertionError(f"codeqwen reduced, kv_quant, {be}: card "
+                                 f"tokens {got} != CPU tokens {want}")
+        counts = ops.launch_counts()
+        if be == "codebook" and counts["codebook_matmul"] != (
+                7 * cfg.n_layers + 1) * on_dev.n_forwards:
+            raise AssertionError(f"codeqwen reduced codebook: {counts} over "
+                                 f"{on_dev.n_forwards} forwards")
+    cache = model.init_cache(4, 64, device=dev)["kv"]
+    n_bytes = ServeEngine(model, cp_dev, max_len=64, max_batch=4,
+                          device=dev).dense_cache_bytes()
+    if {k: v.dtype for k, v in cache.items()} != {
+            "k": torch.int8, "v": torch.int8, "k_scale": torch.bfloat16,
+            "v_scale": torch.bfloat16} or n_bytes != 139264:
+        raise AssertionError(f"codeqwen reduced cache: {cache.keys()}, "
+                             f"{n_bytes} B")
+    log("[reduced] codeqwen1.5-7b reduced, int8 contiguous cache "
+        "(kv_quant): dense/codebook/lut tokens on the card equal the CPU "
+        "path's (serve over reused slots, generate); int8 k/v with bf16 "
+        f"scales, {n_bytes} B at max_batch 4, max_len 64")
+
+
 def reduced_working_point(dev):
     """The reduced qwen3 at the paper's working point (|A| = 32, k-means
     |W| = 1000, global), clustered on the CPU; its index-form params served
@@ -720,7 +906,7 @@ def reduced_working_point(dev):
     cp_dev = _to(cp, dev)
     prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8]]
     ops.reset_launch_counts()
-    n_fwd = 0
+    n_fwd = {"act_quant": 0, "codebook_swiglu": 0}
     for be, kw in (("dense", {}), ("codebook", {}), ("lut", {}),
                    ("codebook", dict(paged=True, page_size=4,
                                      kv_dtype="int8")),
@@ -730,14 +916,16 @@ def reduced_working_point(dev):
             prompts, max_new=8)
         e = ServeEngine(model, cp_dev, device=dev, **kw)
         on_dev = e.serve(prompts, max_new=8)
-        n_fwd += e.n_forwards
+        # codebook: the gated launch a layer; dense, lut: act_quant
+        n_fwd["codebook_swiglu" if be == "codebook" else "act_quant"] += \
+            e.n_forwards
         if on_cpu != on_dev:
             raise AssertionError(f"reduced working point, {be} {kw}: card "
                                  f"tokens {on_dev} != CPU tokens {on_cpu}")
     counts = ops.launch_counts()
-    if counts["act_quant"] != cfg.n_layers * n_fwd:
-        raise AssertionError(f"reduced working point: {counts['act_quant']}"
-                             f" act_quant launches over {n_fwd} forwards")
+    if any(counts[k] != cfg.n_layers * f for k, f in n_fwd.items()):
+        raise AssertionError(f"reduced working point: {counts} launches "
+                             f"over {n_fwd} forwards")
     ops.reset_launch_counts()
     _, st_dev = cluster_params(_to(params, dev), wq, init_state(wq),
                                wq.interval)
@@ -769,8 +957,10 @@ def reduced_working_point(dev):
     log(f"[reduced] working point (|A|={ACT_LEVELS}, k-means |W|={N_BOOK}, "
         f"clustered on the CPU): dense/codebook/lut contiguous and "
         f"codebook/lut int8-paged tokens on the card equal the CPU's; "
-        f"{counts['act_quant']} act_quant launches (= {cfg.n_layers} × "
-        f"{n_fwd} forwards); k-means on the card ({2 * wq.kmeans_iters} "
+        f"{counts['act_quant']} act_quant and {counts['codebook_swiglu']} "
+        f"codebook_swiglu launches (= {cfg.n_layers} × "
+        f"{n_fwd['act_quant']} and {n_fwd['codebook_swiglu']} forwards); "
+        f"k-means on the card ({2 * wq.kmeans_iters} "
         f"kmeans_assign launches) vs the CPU with f64 sums: max |Δ center| "
         f"{rel:.3e} of the largest, w_idx differs for {n_diff}/"
         f"{flat.numel()} weights ({n_diff / flat.numel():.2e}); vs the CPU "
@@ -807,8 +997,9 @@ def _to_f32(tree):
 def device_time(fn, top: int = 5, match: str = "page_gather"):
     """Device time of one call from torch.profiler's CUDA activity:
     (busy ms summed over kernels and copies, [(name, ms, count)] of the
-    largest, ms of the kernels whose name holds ``match``).  Busy time over
-    wall time gives the device's idle share."""
+    largest, ms of the kernels whose name holds ``match``, kernels launched
+    (copies and memsets not counted)).  Busy time over wall time gives the
+    device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -826,8 +1017,10 @@ def device_time(fn, top: int = 5, match: str = "page_gather"):
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     matched = sum(e.self_device_time_total for e in evs
                   if match in e.key) / 1e3
+    n_kernels = sum(e.count for e in evs
+                    if not e.key.startswith(("Memcpy", "Memset")))
     return busy, [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-                  for e in evs[:top]], matched
+                  for e in evs[:top]], matched, n_kernels
 
 
 def kernel_ms(fn, match: str, reps: int = 3) -> float:
@@ -862,16 +1055,15 @@ def timed(fn):
     return out, time.perf_counter() - t
 
 
-def compressed_model(dev):
-    """qwen3-1.7b at full width and depth, random weights from a seeded
-    generator, compressed to |W| = N_BOOK: (cfg, model, index-form params)."""
+def compressed_model(dev, cfg, tag: str):
+    """``cfg`` at full width, random weights from a seeded generator,
+    compressed to |W| = N_BOOK as ``launch/serve.py --compress`` does
+    (laplacian_l1, global, int16 ids): (model, index-form params)."""
     import torch
-    from repro_torch import configs
     from repro_torch.core.quantizer import cluster_params, init_state
     from repro_torch.models.model_zoo import build
     from repro_torch.serving import to_codebook_params
 
-    cfg = configs.get("qwen3-1.7b")
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
     (params, t_init) = timed(lambda: model.init(
@@ -883,16 +1075,18 @@ def compressed_model(dev):
     pq, state = pq_st
     cp, t_cp = timed(lambda: to_codebook_params(pq, wq, state))
     del pq
+    L_, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     w1 = cp["blocks"]["mlp"]["w1"]
     assert w1["w_idx"].dtype == torch.int16, w1["w_idx"].dtype
-    assert tuple(w1["w_idx"].shape) == (28, 2048, 6144)
-    assert tuple(w1["codebook"].shape) == (28, N_BOOK)
-    assert tuple(cp["embed"]["w_idx"].shape) == (152064, 2048)
-    log(f"[main] qwen3-1.7b {cfg.n_layers}L d={cfg.d_model} ff={cfg.d_ff} "
-        f"vocab={cfg.vocab} (padded {cfg.padded_vocab}) {cfg.dtype}: init "
-        f"{t_init:.2f}s, cluster {t_cl:.2f}s, to_codebook {t_cp:.2f}s; "
-        f"w_idx int16, codebook {N_BOOK} entries")
-    return cfg, model, cp
+    assert tuple(w1["w_idx"].shape) == (L_, d, ff)
+    assert tuple(w1["codebook"].shape) == (L_, N_BOOK)
+    assert tuple(cp["embed"]["w_idx"].shape) == (cfg.padded_vocab, d)
+    log(f"{tag} {cfg.name} {L_}L d={d} ff={ff} heads {cfg.n_heads}/"
+        f"{cfg.n_kv} vocab={cfg.vocab} (padded {cfg.padded_vocab}) "
+        f"{cfg.dtype}, {'tied' if cfg.tie_embeddings else 'untied'} head, "
+        f"kv_quant {cfg.kv_quant}: init {t_init:.2f}s, cluster {t_cl:.2f}s, "
+        f"to_codebook {t_cp:.2f}s; w_idx int16, codebook {N_BOOK} entries")
+    return model, cp
 
 
 def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
@@ -928,7 +1122,8 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
     for be, (secs, counts, fwd, n_tok) in runs.items():
         name = f"{be}_matmul"
         other = "lut_matmul" if be == "codebook" else "codebook_matmul"
-        if counts[name] != per_fwd * fwd or counts[other] != 0:
+        if (counts[name] != per_fwd * fwd or counts[other] != 0
+                or counts["codebook_swiglu"] or counts["act_quant"]):
             raise AssertionError(f"{be}: launches {counts} over {fwd} "
                                  f"forwards, want {per_fwd}×{fwd}")
         log(f"[main] {be}: {fwd} forwards, {counts[name]} {name} launches "
@@ -984,14 +1179,15 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
                      "decode_step_ms": 1e3 * sorted(dec)[len(dec) // 2]}
         if be in runs:
             stats[be]["serve_tok_s"] = runs[be][3] / runs[be][0]
-        busy, top, _ = device_time(lambda: e._decode(last, cache))
+        busy, top, _, n_k = device_time(lambda: e._decode(last, cache))
         idle = 1 - busy / stats[be]["decode_step_ms"] if busy else None
         stats[be].update(decode_device_ms=busy or None,
-                         decode_idle_share=idle, decode_top_kernels=top)
+                         decode_idle_share=idle, decode_kernels=n_k,
+                         decode_top_kernels=top)
         log(f"[main] {be}: prefill 1×32 tokens {stats[be]['prefill_ms']:.2f}"
             f" ms, decode step (4 slots, pos 40) "
             f"{stats[be]['decode_step_ms']:.2f} ms, device busy "
-            + (f"{busy:.2f} ms (idle share {idle:.3f}); top: "
+            + (f"{busy:.2f} ms (idle share {idle:.3f}), {n_k} kernels; top: "
                + "; ".join(f"{k} {ms:.3f}ms×{n}" for k, ms, n in top)
                if busy else "not measured (the profiler saw no device time)"))
     x = torch.randn(4, 1, cfg.d_model, device=dev).to(torch.bfloat16)
@@ -1205,7 +1401,7 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
         raise AssertionError("non-finite paged decode logits")
     dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-    busy, top, pg_ms = device_time(lambda: e._decode(last, cache))
+    busy, top, pg_ms, _ = device_time(lambda: e._decode(last, cache))
     batch = {"tokens": torch.zeros((1, PAGE), dtype=torch.int64, device=dev),
              "start": SYSTEM_LEN, "length": PAGE, "page_row": pt[0],
              "write_pid": int(pt[0, SYSTEM_LEN // PAGE])}
@@ -1218,7 +1414,8 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     c_cache["pos"][:] = 120
     c_dec = [timed(lambda: contig._decode(last, c_cache))[1]
              for _ in range(6)][1:]
-    c_busy, c_top, _ = device_time(lambda: contig._decode(last, c_cache))
+    c_busy, c_top, _, _ = device_time(lambda: contig._decode(last,
+                                                             c_cache))
     med = lambda xs: 1e3 * sorted(xs)[len(xs) // 2]           # noqa: E731
     stats["steps"] = {
         "paged_int8_decode_ms": med(dec), "paged_int8_device_ms": busy or None,
@@ -1261,6 +1458,7 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
     from repro_torch.core.activations import ActQuantConfig, act_index
     from repro_torch.core.quantizer import cluster_params, init_state
     from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
     from repro_torch.kernels import kmeans1d as km
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
@@ -1374,7 +1572,12 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         f0 = e.n_forwards
         out, secs = timed(lambda: e.serve(reqs, max_new=16))
         counts, fwd = ops.launch_counts(), e.n_forwards - f0
-        want = {"act_quant": n_l * fwd, f"{be}_matmul": 7 * n_l * fwd,
+        # codebook: w1, w3 and the activation in one gated launch a layer;
+        # lut: the activation with its multiplier, one launch a layer
+        gated = be == "codebook"
+        want = {"act_quant": 0 if gated else n_l * fwd,
+                "codebook_swiglu": n_l * fwd if gated else 0,
+                f"{be}_matmul": (5 if gated else 7) * n_l * fwd,
                 "page_gather": n_l * fwd if name == "paged" else 0}
         if any(counts[k_] != v for k_, v in want.items()):
             raise AssertionError(f"working point {name}: launches {counts} "
@@ -1386,10 +1589,10 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
             launches[k_] = launches.get(k_, 0) + v
         stats[f"{name}_serve_tok_s"] = 16 * len(reqs) / secs
         log(f"[point] {name}: {len(reqs)} requests, {fwd} forwards, "
-            f"{counts['act_quant']} act_quant launches (= {n_l} × {fwd}), "
-            + ", ".join(f"{counts[k_]} {k_}" for k_ in want
-                        if k_ != "act_quant" and want[k_])
-            + f"; serve {16 * len(reqs)} tokens in {secs:.3f}s → "
+            + ", ".join(f"{counts[k_]} {k_}" for k_ in want)
+            + f" (= {0 if gated else 1}, {1 if gated else 0}, "
+            f"{5 if gated else 7} × {n_l} × {fwd}); serve "
+            f"{16 * len(reqs)} tokens in {secs:.3f}s → "
             f"{16 * len(reqs) / secs:.1f} tok/s")
     launches["kmeans_assign"] = cl_counts["kmeans_assign"]
 
@@ -1399,16 +1602,21 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
     act = ActQuantConfig("relu6", ACT_LEVELS)
 
     def compare(engs, tag):
-        captured, orig, lg = {}, L.ffn_act, {}
+        """Prefill logits of the two engines, and every FFN's gate input
+        G = x·W1 as the unfused chain computes it (``L.dense``; the gated
+        launch's G has the same bits, phase 3), with each FFN's input."""
+        captured, inputs, orig, lg = {}, {}, L.swiglu, {}
         for be, e in engs.items():
-            def capture(x, kind, levels, be=be):
-                captured.setdefault(be, []).append(x.detach().clone())
-                return orig(x, kind, levels)
-            L.ffn_act = capture
+            def capture(p, x, kind, levels, backend, be=be):
+                captured.setdefault(be, []).append(
+                    L.dense(p["w1"], x, backend).detach().clone())
+                inputs.setdefault(be, []).append((p, x.detach().clone()))
+                return orig(p, x, kind, levels, backend)
+            L.swiglu = capture
             try:
                 lg[be] = e._prefill(toks, lens)[0][:, -1, :cfg.vocab].float()
             finally:
-                L.ffn_act = orig
+                L.swiglu = orig
         if not all(bool(torch.isfinite(v).all()) for v in lg.values()):
             raise AssertionError("non-finite prefill logits")
         by_layer = [int((act_index(act, a) != act_index(act, b)).sum())
@@ -1429,10 +1637,10 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
             f"FFN elements on another level: {differ}/{total} "
             f"({differ / total:.2e}) over {len(by_layer)} layers; by layer "
             + ", ".join(f"{b / per:.1e}" for b in by_layer))
-        return r, captured
+        return r, captured, inputs
 
-    bf16, captured = compare({be: eng[be] for be in ("dense", "codebook")},
-                             "bf16")
+    bf16, captured, inputs = compare(
+        {be: eng[be] for be in ("dense", "codebook")}, "bf16")
     stats.update(bf16)
     # The same weights in f32: dense and codebook then differ only in the
     # order of their f32 sums, 2⁻¹⁶ of bf16's rounding.  At layer 0, where
@@ -1444,8 +1652,8 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
     # 5 %-of-range logit limit, set for smooth activations, does not apply.
     cp32 = _to_f32(cp)
     m32 = build(cfg.replace(dtype="float32"))
-    f32, _ = compare({be: ServeEngine(m32, cp32, backend=be, **kw)
-                      for be in ("dense", "codebook")}, "f32")
+    f32, _, _ = compare({be: ServeEngine(m32, cp32, backend=be, **kw)
+                         for be in ("dense", "codebook")}, "f32")
     stats["f32"] = f32
     del cp32, m32
     if f32["ffn_level_differ_share_by_layer"][0] > 1e-4:
@@ -1460,9 +1668,28 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         got = aq.act_quant_cuda(x, "relu6", ACT_LEVELS, form=form)
         want_ = aq.act_quant_plain(x, "relu6", ACT_LEVELS, form=form)
         ties += aq.parity_ties(*got, *want_, "relu6", ACT_LEVELS)
+    # the gated launch on the same layer's real FFN input and weights,
+    # against the unfused chain of CUDA launches and the plain epilogue
+    p_mid, x_mid = inputs["codebook"][n_l // 2]
+    x2 = x_mid.reshape(-1, x_mid.shape[-1]).contiguous()
+    w1, w3 = p_mid["w1"], p_mid["w3"]
+    h = cm.codebook_swiglu_cuda(x2, w1["w_idx"], w1["codebook"], w3["w_idx"],
+                                w3["codebook"], "relu6", ACT_LEVELS)
+    gs = cm.codebook_matmul_cuda(x2, w1["w_idx"], w1["codebook"])
+    us = cm.codebook_matmul_cuda(x2, w3["w_idx"], w3["codebook"])
+    chain = aq.act_quant_cuda(gs.to(x2.dtype), "relu6", ACT_LEVELS,
+                              form="act_apply", with_index=False,
+                              mul=us.to(x2.dtype))[0]
+    if not (torch.equal(h, chain) and torch.equal(
+            h, cm.swiglu_epilogue_plain(gs, us, x2.dtype, "relu6",
+                                        ACT_LEVELS))):
+        raise AssertionError("codebook_swiglu on a layer's real input "
+                             "differs from the unfused chain")
     log(f"[point] act_quant on layer {n_l // 2}'s real w1 outputs "
-        f"{tuple(x.shape)} bf16, both forms: bit-equal to the plain version")
-    del captured, x
+        f"{tuple(x.shape)} bf16, both forms: bit-equal to the plain version; "
+        f"codebook_swiglu on its real FFN input {tuple(x2.shape)}: bit-equal "
+        f"to the unfused chain and to the plain epilogue")
+    del captured, inputs, x, x_mid, x2
 
     # decode step and prefill, as phase 5 times them
     t32, l32 = eng["dense"]._pad_prompts([(prompts[0] * 4)[:32]])
@@ -1473,12 +1700,17 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         cache["pos"][:] = 40
         last = np.zeros(4, np.int64)
         dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-        busy, top, aq_ms = device_time(lambda: e._decode(last, cache),
-                                       match="act_quant")
+        # the activation's kernel: the gated launch (codebook), act_quant
+        # with its multiplier (lut)
+        act_kernel = "StoreSwiglu" if be == "codebook" else "act_quant"
+        busy, top, aq_ms, n_k = device_time(lambda: e._decode(last, cache),
+                                            match=act_kernel)
         st = {"prefill_ms": 1e3 * sorted(pre)[len(pre) // 2],
               "decode_step_ms": 1e3 * sorted(dec)[len(dec) // 2],
               "decode_device_ms": busy or None,
-              "act_quant_device_ms": aq_ms or None,
+              "act_kernel": act_kernel,
+              "act_kernel_device_ms": aq_ms or None,
+              "decode_kernels": n_k,
               "decode_top_kernels": top}
         st["decode_idle_share"] = (1 - busy / st["decode_step_ms"]
                                    if busy else None)
@@ -1490,68 +1722,298 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
             f"({b.get('decode_step_ms', 0):.2f}), device busy "
             + (f"{busy:.2f} ms ({b.get('decode_device_ms') or 0:.2f}), idle "
                f"share {st['decode_idle_share']:.3f} "
-               f"({b.get('decode_idle_share') or 0:.3f}), act_quant "
+               f"({b.get('decode_idle_share') or 0:.3f}), {n_k} kernels "
+               f"({b.get('decode_kernels', 0)}), {act_kernel} "
                f"{aq_ms:.3f} ms of it ({n_l} launches)"
                if busy else "not measured")
             + f"; serve {stats[f'{be}_serve_tok_s']:.1f} tok/s "
             f"({b.get('serve_tok_s', 0):.1f})")
+    stats["unfused_chain"] = unfused_step(dev, eng["codebook"], L)
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[point] peak memory {stats['peak_mem_gib']:.2f} GiB")
     del eng, cp, model
     return stats, launches, km_row
 
 
+KVQ_LAYERS = 4                   # codeqwen1.5-7b's 32 layers, cut for time
+
+
+def kv_quant_path(dev) -> tuple[dict, dict]:
+    """The [kvq] phase: codeqwen1.5-7b at full width (d 4096, 32/32 heads,
+    hd 128, d_ff 13440, vocab 92416, untied head, bf16), KVQ_LAYERS of its
+    32 layers, compressed as ``launch/serve.py --compress`` does, served
+    through the codebook backend with its int8 contiguous cache
+    (``kv_quant``): 8 requests over 4 slots, launches checked (7 × layers
+    + 1 codebook_matmul a forward); the cache's bytes against a bf16
+    cache's; the decode step (4 slots at 40) with each cache; the gap
+    between the two caches' decode logits over 8 steps fed the same
+    tokens.  Returns (stats, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine
+    full = configs.get("codeqwen1.5-7b")
+    cfg = full.replace(n_layers=KVQ_LAYERS)
+    model, cp = compressed_model(dev, cfg, "[kvq]")
+    kw = dict(backend="codebook", max_len=128, max_batch=MAX_BATCH,
+              device=dev)
+    e8 = ServeEngine(model, cp, **kw)
+    e16 = ServeEngine(build(cfg.replace(kv_quant=False)), cp, **kw)
+    prompts = prompts_for(8, cfg.vocab)
+    ops.reset_launch_counts()
+    f0 = e8.n_forwards
+    out, secs = timed(lambda: e8.serve(prompts, max_new=16))
+    counts, fwd = ops.launch_counts(), e8.n_forwards - f0
+    per_fwd = 7 * cfg.n_layers + 1
+    if counts["codebook_matmul"] != per_fwd * fwd or any(
+            counts[k] for k in counts if k != "codebook_matmul"):
+        raise AssertionError(f"[kvq] launches {counts} over {fwd} forwards, "
+                             f"want {per_fwd} codebook_matmul a forward")
+    for seq in out:
+        if not all(0 <= t < cfg.vocab for t in seq):
+            raise AssertionError("[kvq] token id out of range")
+    stats = {"config": f"{full.name} {cfg.n_layers} of {full.n_layers} "
+                       "layers, full width",
+             "serve_tok_s": 16 * len(prompts) / secs,
+             "cache_bytes_int8": e8.dense_cache_bytes(),
+             "cache_bytes_bf16": e16.dense_cache_bytes()}
+    for name, e in (("int8", e8), ("bf16", e16)):
+        cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
+        cache["pos"][:] = 40
+        last = np.zeros(4, np.int64)
+        dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
+        busy, _, _, n_k = device_time(lambda: e._decode(last, cache))
+        stats[f"decode_step_ms_{name}"] = 1e3 * sorted(dec)[len(dec) // 2]
+        stats[f"decode_device_ms_{name}"] = busy or None
+    # decode logits of the two caches from the same prefill, fed the int8
+    # engine's greedy tokens
+    toks, lens = e8._pad_prompts(prompts[:4])
+    lg8, c8 = e8._prefill(toks, lens)
+    lg16, c16 = e16._prefill(toks, lens)
+    c8, c16 = e8._grow(c8), e16._grow(c16)
+    V = cfg.vocab
+    last = lg8[:, -1, :V].argmax(-1).cpu().numpy()
+    gaps, scale, agree = [], 0.0, 0
+    for _ in range(8):
+        lg8, c8 = e8._decode(last, c8)
+        lg16, c16 = e16._decode(last, c16)
+        a, b = lg8[:, -1, :V].float(), lg16[:, -1, :V].float()
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise AssertionError("[kvq] non-finite decode logits")
+        gaps.append((a - b).abs().max().item())
+        scale = max(scale, b.abs().max().item())
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        last = a.argmax(-1).cpu().numpy()
+    if not max(gaps) > 0:
+        raise AssertionError("[kvq] the int8 cache's logits equal the bf16 "
+                             "cache's: the int8 path did not run")
+    stats.update(decode_logit_gap_max=max(gaps), decode_logit_gaps=gaps,
+                 max_abs_logit=scale, argmax_agree=agree,
+                 argmax_total=4 * len(gaps),
+                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    log(f"[kvq] {stats['config']} (cut from {full.n_layers} to "
+        f"{cfg.n_layers} layers for time), codebook backend, int8 "
+        f"contiguous cache: {fwd} forwards, {counts['codebook_matmul']} "
+        f"codebook_matmul (= {per_fwd} × {fwd}); serve {16 * len(prompts)} "
+        f"tokens in {secs:.3f}s → {stats['serve_tok_s']:.1f} tok/s; cache "
+        f"{stats['cache_bytes_int8']} B against a bf16 cache's "
+        f"{stats['cache_bytes_bf16']} B "
+        f"({stats['cache_bytes_int8'] / stats['cache_bytes_bf16']:.4f}); "
+        f"decode step (4 slots at 40) int8 {stats['decode_step_ms_int8']:.2f}"
+        f" ms (device {stats['decode_device_ms_int8'] or 0:.3f}), bf16 "
+        f"{stats['decode_step_ms_bf16']:.2f} ms (device "
+        f"{stats['decode_device_ms_bf16'] or 0:.3f}); decode logits int8 vs "
+        f"bf16 cache over 8 steps: max |Δ| {max(gaps):.4e} (max |logit| "
+        f"{scale:.4e}), argmax agree {agree}/{4 * len(gaps)}; peak memory "
+        f"{stats['peak_mem_gib']:.2f} GiB")
+    launches = {"codebook_matmul": counts["codebook_matmul"]}
+    del e8, e16, model, cp
+    return stats, launches
+
+
+def unfused_step(dev, e, L) -> dict:
+    """The working-point codebook decode step (4 slots at 40) with the
+    gated launch, and with the FFN as the port ran it before that launch
+    (two codebook_matmul, their casts, act_quant, a separate product: the
+    formula swapped into ``layers.swiglu`` for this measurement only), in
+    turns (unfused, gated, gated, unfused): wall ms (median of 5 steps a
+    turn), device busy ms and kernels of a step."""
+    import numpy as np
+    import torch
+    gated = L.swiglu
+
+    def unfused(p, x, kind, levels, backend):
+        h = (L.ffn_act(L.dense(p["w1"], x, backend), kind, levels)
+             * L.dense(p["w3"], x, backend))
+        return L.dense(p["w2"], h, backend)
+    cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
+    cache["pos"][:] = 40
+    last = np.zeros(4, np.int64)
+    res = {"gated": {"wall_ms": []}, "unfused": {"wall_ms": []}}
+    try:
+        for name in ("unfused", "gated", "gated", "unfused"):
+            L.swiglu = unfused if name == "unfused" else gated
+            dec = [timed(lambda: e._decode(last, cache))[1]
+                   for _ in range(6)][1:]
+            res[name]["wall_ms"].append(1e3 * sorted(dec)[len(dec) // 2])
+            if "device_ms" not in res[name]:
+                busy, _, _, n_k = device_time(lambda: e._decode(last, cache))
+                res[name].update(device_ms=busy or None, kernels=n_k)
+    finally:
+        L.swiglu = gated
+    log("[point] codebook decode step, gated launch against the unfused "
+        "chain, in turns (unfused, gated, gated, unfused): " + "; ".join(
+            f"{k} wall {', '.join(f'{w:.2f}' for w in r['wall_ms'])} ms, "
+            f"device busy {r['device_ms'] or 0:.3f} ms, {r['kernels']} "
+            "kernels" for k, r in res.items()))
+    return res
+
+
 def act_quant_times(dev, peaks: dict) -> list:
     """act_quant per call at the FFN's decode (4 × 6144) and prefill
     (32 × 6144) bf16 shapes, relu6 at |A| = 32, output only (as the
-    serving site calls it), both forms: kernel, plain, the bound, and the
-    library call.  At relu6 with lo = 0 one PyTorch call computes the
-    kernel form's arithmetic: ``fake_quantize_per_tensor_affine(x, step,
-    0, 0, L − 1)`` = clamp(rint(x·(1/step)), 0, L − 1)·step (clamping
-    before or after the rounding is the same for relu6).  The act_apply
-    form rounds to bf16 after every operation, which that call does not;
-    it stands as the yardstick of both rows, and the elements where it
-    differs from each form are counted."""
+    serving site calls it): both forms, and the act_apply form with its
+    multiplier (``mul``: the up product, as the dense and lut FFNs launch
+    it): kernel, plain, the bound, and the library call.  At relu6 with
+    lo = 0 one PyTorch call computes the kernel form's arithmetic:
+    ``fake_quantize_per_tensor_affine(x, step, 0, 0, L − 1)`` =
+    clamp(rint(x·(1/step)), 0, L − 1)·step (clamping before or after the
+    rounding is the same for relu6); times ``mul`` for the row with the
+    multiplier.  The act_apply form rounds to bf16 after every operation,
+    which that call does not; it stands as the yardstick of every row, and
+    the elements where it differs from each are counted."""
     import torch
     from repro_torch.kernels import act_quant as aq
     g = torch.Generator(device=dev).manual_seed(6)
     step = 6.0 / (ACT_LEVELS - 1)
-    lib = lambda x: torch.fake_quantize_per_tensor_affine(  # noqa: E731
-        x, step, 0, 0, ACT_LEVELS - 1)
     res = []
     for M in (MAX_BATCH, 32):
         x = (torch.randn(M, D_FF, generator=g, device=dev) * 3).to(
             torch.bfloat16)
+        u = torch.randn(M, D_FF, generator=g, device=dev).to(torch.bfloat16)
         n = x.numel()
-        b_bytes = 4 * n / peaks["bytes"]            # 2 B read, 2 B written
         b_ops = 8 * n / peaks["f32"]
-        lib_y = lib(x)
-        lib_ms = time_ms(lambda: lib(x), reps=56)
-        for form in aq.FORMS:
+        for form, mul in (("kernel", None), ("act_apply", None),
+                          ("act_apply", u)):
+            def lib(mul=mul):
+                y = torch.fake_quantize_per_tensor_affine(
+                    x, step, 0, 0, ACT_LEVELS - 1)
+                return y if mul is None else y * mul
+            # 2 B read, 2 B written an element; 2 B more read for mul
+            b_bytes = (4 if mul is None else 6) * n / peaks["bytes"]
             y = aq.act_quant_cuda(x, "relu6", ACT_LEVELS, form=form,
-                                  with_index=False)[0]
+                                  with_index=False, mul=mul)[0]
             res.append({
                 "M": M, "N": D_FF, "dtype": "bfloat16", "kind": "relu6",
-                "levels": ACT_LEVELS, "form": form,
+                "levels": ACT_LEVELS, "form": form, "mul": mul is not None,
                 "ms": time_ms(lambda: aq.act_quant_cuda(
-                    x, "relu6", ACT_LEVELS, form=form, with_index=False),
-                    reps=56),
+                    x, "relu6", ACT_LEVELS, form=form, with_index=False,
+                    mul=mul), reps=56),
                 "plain_ms": time_ms(lambda: aq.act_quant_plain(
-                    x, "relu6", ACT_LEVELS, form=form, with_index=False),
-                    reps=20),
-                "library_ms": lib_ms,
+                    x, "relu6", ACT_LEVELS, form=form, with_index=False,
+                    mul=mul), reps=20),
+                "library_ms": time_ms(lib, reps=56),
                 "library_call": "torch.fake_quantize_per_tensor_affine (the "
-                                "kernel form's arithmetic)",
-                "library_differs": int((lib_y != y).sum()),
+                                "kernel form's arithmetic)"
+                                + ("" if mul is None else ", *"),
+                "library_differs": int((lib() != y).sum()),
                 "bound_ms": 1e3 * max(b_bytes, b_ops),
                 "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
     for r in res:
         log(f"[time] act_quant {r['M']}×{r['N']} bf16 relu6 |A|={r['levels']}"
-            f" {r['form']} form: {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
-            f"{r['bound_by']}, plain {r['plain_ms']:.4f}, library "
-            f"fake_quantize_per_tensor_affine {r['library_ms']:.4f}, which "
-            f"differs from this form in {r['library_differs']}/"
-            f"{r['M'] * r['N']} elements)")
+            f" {r['form']} form{' with mul' if r['mul'] else ''}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.5f} {r['bound_by']}, "
+            f"plain {r['plain_ms']:.4f}, library {r['library_call']} "
+            f"{r['library_ms']:.4f}, which differs from this form in "
+            f"{r['library_differs']}/{r['M'] * r['N']} elements)")
+    return res
+
+
+def swiglu_times(dev, peaks: dict) -> list:
+    """The gated launch per call at M in TIMED_ROWS × the w1/w3 site
+    (2048 × 6144, int16 ids, bf16 x, relu6 at |A| = 32), timed in turns
+    (``time_turns``) beside: its two products alone (two codebook_matmul
+    launches: the target), the unfused chain the codebook FFN ran before
+    it (two codebook_matmul, two casts, act_quant, the product), and the
+    library yardstick: two ``torch.matmul`` on weights dequantized to bf16
+    beforehand, ``torch.fake_quantize_per_tensor_affine`` (the kernel
+    form's arithmetic, as act_quant's yardstick) and the product.  The
+    plain version (``codebook_swiglu_plain``) is timed alone.  Four operand
+    sets are cycled, so the 2 × 25 MB of ids of a set do not sit in the
+    50 MB L2 from the previous call.  Bound: the ids, x, the codebooks and
+    h moved once, or 2 × 2MKN bf16 operations, the larger."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
+    g = torch.Generator(device=dev).manual_seed(9)
+    K, N = SITES["w1"]
+    bf16 = torch.bfloat16
+    step = 6.0 / (ACT_LEVELS - 1)
+    res = []
+    for M in TIMED_ROWS:
+        sets = []
+        for _ in range(4):
+            x = torch.randn(M, K, generator=g, device=dev).to(bf16)
+            w1, w3 = (torch.randint(0, N_BOOK, (K, N), generator=g,
+                                    device=dev).to(torch.int16)
+                      for _ in range(2))
+            b1, b3 = (torch.randn(N_BOOK, generator=g, device=dev) * 0.05
+                      for _ in range(2))
+            sets.append((x, w1, b1, w3, b3, b1[w1.long()].to(bf16),
+                         b3[w3.long()].to(bf16)))
+        it = [0]
+
+        def cyc(f):
+            def run():
+                t = sets[it[0] % 4]
+                it[0] += 1
+                return f(t)
+            return run
+
+        def unfused(t):
+            gg = cm.codebook_matmul_cuda(t[0], t[1], t[2]).to(bf16)
+            uu = cm.codebook_matmul_cuda(t[0], t[3], t[4]).to(bf16)
+            return aq.act_quant_cuda(gg, "relu6", ACT_LEVELS,
+                                     form="act_apply",
+                                     with_index=False)[0] * uu
+
+        def library(t):
+            return torch.fake_quantize_per_tensor_affine(
+                t[0] @ t[5], step, 0, 0, ACT_LEVELS - 1) * (t[0] @ t[6])
+        t = time_turns({
+            "kernel": cyc(lambda t: cm.codebook_swiglu_cuda(
+                *t[:5], "relu6", ACT_LEVELS)),
+            "matmuls": cyc(lambda t: (cm.codebook_matmul_cuda(*t[:3]),
+                                      cm.codebook_matmul_cuda(t[0], *t[3:5]))),
+            "unfused": cyc(unfused),
+            "library": cyc(library)}, reps=20)
+        nbytes = M * K * 2 + 2 * K * N * 2 + 2 * N_BOOK * 4 + M * N * 2
+        b_bytes = nbytes / peaks["bytes"]
+        b_ops = 2 * 2 * M * K * N / peaks["bf16"]
+        res.append({
+            "M": M, "K": K, "N": N, "site": "w1+w3", "ids": "int16",
+            "x": "bfloat16", "kind": "relu6", "levels": ACT_LEVELS,
+            "route": cm.plan_for(sets[0][0], sets[0][1]).route,
+            "ms": t["kernel"], "two_matmuls_ms": t["matmuls"],
+            "unfused_chain_ms": t["unfused"],
+            "plain_ms": time_ms(cyc(lambda t: cm.codebook_swiglu_plain(
+                *t[:5], "relu6", ACT_LEVELS)), reps=3, warm=1),
+            "library_ms": t["library"],
+            "library_call": "2 × torch.matmul on bf16 weights dequantized "
+                            "beforehand, torch.fake_quantize_per_tensor_"
+                            "affine, *",
+            "bound_ms": 1e3 * max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+        del sets
+    for r in res:
+        log(f"[time] codebook_swiglu M={r['M']} (w1+w3 {K}×{N}, int16, bf16 "
+            f"x, relu6 |A|={ACT_LEVELS}, {r['route']} route): "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}; "
+            f"two codebook_matmul {r['two_matmuls_ms']:.4f}; unfused chain "
+            f"{r['unfused_chain_ms']:.4f}; library {r['library_ms']:.4f}; "
+            f"plain {r['plain_ms']:.3f})")
     return res
 
 
@@ -1841,10 +2303,14 @@ def main() -> int:
     worst, shares = parity(dev, sorted(set(rows) | {17}))
     worst["page_gather"] = gather_parity(dev)
     worst["act_quant"], _ = act_quant_parity(dev, rows)
+    worst["codebook_swiglu"], sw_counts = swiglu_parity(
+        dev, sorted(set(rows) | {17}))
     worst["kmeans_assign"] = kmeans_parity(dev)
     reduced_against_cpu(dev)
+    reduced_kv_quant(dev)
     reduced_working_point(dev)
-    cfg, model, cp = compressed_model(dev)
+    cfg = configs.get("qwen3-1.7b")
+    model, cp = compressed_model(dev, cfg, "[main]")
     stats, launches = main_path(dev, cfg, model, cp, prompts)
     p_stats, p_launches = paged_path(dev, cfg, model, cp, chats)
     del model, cp
@@ -1852,13 +2318,17 @@ def main() -> int:
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
                                                 peaks)
     torch.cuda.empty_cache()
+    q_stats, q_launches = kv_quant_path(dev)
+    torch.cuda.empty_cache()
     times = kernel_times(dev, peaks, shares)
     g_times, g_many = gather_times(dev, peaks)
     a_times = act_quant_times(dev, peaks)
+    s_times = swiglu_times(dev, peaks)
 
     by_path = {k: {"contiguous": launches.get(k, 0),
                    "paged": p_launches.get(k, 0),
-                   "working_point": w_launches.get(k, 0)}
+                   "working_point": w_launches.get(k, 0),
+                   "kv_quant": q_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -1871,11 +2341,17 @@ def main() -> int:
                      "pool": [cfg.n_layers, N_PAGES]}
             shapes = g_many + g_times
         elif kname == "act_quant":
+            # the form the paths launch: act_apply with its multiplier
             head = next(r for r in a_times if r["M"] == MAX_BATCH
-                        and r["form"] == "act_apply")
+                        and r["form"] == "act_apply" and r["mul"])
             shape = {k_: head[k_] for k_ in ("M", "N", "dtype", "kind",
-                                             "levels", "form")}
+                                             "levels", "form", "mul")}
             shapes = a_times
+        elif kname == "codebook_swiglu":
+            head = next(r for r in s_times if r["M"] == MAX_BATCH)
+            shape = {k_: head[k_] for k_ in ("M", "K", "N", "ids", "x",
+                                             "kind", "levels", "route")}
+            shapes = s_times
         elif kname == "kmeans_assign":
             head = km_row
             shape = {"n": km_row["n"], "k": km_row["k"],
@@ -1896,7 +2372,7 @@ def main() -> int:
         kernels.append({
             "name": kname, "route": "cuda",
             "kernel_route": head.get("route", "cuda"),
-            "source": f"src/repro_torch/csrc/{kname}.cu",
+            "source": SOURCES.get(kname, f"src/repro_torch/csrc/{kname}.cu"),
             "replaces": TPU_KERNELS[kname],
             "launches": sum(by_path[kname].values()),
             "launches_by_path": by_path[kname],
@@ -1911,6 +2387,8 @@ def main() -> int:
         + json.dumps(stats))
     log("[done] paged path " + json.dumps(p_stats))
     log("[done] working point " + json.dumps(w_stats))
+    log("[done] kv_quant path " + json.dumps(q_stats))
+    log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -107,15 +107,20 @@ def act_levels(cfg: ActQuantConfig) -> torch.Tensor:
     return torch.cat([out, torch.full((1,), hi, dtype=f32)])
 
 
-def act_apply(cfg: ActQuantConfig, x: torch.Tensor) -> torch.Tensor:
-    """Quantized activation, forward only (see the module docstring)."""
+def act_apply(cfg: ActQuantConfig, x: torch.Tensor,
+              mul: torch.Tensor | None = None) -> torch.Tensor:
+    """Quantized activation, forward only (see the module docstring).
+    ``mul`` (x's shape and dtype): return the activation times ``mul`` in
+    x's dtype, in the same kernel launch (a SwiGLU's gate times its up
+    product)."""
     if not cfg.enabled:
-        return _base_fn(cfg.kind)(x)
+        y = _base_fn(cfg.kind)(x)
+        return y if mul is None else y * mul
     if x.requires_grad:
         raise NotImplementedError(
             "act_apply's straight-through gradient is not ported yet; call "
             "it without grad (torch.no_grad) or use ops.act_quant")
-    return ops.act_apply_quant(x, cfg.kind, cfg.levels)[0]
+    return ops.act_apply_quant(x, cfg.kind, cfg.levels, mul=mul)[0]
 
 
 def act_index(cfg: ActQuantConfig, x: torch.Tensor) -> torch.Tensor:

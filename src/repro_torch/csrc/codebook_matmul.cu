@@ -34,6 +34,21 @@
 // (common.cuh).  So the result does not depend on scheduling, and neither a
 // second launch nor float atomics touch the values.
 //
+// The gated launch (codebook_swiglu_launch): a SwiGLU FFN's gate and up
+// products, G = x @ book1[w1] and U = x @ book3[w3], in one launch, with
+// the quantized activation as their epilogue: h = T(act_q(T(G)) * T(U)),
+// T = x's dtype, act_q the act_apply form of act_quant.cuh.  A block owns
+// the same 32 columns of both products: its 64-wide tile holds w1's ids in
+// its first half and w3's in its second, so it loads the x tile once for
+// both, keeps the single product's registers and pipeline, and G, U and the
+// activation never reach device memory.  Every product term, warp slice,
+// warp order and split is the single product's of the same plan (each
+// output sum runs the same sequence of adds whatever its column in a tile),
+// so G and U carry the bits of two codebook_matmul launches and h equals
+// the unfused chain (two launches, two casts, act_quant, the product) bit
+// for bit.  Replaces no TPU kernel of its own: it is act_quant's redesign
+// (repro/kernels/act_quant.py) as the epilogue of codebook_matmul's.
+//
 // Numerics: each codebook entry is rounded to x's dtype before the product
 // (codebook_matmul.py casts w to x.dtype), products and sums are f32.  For
 // bf16 x the products are exact in f32, so the result differs from the
@@ -46,6 +61,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "act_quant.cuh"
 #include "common.cuh"
 
 namespace {
@@ -64,6 +80,57 @@ __device__ __forceinline__ int canon(int id, int n_book) {
     return min(max(id, 0), n_book - 1);
 }
 
+// What a launch does with a tile's final sums, one output at a time: the f32
+// sum of one product (codebook_matmul), or the SwiGLU of two (the gated
+// launch).  kProducts: the products a block accumulates side by side.
+struct StoreSum {
+    static constexpr int kProducts = 1;
+    float* out;
+    int N;
+    __device__ __forceinline__ void operator()(int m, int n, const float (&s)[1]) const {
+        out[(size_t)m * N + n] = s[0];
+    }
+};
+
+template <typename T>
+struct StoreSwiglu {
+    static constexpr int kProducts = 2;
+    T* h;
+    int N, kind;
+    float lo, step, qmax;          // act_apply's, rounded to T
+    __device__ __forceinline__ void operator()(int m, int n, const float (&s)[2]) const {
+        float q;
+        const float y = aq::quantize_apply<T>(kind, aq::rnd<T>(s[0]), lo, step, qmax, q);
+        const float v = aq::with_mul<T>(y, aq::rnd<T>(s[1]));
+        if constexpr (sizeof(T) == 2)
+            h[(size_t)m * N + n] = __float2bfloat16_rn(v);
+        else
+            h[(size_t)m * N + n] = v;
+    }
+};
+
+// the codebooks of a launch in shared memory, one after the other, each
+// entry converted by cvt: n_a entries of book_a, then (NP = 2) n_b of book_b
+template <int NP, int kThreadsT, typename S, typename Cvt>
+__device__ __forceinline__ void load_books(S* dst, const float* book_a, int n_a,
+                                           const float* book_b, int n_b, Cvt cvt) {
+    constexpr int XB = 8;                        // codebook loads in flight a thread
+    const int total = NP == 1 ? n_a : n_a + n_b;
+    for (int i0 = threadIdx.x; i0 < total; i0 += kThreadsT * XB) {
+        float v[XB];
+#pragma unroll
+        for (int u = 0; u < XB; ++u) {
+            const int i = i0 + u * kThreadsT;
+            v[u] = i < n_a ? book_a[i] : i < total ? book_b[i - n_a] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < XB; ++u) {
+            const int i = i0 + u * kThreadsT;
+            if (i < total) dst[i] = cvt(v[u]);
+        }
+    }
+}
+
 // ------------------------------------------------------------------- mma route
 
 constexpr int kMmaThreads = 256;                 // 8 warps, each a 16-deep slice of a stage
@@ -72,18 +139,6 @@ constexpr int kMBN = 64, kMSK = 128;             // columns a block, K rows a st
 constexpr int kAStride = kMSK + 8;               // 272-byte rows: ldmatrix conflict-free
 constexpr int kStride = kMBN + 8;                // 144-byte rows: ldmatrix.trans conflict-free
 constexpr int kRedStride = kMBN + 8;             // f32 sums: float2 stores conflict-free
-
-template <int BM>
-struct MmaTile {
-    static constexpr size_t A = (size_t)BM * kAStride * 2;    // x of a stage, bf16
-    static constexpr size_t B = (size_t)kMSK * kStride * 2;   // dequantized ids, bf16
-};
-
-template <int BM>
-size_t mma_smem(int n_book) {
-    return 2 * (MmaTile<BM>::A + MmaTile<BM>::B) + (size_t)BM * kRedStride * 4 +
-           (((size_t)n_book * 2 + 15) & ~(size_t)15);
-}
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -106,23 +161,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A block owns a (BM x 64) output tile and a K split.  Each 128-deep stage:
-// every thread loads 16-byte chunks of x and of the raw ids into registers
-// two stages ahead, dequantizes the ids through the bf16 codebook in shared
-// memory into a padded bf16 tile, and the 8 warps each run the stage's
-// 16-deep slice on the tensor cores (ldmatrix, ldmatrix.trans,
-// mma.m16n8k16); the warps' sums meet in warp order at the end.
-template <typename IT, int BM>
+// A block owns a (BM x 64) tile of sums and a K split: 64 columns of one
+// product, or (the gated launch) the same 32 columns of two, side by side.
+// Each 128-deep stage: every thread loads 16-byte chunks of x and of the raw
+// ids into registers two stages ahead, dequantizes the ids through the bf16
+// codebook(s) in shared memory into a padded bf16 tile, and the 8 warps each
+// run the stage's 16-deep slice on the tensor cores (ldmatrix,
+// ldmatrix.trans, mma.m16n8k16); the warps' sums meet in warp order at the
+// end, then the splits in the cluster, and `epi` stores each output.
+template <typename IT, int BM, typename Epi>
 __global__ void __launch_bounds__(kMmaThreads)
-mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
-           const float* __restrict__ codebook, float* __restrict__ out, int M, int K, int N,
-           int n_book, int k_chunk) {
+mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_a,
+           const IT* __restrict__ w_b, const float* __restrict__ book_a,
+           const float* __restrict__ book_b, int n_book_a, int n_book_b, Epi epi, int M, int K,
+           int N, int k_chunk) {
+    constexpr int NP = Epi::kProducts;
+    constexpr int PW = kMBN / NP;                           // columns of each product
     constexpr int IDS16 = 16 / (int)sizeof(IT);            // ids in one 16-byte chunk
     constexpr int CPR = kMBN / IDS16;                       // id chunks a row of the tile
+    constexpr int CPP = CPR / NP;                           // ... of one product
     constexpr int NID = kMSK * CPR / kMmaThreads;           // id chunks a thread a stage
     constexpr int NX = BM * (kMSK / 8) / kMmaThreads;       // x chunks a thread a stage
     constexpr int MT = BM / 16;
-    static_assert(NID >= 1 && NX >= 1, "tile");
+    static_assert(NID >= 1 && NX >= 1 && CPP >= 1, "tile");
     extern __shared__ __align__(16) unsigned char msm[];
     __nv_bfloat16* a_s[2];
     __nv_bfloat16* b_s[2];
@@ -134,10 +195,10 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
     __nv_bfloat16* book_h = reinterpret_cast<__nv_bfloat16*>(red + BM * kRedStride);
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int n0 = blockIdx.x * kMBN, m0 = blockIdx.y * BM, z = blockIdx.z;
+    const int n0 = blockIdx.x * PW, m0 = blockIdx.y * BM, z = blockIdx.z;
     const int k_begin = z * k_chunk, k_end = min(K, k_begin + k_chunk);
     const int n_steps = max(0, (k_end - k_begin + kMSK - 1) / kMSK);
-    const int rows = min(BM, M - m0), cols = min(kMBN, N - n0);
+    const int rows = min(BM, M - m0), cols = min(PW, N - n0);
 
     auto load = [&](int step, uint4 (&xr)[NX], uint4 (&ir)[NID]) {
         const int k0 = k_begin + step * kMSK;
@@ -150,10 +211,11 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
         }
 #pragma unroll
         for (int i = 0; i < NID; ++i) {
-            const int c = tid + i * kMmaThreads, r = c / CPR, n = n0 + (c % CPR) * IDS16;
-            const int k = k0 + r;
+            const int c = (tid + i * kMmaThreads) % CPR, r = (tid + i * kMmaThreads) / CPR;
+            const int n = n0 + (c % CPP) * IDS16, k = k0 + r;
+            const IT* w = c < CPP ? w_a : w_b;              // the chunk's product
             ir[i] = k < k_end && n < N
-                        ? __ldg(reinterpret_cast<const uint4*>(w_idx + (size_t)k * N + n))
+                        ? __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * N + n))
                         : make_uint4(0u, 0u, 0u, 0u);
         }
     };
@@ -166,14 +228,18 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
         }
 #pragma unroll
         for (int i = 0; i < NID; ++i) {
-            const int c = tid + i * kMmaThreads, r = c / CPR, cc = (c % CPR) * IDS16;
+            const int c = (tid + i * kMmaThreads) % CPR, r = (tid + i * kMmaThreads) / CPR;
+            const int cc = c * IDS16;
+            const bool second = c >= CPP;
+            const __nv_bfloat16* book = second ? book_h + n_book_a : book_h;
+            const int n_book = second ? n_book_b : n_book_a;
             IT ids[IDS16];
             memcpy(ids, &ir[i], sizeof(ids));
             __align__(16) __nv_bfloat16 w[IDS16];
             const bool k_in = k0 + r < k_end;   // the K tail is zero on both operands
 #pragma unroll
             for (int j = 0; j < IDS16; ++j)
-                w[j] = k_in ? book_h[canon((int)ids[j], n_book)] : __float2bfloat16_rn(0.f);
+                w[j] = k_in ? book[canon((int)ids[j], n_book)] : __float2bfloat16_rn(0.f);
             __nv_bfloat16* dst = b_s[buf] + r * kStride + cc;
 #pragma unroll
             for (int h = 0; h < IDS16 / 8; ++h)
@@ -186,20 +252,8 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
     uint4 xa[NX], ia[NID], xb[NX], ib[NID];
     if (n_steps > 0) load(0, xa, ia);
     if (n_steps > 1) load(1, xb, ib);
-    constexpr int XB = 8;                        // codebook loads in flight a thread
-    for (int i0 = tid; i0 < n_book; i0 += kMmaThreads * XB) {
-        float v[XB];
-#pragma unroll
-        for (int u = 0; u < XB; ++u) {
-            const int i = i0 + u * kMmaThreads;
-            v[u] = i < n_book ? codebook[i] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < XB; ++u) {
-            const int i = i0 + u * kMmaThreads;
-            if (i < n_book) book_h[i] = __float2bfloat16_rn(v[u]);
-        }
-    }
+    load_books<NP, kMmaThreads>(book_h, book_a, n_book_a, book_b, n_book_b,
+                                [](float v) { return __float2bfloat16_rn(v); });
     __syncthreads();
 
     constexpr int NT8 = kMBN / 8;                          // n8 tiles a warp
@@ -267,14 +321,19 @@ mma_kernel(const __nv_bfloat16* __restrict__ x, const IT* __restrict__ w_idx,
         __syncthreads();
     }
 
+    auto emit = [&](int m, int c, const float (&sums)[NP]) { epi(m0 + m, n0 + c, sums); };
     if (gridDim.z == 1) {
-        for (int i = tid; i < rows * kMBN; i += kMmaThreads) {
-            const int m = i / kMBN, c = i - m * kMBN;
-            if (c < cols) out[(size_t)(m0 + m) * N + n0 + c] = red[m * kRedStride + c];
+        for (int i = tid; i < rows * PW; i += kMmaThreads) {
+            const int m = i / PW, c = i - m * PW;
+            if (c >= cols) continue;
+            float sums[NP];
+#pragma unroll
+            for (int p = 0; p < NP; ++p) sums[p] = red[m * kRedStride + p * PW + c];
+            emit(m, c, sums);
         }
         return;
     }
-    csrc::cluster_sum(red, out, rows, kRedStride, cols, m0, n0, N);   // the splits of this tile
+    csrc::cluster_reduce<NP>(red, rows, kRedStride, PW, cols, emit);   // the splits of this tile
 }
 
 // ------------------------------------------------------------------- fma route
@@ -283,13 +342,18 @@ constexpr int kFmaThreads = 256;
 constexpr int kFBM = 64, kFBN = 64, kFBK = 32;
 constexpr int kRowGroups = kFmaThreads / kFBN;   // 4 thread rows
 
-template <typename XT, typename IT>
+// A block owns a (64 x 64) tile of sums and a K split: 64 columns of one
+// product, or (the gated launch) the same 32 columns of two, side by side;
+// thread (ty, tx) adds column tx of rows ty * 16 .. ty * 16 + 15 in k order.
+template <typename XT, typename IT, typename Epi>
 __global__ void __launch_bounds__(kFmaThreads)
-fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
-           const float* __restrict__ codebook, float* __restrict__ out, int M, int K, int N,
-           int n_book, int k_chunk) {
+fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_a, const IT* __restrict__ w_b,
+           const float* __restrict__ book_a, const float* __restrict__ book_b, int n_book_a,
+           int n_book_b, Epi epi, int M, int K, int N, int k_chunk) {
+    constexpr int NP = Epi::kProducts;
+    constexpr int PW = kFBN / NP;            // columns of each product
     constexpr int RPT = kFBM / kRowGroups;   // rows per thread
-    extern __shared__ float book_s[];        // n_book entries, already in x's dtype
+    extern __shared__ float book_s[];        // the codebooks, already in x's dtype
     // a stage's x [kFBK][kFBM] and weights [kFBK][kFBN]; then the block's
     // sums [kFBM][kFBN]
     __shared__ __align__(16) float tile_s[2 * kFBK * kFBM];
@@ -299,11 +363,12 @@ fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
 
     const int tid = threadIdx.x;
     const int tx = tid % kFBN, ty = tid / kFBN;
-    const int n0 = blockIdx.x * kFBN, m0 = blockIdx.y * kFBM;
+    const int n0 = blockIdx.x * PW, m0 = blockIdx.y * kFBM;
     const int k_begin = blockIdx.z * k_chunk;
     const int k_end = min(K, k_begin + k_chunk);
 
-    for (int i = tid; i < n_book; i += kFmaThreads) book_s[i] = as_x_dtype(codebook[i], x);
+    load_books<NP, kFmaThreads>(book_s, book_a, n_book_a, book_b, n_book_b,
+                                [&](float v) { return as_x_dtype(v, x); });
     __syncthreads();
 
     float acc[RPT];
@@ -318,9 +383,13 @@ fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
         }
         for (int i = tid; i < kFBK * kFBN; i += kFmaThreads) {
             const int kk = i / kFBN, nn = i % kFBN;
-            const int k = k0 + kk, n = n0 + nn;
-            ws[kk][nn] = (k < k_end && n < N) ? book_s[canon((int)w_idx[(size_t)k * N + n], n_book)]
-                                              : 0.f;
+            const int k = k0 + kk, n = n0 + nn % PW;
+            const bool second = nn >= PW;                   // the column's product
+            float w = 0.f;
+            if (k < k_end && n < N)
+                w = second ? book_s[n_book_a + canon((int)w_b[(size_t)k * N + n], n_book_b)]
+                           : book_s[canon((int)w_a[(size_t)k * N + n], n_book_a)];
+            ws[kk][nn] = w;
         }
         __syncthreads();
 #pragma unroll 8
@@ -332,64 +401,83 @@ fma_kernel(const XT* __restrict__ x, const IT* __restrict__ w_idx,
         __syncthreads();
     }
 
-    const int rows = min(kFBM, M - m0), cols = min(kFBN, N - n0);
-    if (gridDim.z == 1) {
-        const int n = n0 + tx;
-        if (n < N) {
-#pragma unroll
-            for (int r = 0; r < RPT; ++r) {
-                const int m = m0 + ty * RPT + r;
-                if (m < M) out[(size_t)m * N + n] = acc[r];
-            }
-        }
-        return;
-    }
+    const int rows = min(kFBM, M - m0), cols = min(PW, N - n0);
     float* red = tile_s;                     // the stage loop ended on a barrier
 #pragma unroll
     for (int r = 0; r < RPT; ++r) red[(ty * RPT + r) * kFBN + tx] = acc[r];
-    csrc::cluster_sum(red, out, rows, kFBN, cols, m0, n0, N);   // the splits of this tile
+    auto emit = [&](int m, int c, const float (&sums)[NP]) { epi(m0 + m, n0 + c, sums); };
+    if (gridDim.z == 1) {
+        __syncthreads();
+        for (int i = tid; i < rows * PW; i += kFmaThreads) {
+            const int m = i / PW, c = i - m * PW;
+            if (c >= cols) continue;
+            float sums[NP];
+#pragma unroll
+            for (int p = 0; p < NP; ++p) sums[p] = red[m * kFBN + p * PW + c];
+            emit(m, c, sums);
+        }
+        return;
+    }
+    csrc::cluster_reduce<NP>(red, rows, kFBN, PW, cols, emit);   // the splits of this tile
 }
 
 enum Route { kMma = 0, kFma = 1 };
 
-template <typename XT, typename IT>
-cudaError_t launch(int route, const void* x, const void* w_idx, const float* codebook, float* out,
-                   int M, int K, int N, int n_book, int bm, int splits, int k_chunk, int vec_ok,
-                   cudaStream_t s) {
-    const XT* xp = static_cast<const XT*>(x);
-    const IT* wp = static_cast<const IT*>(w_idx);
-    // the splits of a tile form one cluster: at most 8 (the portable size),
-    // each a whole number of 32-deep stages covering K
+// Shared memory a launch of `route` takes beyond its static part: the bf16
+// tiles and sums of the mma route and its codebooks in bf16, or the fma
+// route's codebooks in x's dtype (as f32).
+size_t dyn_smem(int route, int bm, int n_books) {
+    if (route == kFma) return (size_t)n_books * sizeof(float);
+    const size_t tiles = 2 * ((size_t)bm * kAStride * 2 + (size_t)kMSK * kStride * 2);
+    return tiles + (size_t)bm * kRedStride * 4 + (((size_t)n_books * 2 + 15) & ~(size_t)15);
+}
+
+// One launch of codebook_matmul (Epi = StoreSum) or of the gated launch
+// (StoreSwiglu): the splits of a tile form one cluster, at most 8 (the
+// portable size), each a whole number of 32-deep stages covering K.
+template <typename XT, typename IT, typename Epi>
+cudaError_t launch(int route, const XT* x, const IT* w_a, const IT* w_b, const float* book_a,
+                   const float* book_b, int n_book_a, int n_book_b, Epi epi, int M, int K,
+                   int N, int bm, int splits, int k_chunk, int vec_ok, cudaStream_t s) {
     if (splits < 1 || splits > 8 || k_chunk <= 0 || k_chunk % 32 ||
         (long long)(splits - 1) * k_chunk >= K || (long long)splits * k_chunk < K)
         return cudaErrorInvalidValue;
     const dim3 cluster(1, 1, splits);
+    const int n_books = n_book_a + (Epi::kProducts == 2 ? n_book_b : 0);
     if (route == kMma) {
         // 16-byte loads of x and of the id rows
-        if (!std::is_same<XT, __nv_bfloat16>::value || !vec_ok || K % 8) return cudaErrorInvalidValue;
-        auto go = [&](auto kernel, size_t smem, int bm_) -> cudaError_t {
-            cudaError_t e = csrc::allow_smem(kernel, smem);
-            if (e != cudaSuccess) return e;
-            return csrc::launch_clustered(
-                kernel, dim3((N + kMBN - 1) / kMBN, (M + bm_ - 1) / bm_, splits),
-                dim3(kMmaThreads), smem, s, cluster,
-                reinterpret_cast<const __nv_bfloat16*>(xp), wp, codebook, out, M, K, N, n_book,
-                k_chunk);
-        };
-        if (bm == 16) return go(mma_kernel<IT, 16>, mma_smem<16>(n_book), 16);
-        if (bm == 64) return go(mma_kernel<IT, 64>, mma_smem<64>(n_book), 64);
-        return cudaErrorInvalidValue;
+        if constexpr (!std::is_same<XT, __nv_bfloat16>::value) {
+            return cudaErrorInvalidValue;
+        } else {
+            if (!vec_ok || K % 8) return cudaErrorInvalidValue;
+            auto go = [&](auto kernel, int bm_) -> cudaError_t {
+                const size_t smem = dyn_smem(kMma, bm_, n_books);
+                cudaError_t e = csrc::allow_smem(kernel, smem);
+                if (e != cudaSuccess) return e;
+                return csrc::launch_clustered(
+                    kernel,
+                    dim3((N + kMBN / Epi::kProducts - 1) / (kMBN / Epi::kProducts),
+                         (M + bm_ - 1) / bm_, splits),
+                    dim3(kMmaThreads), smem, s, cluster, x, w_a, w_b, book_a, book_b, n_book_a,
+                    n_book_b, epi, M, K, N, k_chunk);
+            };
+            if (bm == 16) return go(mma_kernel<IT, 16, Epi>, 16);
+            if (bm == 64) return go(mma_kernel<IT, 64, Epi>, 64);
+            return cudaErrorInvalidValue;
+        }
     }
     if (route == kFma) {
         if (bm != kFBM) return cudaErrorInvalidValue;
-        auto kernel = fma_kernel<XT, IT>;
-        const size_t smem = (size_t)n_book * sizeof(float);
+        auto kernel = fma_kernel<XT, IT, Epi>;
+        const size_t smem = dyn_smem(kFma, bm, n_books);
         cudaError_t e = csrc::allow_smem(kernel, smem);
         if (e != cudaSuccess) return e;
-        return csrc::launch_clustered(kernel,
-                                      dim3((N + kFBN - 1) / kFBN, (M + kFBM - 1) / kFBM, splits),
-                                      dim3(kFmaThreads), smem, s, cluster, xp, wp, codebook, out,
-                                      M, K, N, n_book, k_chunk);
+        return csrc::launch_clustered(
+            kernel,
+            dim3((N + kFBN / Epi::kProducts - 1) / (kFBN / Epi::kProducts),
+                 (M + kFBM - 1) / kFBM, splits),
+            dim3(kFmaThreads), smem, s, cluster, x, w_a, w_b, book_a, book_b, n_book_a,
+            n_book_b, epi, M, K, N, k_chunk);
     }
     return cudaErrorInvalidValue;
 }
@@ -408,13 +496,47 @@ extern "C" int codebook_matmul_launch(const void* x, int x_is_bf16, const void* 
                                       float* out, int M, int K, int N, int route, int bm,
                                       int splits, int k_chunk, int vec_ok, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const StoreSum epi{out, N};
     cudaError_t e = csrc::with_id_type(idx_bytes, [&](auto id) {
         using IT = decltype(id);
+        const IT* w = static_cast<const IT*>(w_idx);
         return x_is_bf16
-            ? launch<__nv_bfloat16, IT>(route, x, w_idx, codebook, out, M, K, N, n_book, bm,
-                                        splits, k_chunk, vec_ok, s)
-            : launch<float, IT>(route, x, w_idx, codebook, out, M, K, N, n_book, bm, splits,
-                                k_chunk, vec_ok, s);
+            ? launch(route, static_cast<const __nv_bfloat16*>(x), w, w, codebook, codebook,
+                     n_book, n_book, epi, M, K, N, bm, splits, k_chunk, vec_ok, s)
+            : launch(route, static_cast<const float*>(x), w, w, codebook, codebook, n_book,
+                     n_book, epi, M, K, N, bm, splits, k_chunk, vec_ok, s);
+    });
+    return (int)e;
+}
+
+// The gated launch: h (M x N, x's dtype) = T(act_q(T(x @ book1[w1])) *
+// T(x @ book3[w3])), act_q the act_apply form of act_quant.cuh with kind
+// (0 tanh, 1 relu6, 2 sigmoid, 3 rtanh) and lo, step, qmax = L - 1 already
+// rounded to x's dtype.  w1 and w3: K x N ids of one type (idx_bytes).
+// route, bm, splits, k_chunk, vec_ok: codebook_matmul's plan for one
+// (M, K, N) product, which the two products both take.  Returns as
+// codebook_matmul_launch does.
+extern "C" int codebook_swiglu_launch(const void* x, int x_is_bf16, const void* w1,
+                                      const void* w3, int idx_bytes, const float* book1,
+                                      int n_book1, const float* book3, int n_book3, void* h,
+                                      int M, int K, int N, int route, int bm, int splits,
+                                      int k_chunk, int vec_ok, int kind, float lo, float step,
+                                      float qmax, void* stream) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (kind < aq::kTanh || kind > aq::kRtanh) return (int)cudaErrorInvalidValue;
+    cudaError_t e = csrc::with_id_type(idx_bytes, [&](auto id) {
+        using IT = decltype(id);
+        const IT* wa = static_cast<const IT*>(w1);
+        const IT* wb = static_cast<const IT*>(w3);
+        if (x_is_bf16) {
+            const StoreSwiglu<__nv_bfloat16> epi{static_cast<__nv_bfloat16*>(h), N, kind, lo,
+                                                 step, qmax};
+            return launch(route, static_cast<const __nv_bfloat16*>(x), wa, wb, book1, book3,
+                          n_book1, n_book3, epi, M, K, N, bm, splits, k_chunk, vec_ok, s);
+        }
+        const StoreSwiglu<float> epi{static_cast<float*>(h), N, kind, lo, step, qmax};
+        return launch(route, static_cast<const float*>(x), wa, wb, book1, book3, n_book1,
+                      n_book3, epi, M, K, N, bm, splits, k_chunk, vec_ok, s);
     });
     return (int)e;
 }

@@ -4,7 +4,7 @@
 //
 // Split-K without a second launch, two ways.  codebook_matmul: the splits
 // of a tile form one thread block cluster and add through distributed
-// shared memory (cluster_sum).  lut_matmul: every block of a split tile
+// shared memory (cluster_reduce).  lut_matmul: every block of a split tile
 // adds its part into device memory, then counts itself in on the tile's
 // arrival counter; the block that arrives last finishes the tile and sets
 // the counter back to 0 for the next launch (arrive_last).  The counters
@@ -193,27 +193,36 @@ __device__ __forceinline__ bool arrive_last(unsigned* counter, unsigned total) {
 }
 
 // The splits of a tile form one thread block cluster (at most 8 blocks) and
-// each holds its (rows x bn) sums in shared memory at `vals`.  Every block
-// adds one slice of the tile over the cluster's blocks, in rank order (the
-// same bits whichever block adds), and writes it to out at (m0, n0).
-__device__ __forceinline__ void cluster_sum(const float* vals, float* out, int rows, int bn,
-                                            int cols, int m0, int n0, int N) {
+// each holds its sums of NP products in shared memory at `vals`: product p's
+// sum at (m, c) sits at vals[m * stride + p * width + c].  Every block adds
+// one slice of the tile's rows x width positions over the cluster's blocks,
+// in rank order (the same bits whichever block adds), and hands the NP sums
+// of each position with c < cols to emit(m, c, sums).
+template <int NP, typename Emit>
+__device__ __forceinline__ void cluster_reduce(const float* vals, int rows, int stride, int width,
+                                               int cols, Emit&& emit) {
     namespace cg = cooperative_groups;
     cg::cluster_group cluster = cg::this_cluster();
     const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
     cluster.sync();
-    const int n = rows * bn, per = (n + cs - 1) / cs;
+    const int n = rows * width, per = (n + cs - 1) / cs;
     const int i1 = min(n, (rank + 1) * per);
     for (int i = rank * per + threadIdx.x; i < i1; i += blockDim.x) {
-        float v[8];
+        const int m = i / width, c = i - m * width;
+        if (c >= cols) continue;
+        float s[NP];
 #pragma unroll
-        for (int q = 0; q < 8; ++q) v[q] = q < cs ? cluster.map_shared_rank(vals, q)[i] : 0.f;
-        float s = v[0];
+        for (int p = 0; p < NP; ++p) {
+            const int j = m * stride + p * width + c;
+            float v[8];
 #pragma unroll
-        for (int q = 1; q < 8; ++q)
-            if (q < cs) s += v[q];
-        const int m = i / bn, c = i - m * bn;
-        if (c < cols) out[(size_t)(m0 + m) * N + n0 + c] = s;
+            for (int q = 0; q < 8; ++q) v[q] = q < cs ? cluster.map_shared_rank(vals, q)[j] : 0.f;
+            s[p] = v[0];
+#pragma unroll
+            for (int q = 1; q < 8; ++q)
+                if (q < cs) s[p] += v[q];
+        }
+        emit(m, c, s);
     }
     cluster.sync();                  // no block leaves while its sums are read
 }

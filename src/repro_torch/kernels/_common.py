@@ -1,9 +1,10 @@
 """What both matmul kernels share: id canonicalization, the route and
 tiling plans, and the zeroed scratch of lut's in-launch split-K reduction.
 
-``codebook_plan`` and ``lut_plan`` are pure functions of the shape, the
-dtypes, whether the rows may be read as 16-byte vectors, and the card's SM
-count, cached, so a wrapper call pays a dictionary lookup for them: they
+``codebook_plan``, ``swiglu_plan`` (the gated launch's) and ``lut_plan``
+are pure functions of the shape, the dtypes, whether the rows may be read as
+16-byte vectors, and the card's SM count, cached, so a wrapper call pays a
+dictionary lookup for them: they
 pick the route (a kernel of ``csrc/``), its template instance (rows per
 block, threads, ring stages) and how far K is split across blocks, every
 split a whole number of stages.  ``check_plan`` holds a plan passed in by a
@@ -23,7 +24,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["canonical_idx", "codebook_plan", "lut_plan", "check_plan", "Plan",
+__all__ = ["canonical_idx", "codebook_plan", "swiglu_plan", "codebook_smem",
+           "lut_plan", "check_plan", "Plan",
            "scratch", "sm_count", "is_aligned", "lut_max_threads",
            "lut_stage_bytes", "STAGE", "SMEM_BUDGET", "MAX_CLUSTER"]
 
@@ -106,6 +108,41 @@ def codebook_plan(M: int, K: int, N: int, *, bf16: bool, vec_ok: bool,
     tiles = _cdiv(M, FMA_TILE[0]) * _cdiv(N, FMA_TILE[1])
     splits, k_chunk = _split(K, tiles, 2 * sms, MAX_CLUSTER)
     return Plan("fma", FMA_TILE[0], 256, 0, splits, k_chunk, tiles, STAGE)
+
+
+MMA_STAGE = 128                  # mma route: K rows a stage (kMSK)
+MMA_STRIDES = (MMA_STAGE + 8, MMA_TILE_N + 8)   # padded bf16 rows of x, ids
+FMA_STATIC_SMEM = 2 * 32 * FMA_TILE[0] * 4      # fma route: its stage tiles
+
+
+def codebook_smem(route: str, bm: int, n_books: int) -> int:
+    """Shared memory of one codebook_matmul.cu launch holding ``n_books``
+    codebook entries (both books of a gated launch): the mma route's two
+    stages of bf16 tiles, its f32 sums and the books in bf16; the fma
+    route's stage tiles and the books as f32."""
+    if route == "fma":
+        return FMA_STATIC_SMEM + 4 * n_books
+    a, b = MMA_STRIDES
+    tiles = 2 * (bm * a * 2 + MMA_STAGE * b * 2)
+    return tiles + bm * b * 4 + _cdiv(2 * n_books, 16) * 16
+
+
+@functools.cache
+def swiglu_plan(M: int, K: int, N: int, *, bf16: bool, vec_ok: bool,
+                sms: int, n_books: int) -> Plan:
+    """The plan of one gated launch (``codebook_swiglu``): ``codebook_plan``
+    for ONE (M, K, N) product, which both of its products take, so that
+    each sum runs the adds of a codebook_matmul launch in their order and
+    the result equals the unfused chain bit for bit.  Raises ValueError
+    when the two codebooks (``n_books`` entries together) do not fit in
+    shared memory beside the route's tiles."""
+    plan = codebook_plan(M, K, N, bf16=bf16, vec_ok=vec_ok, sms=sms)
+    need = codebook_smem(plan.route, plan.bm, n_books)
+    if need > SMEM_BUDGET:
+        raise ValueError(f"codebooks of {n_books} entries together take "
+                         f"{need} B of shared memory on the {plan.route} "
+                         f"route; {SMEM_BUDGET} B fit")
+    return plan
 
 
 # lut_matmul.cu

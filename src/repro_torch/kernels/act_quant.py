@@ -21,6 +21,12 @@ round (they disagree in bf16 on a few elements in a thousand):
   ``act_levels > 0``) uses it, so that the port serves what the JAX package
   serves.
 
+Both take an optional multiplier ``mul`` (x's shape and dtype): the output
+is then ``act_q(x) * mul`` in x's dtype, in the same launch, as a SwiGLU
+FFN's ``act(gate) * up`` (the dense and lut backends at ``act_levels >
+0``).  Its arithmetic is shared with the gated codebook launch's epilogue
+(``csrc/act_quant.cuh``).
+
 ``act_quant_plain`` is the same function in plain PyTorch: the CPU path,
 and what ``chip_smoke.py`` holds the kernel against on the card.  Scalar
 operands are tensors on x's device: PyTorch's CUDA division by a Python
@@ -81,9 +87,11 @@ def _scalar_tensors(kind: str, levels: int, form: str, dtype: torch.dtype,
 
 
 def act_quant_plain(x: torch.Tensor, kind: str, levels: int,
-                    form: str = "kernel", with_index: bool = True):
+                    form: str = "kernel", with_index: bool = True,
+                    mul: torch.Tensor | None = None):
     """x: any shape, f32 or bf16.  Returns (y in x.dtype, int32 level index
-    or None)."""
+    or None); with ``mul`` (x's shape and dtype), y is ``act_q(x) * mul``
+    in x's dtype."""
     lo, step, qmax, _ = _scalars(kind, levels, form, x.dtype)
     f32 = torch.float32
     lo_t, step_t, rcp_t, one = _scalar_tensors(kind, levels, form, x.dtype,
@@ -114,17 +122,20 @@ def act_quant_plain(x: torch.Tensor, kind: str, levels: int,
         v = r(lo_t + r(q * step_t))
         out = y + r(v - y)
     idx = q.to(torch.int32) if with_index else None
-    return out.to(x.dtype), idx
+    y = out.to(x.dtype)
+    return (y if mul is None else y * mul), idx
 
 
 def parity_ties(y: torch.Tensor, idx: torch.Tensor, y_ref: torch.Tensor,
-                idx_ref: torch.Tensor, kind: str, levels: int) -> int:
+                idx_ref: torch.Tensor, kind: str, levels: int,
+                mul: torch.Tensor | None = None) -> int:
     """How two runs of the same form disagree: the number of ties, where
     their ``tanh``/``exp`` (an ulp apart) put an element on the two sides
     of a level boundary.  Raises on anything else: levels more than one
     apart, any tie for relu6 (no transcendental), an output that differs
     off the ties, or a tie whose output is not (within two ulps) on the
-    level its own index names."""
+    level its own index names (times ``mul``, within one ulp more, for
+    runs given that multiplier)."""
     from repro_torch.core.activations import ACT_RANGES
     gi, wi = idx.reshape(-1).long(), idx_ref.reshape(-1).long()
     tie = gi != wi
@@ -140,9 +151,13 @@ def parity_ties(y: torch.Tensor, idx: torch.Tensor, y_ref: torch.Tensor,
                              "level-boundary ties")
     lo, hi = ACT_RANGES[kind]
     eps = torch.finfo(y.dtype).eps
+    m = (torch.ones_like(gy[tie], dtype=torch.float64) if mul is None
+         else mul.reshape(-1)[tie].double())
+    rtol = 2 * eps if mul is None else 3 * eps
     for out, q in ((gy[tie], gi[tie]), (wy[tie], wi[tie])):
-        level = lo + q.double() * ((hi - lo) / (levels - 1))
-        if not torch.allclose(out.double(), level, rtol=2 * eps, atol=eps):
+        level = (lo + q.double() * ((hi - lo) / (levels - 1))) * m
+        if not bool((torch.abs(out.double() - level)
+                     <= rtol * level.abs() + eps * m.abs()).all()):
             raise AssertionError(f"act_quant {kind}: a tie's output is off "
                                  "its level")
     return int(tie.sum())
@@ -153,30 +168,42 @@ def _lib():
     fn = lib.act_quant_launch
     if fn.argtypes is None:
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, ci, vp, vp, ctypes.c_longlong, ci, ci, cf, cf, cf,
-                       cf, vp]
+        fn.argtypes = [vp, ci, vp, vp, vp, ctypes.c_longlong, ci, ci, cf, cf,
+                       cf, cf, vp]
         fn.restype = ci
     return fn
 
 
 def act_quant_cuda(x: torch.Tensor, kind: str, levels: int,
-                   form: str = "kernel", with_index: bool = True):
-    """Launch the CUDA kernel on a CUDA tensor; (y, int32 index or None).
+                   form: str = "kernel", with_index: bool = True,
+                   mul: torch.Tensor | None = None):
+    """Launch the CUDA kernel on a CUDA tensor; (y, int32 index or None),
+    y = ``act_q(x) * mul`` in x's dtype when ``mul`` is given, in the same
+    launch.
 
     Raises on anything the kernel does not take (device, dtype, kind,
-    levels, form) and when the launch reports an error.  A non-contiguous
-    x is copied to a contiguous one first.
+    levels, form, a ``mul`` of another shape, dtype or device) and when the
+    launch reports an error.  A non-contiguous x or mul is copied to a
+    contiguous one first.
     """
     if not x.is_cuda:
         raise ValueError("act_quant_cuda takes a CUDA tensor")
     lo, step, qmax, rcp = _scalars(kind, levels, form, x.dtype)
+    if mul is not None:
+        if (mul.shape != x.shape or mul.dtype != x.dtype
+                or mul.device != x.device):
+            raise ValueError(f"mul {tuple(mul.shape)} {mul.dtype} on "
+                             f"{mul.device} does not match x "
+                             f"{tuple(x.shape)} {x.dtype} on {x.device}")
+        mul = mul.contiguous()
     xc = x.contiguous()
     y = torch.empty_like(xc)
     idx = (torch.empty(xc.shape, dtype=torch.int32, device=x.device)
            if with_index else None)
     if xc.numel() == 0:
         return y, idx
-    err = _lib()(xc.data_ptr(), int(x.dtype == torch.bfloat16), y.data_ptr(),
+    err = _lib()(xc.data_ptr(), int(x.dtype == torch.bfloat16),
+                 mul.data_ptr() if mul is not None else None, y.data_ptr(),
                  idx.data_ptr() if idx is not None else None, xc.numel(),
                  KINDS.index(kind), FORMS.index(form), lo, step, qmax, rcp,
                  torch.cuda.current_stream(x.device).cuda_stream)

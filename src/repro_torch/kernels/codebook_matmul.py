@@ -15,6 +15,17 @@ order.
 path, and what ``chip_smoke.py`` holds the kernel against on the card,
 within ``parity_tolerance``.  ``codebook_matmul_cuda`` launches the kernel;
 it is never replaced by the plain version.
+
+The gated launch, ``codebook_swiglu_cuda``, is a SwiGLU FFN's gate and up
+products at the paper's working point with the quantized activation
+(``act_quant``'s act_apply form) as their epilogue, one launch of the same
+source: ``h = T(act_q(T(x @ W1)) * T(x @ W3))``, T = x's dtype.  It takes
+the plan of one codebook_matmul of that shape for both products
+(``_common.swiglu_plan``), so ``h`` equals the unfused chain of two
+``codebook_matmul_cuda`` launches, their casts, ``act_quant_cuda`` and the
+product bit for bit.  ``codebook_swiglu_plain`` is that chain in plain
+PyTorch; ``swiglu_epilogue_plain`` its epilogue alone, which applied to the
+kernel's own accumulators gives the kernel's ``h`` exactly.
 """
 
 from __future__ import annotations
@@ -24,13 +35,15 @@ import math
 
 import torch
 
+from repro_torch.kernels import act_quant as aq
 from repro_torch.kernels import build
 from repro_torch.kernels._common import (MAX_CLUSTER, Plan, canonical_idx,
                                         check_plan, codebook_plan, is_aligned,
-                                        sm_count)
+                                        sm_count, swiglu_plan)
 
 __all__ = ["codebook_matmul_plain", "codebook_matmul_cuda", "parity_tolerance",
-           "plan_for", "MAX_BOOK"]
+           "plan_for", "MAX_BOOK", "codebook_swiglu_plain",
+           "codebook_swiglu_cuda", "swiglu_epilogue_plain"]
 
 MAX_BOOK = 16384                       # codebook entries held in shared memory
 _IDX_DTYPES = (torch.int8, torch.int16, torch.int32)
@@ -72,6 +85,27 @@ def parity_tolerance(x: torch.Tensor, w_idx: torch.Tensor,
     return margin * 2.0 ** -24 * math.sqrt(x.shape[1]) * norm
 
 
+def swiglu_epilogue_plain(g: torch.Tensor, u: torch.Tensor, dtype, kind: str,
+                          levels: int) -> torch.Tensor:
+    """The gated launch's epilogue: the f32 sums G and U rounded to
+    ``dtype``, then ``act_q(G) * U`` in ``dtype`` (act_apply form)."""
+    return aq.act_quant_plain(g.to(dtype), kind, levels, form="act_apply",
+                              with_index=False, mul=u.to(dtype))[0]
+
+
+def codebook_swiglu_plain(x: torch.Tensor, w1_idx: torch.Tensor,
+                          book1: torch.Tensor, w3_idx: torch.Tensor,
+                          book3: torch.Tensor, kind: str,
+                          levels: int) -> torch.Tensor:
+    """x: (M, K) float; w1_idx, w3_idx: (K, N) int; book1, book3: (W,).
+    (M, N) in x's dtype: the unfused chain a SwiGLU FFN runs at
+    ``act_levels > 0`` (two codebook products, each cast to x's dtype, the
+    quantized activation of the first times the second)."""
+    return swiglu_epilogue_plain(codebook_matmul_plain(x, w1_idx, book1),
+                                 codebook_matmul_plain(x, w3_idx, book3),
+                                 x.dtype, kind, levels)
+
+
 def _lib():
     lib = build.load("codebook_matmul")
     fn = lib.codebook_matmul_launch
@@ -79,6 +113,17 @@ def _lib():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, ci, vp, ci, vp, ci, vp,
                        ci, ci, ci, ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    return fn
+
+
+def _swiglu_lib():
+    lib = build.load("codebook_matmul")
+    fn = lib.codebook_swiglu_launch
+    if fn.argtypes is None:
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp, ci, vp, vp, ci, vp, ci, vp, ci, vp,
+                       ci, ci, ci, ci, ci, ci, ci, ci, ci, cf, cf, cf, vp]
         fn.restype = ci
     return fn
 
@@ -100,6 +145,36 @@ def plan_for(x: torch.Tensor, w_idx: torch.Tensor) -> Plan:
     return _plan(x, w_idx)[0]
 
 
+def _check(name: str, x: torch.Tensor, *pairs) -> None:
+    """Raise on operands the kernel does not take: x (M, K) and each
+    (w_idx (K, N), codebook (W,)) pair, all CUDA and contiguous."""
+    if not (x.is_cuda and all(t.is_cuda for p in pairs for t in p)):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if x.dtype not in _X_DTYPES:
+        raise TypeError(f"x dtype {x.dtype} not in {_X_DTYPES}")
+    for w_idx, codebook in pairs:
+        if w_idx.dtype not in _IDX_DTYPES:
+            raise TypeError(f"w_idx dtype {w_idx.dtype} not in {_IDX_DTYPES}")
+        if codebook.dtype != torch.float32 or codebook.ndim != 1:
+            raise TypeError("codebook must be a 1-D float32 tensor")
+        if x.ndim != 2 or w_idx.ndim != 2 or x.shape[1] != w_idx.shape[0]:
+            raise ValueError(f"shapes {tuple(x.shape)} @ "
+                             f"{tuple(w_idx.shape)}")
+        if not (x.is_contiguous() and w_idx.is_contiguous()
+                and codebook.is_contiguous()):
+            raise ValueError(f"{name} takes contiguous tensors")
+        if not 1 <= codebook.shape[0] <= MAX_BOOK:
+            raise ValueError(f"codebook of {codebook.shape[0]} entries; the "
+                             f"kernel holds 1..{MAX_BOOK} in shared memory")
+
+
+def _check_plan(plan: Plan, x: torch.Tensor, vec_ok: bool) -> None:
+    K = x.shape[1]
+    mma_ok = x.dtype == torch.bfloat16 and vec_ok and K % 8 == 0
+    check_plan(plan, K, {"mma": mma_ok and plan.bm in (16, 64),
+                         "fma": plan.bm == 64}, MAX_CLUSTER)
+
+
 def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
                          codebook: torch.Tensor, plan: Plan | None = None
                          ) -> torch.Tensor:
@@ -111,23 +186,8 @@ def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
     contiguity, codebook size, a plan these operands cannot take) and when
     the launch reports an error.
     """
-    if not (x.is_cuda and w_idx.is_cuda and codebook.is_cuda):
-        raise ValueError("codebook_matmul_cuda takes CUDA tensors")
-    if x.dtype not in _X_DTYPES:
-        raise TypeError(f"x dtype {x.dtype} not in {_X_DTYPES}")
-    if w_idx.dtype not in _IDX_DTYPES:
-        raise TypeError(f"w_idx dtype {w_idx.dtype} not in {_IDX_DTYPES}")
-    if codebook.dtype != torch.float32 or codebook.ndim != 1:
-        raise TypeError("codebook must be a 1-D float32 tensor")
-    if x.ndim != 2 or w_idx.ndim != 2 or x.shape[1] != w_idx.shape[0]:
-        raise ValueError(f"shapes {tuple(x.shape)} @ {tuple(w_idx.shape)}")
-    if not (x.is_contiguous() and w_idx.is_contiguous()
-            and codebook.is_contiguous()):
-        raise ValueError("codebook_matmul_cuda takes contiguous tensors")
+    _check("codebook_matmul_cuda", x, (w_idx, codebook))
     n_book = codebook.shape[0]
-    if not 1 <= n_book <= MAX_BOOK:
-        raise ValueError(f"codebook of {n_book} entries; the kernel holds "
-                         f"1..{MAX_BOOK} in shared memory")
     M, K = x.shape
     N = w_idx.shape[1]
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
@@ -137,9 +197,7 @@ def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
     if plan is None:
         plan = planned
     else:
-        mma_ok = x.dtype == torch.bfloat16 and vec_ok and K % 8 == 0
-        check_plan(plan, K, {"mma": mma_ok and plan.bm in (16, 64),
-                             "fma": plan.bm == 64}, MAX_CLUSTER)
+        _check_plan(plan, x, vec_ok)
     err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                  w_idx.data_ptr(), w_idx.element_size(), codebook.data_ptr(),
                  n_book, out.data_ptr(), M, K, N, _ROUTES.index(plan.route),
@@ -153,3 +211,57 @@ def codebook_matmul_cuda(x: torch.Tensor, w_idx: torch.Tensor,
 
 
 codebook_matmul_cuda.launches = 0
+
+
+def codebook_swiglu_cuda(x: torch.Tensor, w1_idx: torch.Tensor,
+                         book1: torch.Tensor, w3_idx: torch.Tensor,
+                         book3: torch.Tensor, kind: str, levels: int,
+                         plan: Plan | None = None) -> torch.Tensor:
+    """Launch the gated kernel on CUDA tensors; (M, N) in x's dtype, equal
+    bit for bit to ``codebook_matmul_cuda`` of each product with ``plan``,
+    cast to x's dtype, then ``act_quant_cuda(g, kind, levels,
+    form="act_apply", mul=u)``.  ``plan`` overrides the planned route and
+    tiling, as for ``codebook_matmul_cuda``.
+
+    Raises on anything the kernel does not take (as codebook_matmul_cuda;
+    id matrices of two shapes or dtypes; a kind or level count act_quant
+    does not take; codebooks that do not fit in shared memory together)
+    and when the launch reports an error.
+    """
+    _check("codebook_swiglu_cuda", x, (w1_idx, book1), (w3_idx, book3))
+    if w1_idx.shape != w3_idx.shape or w1_idx.dtype != w3_idx.dtype:
+        raise ValueError(f"w1 {tuple(w1_idx.shape)} {w1_idx.dtype} and w3 "
+                         f"{tuple(w3_idx.shape)} {w3_idx.dtype} differ")
+    lo, step, qmax, _ = aq._scalars(kind, levels, "act_apply", x.dtype)
+    M, K = x.shape
+    N = w1_idx.shape[1]
+    n_books = book1.shape[0] + book3.shape[0]
+    vec_ok = (is_aligned(w1_idx, N) and is_aligned(w3_idx, N)
+              and is_aligned(x, K))
+    planned = swiglu_plan(M, K, N, bf16=x.dtype == torch.bfloat16,
+                          vec_ok=vec_ok, sms=sm_count(x.device),
+                          n_books=n_books)
+    if plan is None:
+        plan = planned
+    else:
+        _check_plan(plan, x, vec_ok)
+    if K == 0:
+        raise ValueError("codebook_swiglu_cuda takes K > 0")
+    h = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0 or N == 0:
+        return h
+    err = _swiglu_lib()(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w1_idx.data_ptr(),
+        w3_idx.data_ptr(), w1_idx.element_size(), book1.data_ptr(),
+        book1.shape[0], book3.data_ptr(), book3.shape[0], h.data_ptr(), M, K,
+        N, _ROUTES.index(plan.route), plan.bm, plan.splits, plan.k_chunk,
+        int(vec_ok), aq.KINDS.index(kind), lo, step, qmax,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"codebook_swiglu kernel launch failed: "
+                           f"cudaError {err}")
+    codebook_swiglu_cuda.launches += 1
+    return h
+
+
+codebook_swiglu_cuda.launches = 0

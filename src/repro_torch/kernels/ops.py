@@ -16,12 +16,13 @@ from repro_torch.kernels import kmeans1d as _km
 from repro_torch.kernels import lut_matmul as _lm
 from repro_torch.kernels import page_gather as _pg
 
-__all__ = ["codebook_matmul", "lut_matmul", "gather_pages",
+__all__ = ["codebook_matmul", "codebook_swiglu", "lut_matmul", "gather_pages",
            "gather_pages_many", "act_quant", "act_quant_index",
            "act_apply_quant", "kmeans_assign", "kmeans_stats",
            "launch_counts", "reset_launch_counts", "KERNELS"]
 
 KERNELS = {"codebook_matmul": _cm.codebook_matmul_cuda,
+           "codebook_swiglu": _cm.codebook_swiglu_cuda,
            "lut_matmul": _lm.lut_matmul_cuda,
            "page_gather": _pg.page_gather_cuda,
            "act_quant": _aq.act_quant_cuda,
@@ -42,6 +43,19 @@ def codebook_matmul(x, w_idx, codebook):
     if _route(x, w_idx, codebook) == "cuda":
         return _cm.codebook_matmul_cuda(x, w_idx, codebook)
     return _cm.codebook_matmul_plain(x, w_idx, codebook)
+
+
+def codebook_swiglu(x, w1_idx, book1, w3_idx, book3, kind: str,
+                    levels: int):
+    """(M, N) in x.dtype: ``act_q(T(x @ book1[w1_idx])) * T(x @ book3[
+    w3_idx])``, T = x.dtype, act_q the quantized activation's act_apply
+    form: a SwiGLU FFN's gate and up products and its activation, one
+    kernel launch on the card."""
+    if _route(x, w1_idx, book1, w3_idx, book3) == "cuda":
+        return _cm.codebook_swiglu_cuda(x, w1_idx, book1, w3_idx, book3,
+                                        kind, levels)
+    return _cm.codebook_swiglu_plain(x, w1_idx, book1, w3_idx, book3, kind,
+                                     levels)
 
 
 def lut_matmul(a_idx, w_idx, table):
@@ -69,9 +83,12 @@ def gather_pages_many(pools, page_table):
     return _pg.page_gather_many_plain(pools, page_table)
 
 
-def _act_quant(x, kind: str, levels: int, form: str, with_index: bool):
-    fn = _aq.act_quant_cuda if _route(x) == "cuda" else _aq.act_quant_plain
-    return fn(x, kind, levels, form=form, with_index=with_index)
+def _act_quant(x, kind: str, levels: int, form: str, with_index: bool,
+               mul=None):
+    operands = (x,) if mul is None else (x, mul)
+    fn = (_aq.act_quant_cuda if _route(*operands) == "cuda"
+          else _aq.act_quant_plain)
+    return fn(x, kind, levels, form=form, with_index=with_index, mul=mul)
 
 
 class _ActQuant(torch.autograd.Function):
@@ -116,10 +133,13 @@ def act_quant_index(x, kind: str, levels: int):
     return _act_quant(x.detach(), kind, levels, "kernel", True)[1]
 
 
-def act_apply_quant(x, kind: str, levels: int, with_index: bool = False):
+def act_apply_quant(x, kind: str, levels: int, with_index: bool = False,
+                    mul=None):
     """(y, int32 index or None) in the ``act_apply`` form: what
-    ``core.activations.act_apply`` and ``act_index`` compute."""
-    return _act_quant(x, kind, levels, "act_apply", with_index)
+    ``core.activations.act_apply`` and ``act_index`` compute; with ``mul``
+    (x's shape and dtype), y is that times ``mul`` in x's dtype, in the
+    same launch."""
+    return _act_quant(x, kind, levels, "act_apply", with_index, mul)
 
 
 def kmeans_assign(values, centers):

@@ -180,25 +180,37 @@ def attn_apply(p, x, cfg: AttnConfig,
 
 
 def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
-                       k_all, v_all, layer: int,
+                       k_all, v_all, layer: int, scales=None,
                        backend: dispatch.BackendSpec = dispatch.DENSE):
     """One decode step of one layer against the stacked (L, B, S, KV, hd)
     cache.  pos: (B, 1) RoPE positions; insert_at/valid_len: (B,) per-slot
-    write position and attendable length.
+    write position and attendable length; ``scales`` (ks_all, vs_all),
+    each (L, B, S, KV), when the cache is int8 (``quantize_kv``).
 
-    Attention reads the layer's cache *before* the write (the insert slot
-    masked, the fresh K/V folded in through ``extra_kv``), then the fresh
-    K/V are written into ``k_all``/``v_all`` in place.  Returns the
+    Attention reads the layer's cache *before* the write (dequantized when
+    ``scales`` are given; the insert slot masked, the fresh float K/V folded
+    in through ``extra_kv``), then the fresh K/V (quantized, with their
+    scales) are written into ``k_all``/``v_all`` in place.  Returns the
     attention output (B, 1, D).
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
     k_l, v_l = k_all[layer], v_all[layer]
-    out = decode_attention(q, k_l, v_l, valid_len, exclude=insert_at,
+    if scales is not None:
+        k_att = dequantize_kv(k_l, scales[0][layer])
+        v_att = dequantize_kv(v_l, scales[1][layer])
+    else:
+        k_att, v_att = k_l, v_l
+    out = decode_attention(q, k_att, v_att, valid_len, exclude=insert_at,
                            extra_kv=(k, v))
     rows = torch.arange(B, device=x.device)
-    k_l[rows, insert_at] = k[:, 0].to(k_l.dtype)
-    v_l[rows, insert_at] = v[:, 0].to(v_l.dtype)
+    k_new, v_new = k[:, 0], v[:, 0]
+    if scales is not None:
+        (k_new, ksc), (v_new, vsc) = quantize_kv(k_new), quantize_kv(v_new)
+        scales[0][layer, rows, insert_at] = ksc
+        scales[1][layer, rows, insert_at] = vsc
+    k_l[rows, insert_at] = k_new.to(k_l.dtype)
+    v_l[rows, insert_at] = v_new.to(v_l.dtype)
     return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
 
 

@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.activations import ActQuantConfig, act_apply
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels._common import canonical_idx
 
 __all__ = ["dense_init", "dense", "dequantize", "rms_norm_init", "rms_norm",
@@ -84,20 +84,25 @@ def embed_logits(p, x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.float32) @ t.to(torch.float32).T
 
 
-def ffn_act(x: torch.Tensor, kind: str, levels: int) -> torch.Tensor:
+def _bounded(kind: str) -> str:
+    """The kind quantized at ``levels > 0``: the unbounded kinds are
+    swapped for relu6, as the paper swaps AlexNet's ReLU for ReLU6
+    (§3.3)."""
+    return {"silu": "relu6", "gelu": "relu6", "relu": "relu6"}.get(kind, kind)
+
+
+def ffn_act(x: torch.Tensor, kind: str, levels: int,
+            mul: torch.Tensor | None = None) -> torch.Tensor:
     """The paper's activation-quantization site.
 
     levels == 0: the continuous nonlinearity (baseline).
-    levels  > 0: ``act_apply`` (the ``act_quant`` kernel on the card); the
-                 unbounded kinds are swapped for relu6, as the paper swaps
-                 AlexNet's ReLU for ReLU6 (§3.3).  The reference's
-                 saturation probe (``probes.tap_act``) comes with the
-                 probes.
+    levels  > 0: ``act_apply`` of ``_bounded(kind)`` (the ``act_quant``
+                 kernel on the card), times ``mul`` in the same launch when
+                 it is given.  The reference's saturation probe
+                 (``probes.tap_act``) comes with the probes.
     """
     if levels > 0:
-        bounded = {"silu": "relu6", "gelu": "relu6",
-                   "relu": "relu6"}.get(kind, kind)
-        return act_apply(ActQuantConfig(bounded, levels), x)
+        return act_apply(ActQuantConfig(_bounded(kind), levels), x, mul)
     if kind == "silu":
         return F.silu(x)
     if kind == "gelu":
@@ -118,8 +123,31 @@ def swiglu_init(gen: torch.Generator, d: int, ff: int, dtype, device,
             "w2": dense_init(gen, ff, d, dtype, device, layers=layers)}
 
 
+def _gated_codebook(p, backend: dispatch.BackendSpec) -> bool:
+    """Both of the FFN's gate and up matrices are 2-D index-form weights
+    without bias, and the backend is codebook: one gated launch computes
+    them with their activation (``ops.codebook_swiglu``)."""
+    return backend.name == "codebook" and all(
+        "w_idx" in w and w["w_idx"].ndim == 2 and "b" not in w
+        for w in (p["w1"], p["w3"]))
+
+
 def swiglu(p, x: torch.Tensor, act_kind: str = "silu", act_levels: int = 0,
            backend: dispatch.BackendSpec = dispatch.DENSE) -> torch.Tensor:
-    h = (ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
-         * dense(p["w3"], x, backend))
+    """w2 · (act(x · w1) * (x · w3)).  At ``act_levels > 0`` the product
+    runs in the activation's launch (``ffn_act(..., mul=)``), and on the
+    codebook backend both matmuls run in it too (``ops.codebook_swiglu``,
+    the unfused chain's bits in one launch)."""
+    if act_levels > 0 and _gated_codebook(p, backend):
+        w1, w3 = p["w1"], p["w3"]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        h = ops.codebook_swiglu(x2, w1["w_idx"], w1["codebook"], w3["w_idx"],
+                                w3["codebook"], _bounded(act_kind),
+                                act_levels).reshape(*x.shape[:-1], -1)
+    elif act_levels > 0:
+        h = ffn_act(dense(p["w1"], x, backend), act_kind, act_levels,
+                    mul=dense(p["w3"], x, backend))
+    else:
+        h = (ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
+             * dense(p["w3"], x, backend))
     return dense(p["w2"], h, backend)

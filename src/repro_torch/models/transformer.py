@@ -6,8 +6,9 @@ Parameters are a nested dict in the JAX package's layout: per-layer tensors
 are stacked under ``params['blocks']`` with a leading layer dim, and the
 layer loop walks views of that stack (the port's stand-in for
 ``lax.scan``).  The contiguous cache is {'kv': {'k', 'v'}: (L, B, S, KV,
-hd), 'pos': (B,)}; the paged pool is {'k', 'v': (L, n_pages, page, KV, hd)}
-plus {'k_scale', 'v_scale': (L, n_pages, page, KV)} for int8 pages, and a
+hd), 'pos': (B,)}, with int8 'k'/'v' and bf16 {'k_scale', 'v_scale': (L,
+B, S, KV)} when ``cfg.kv_quant`` is set; the paged pool is {'k', 'v': (L,
+n_pages, page, KV, hd)} plus {'k_scale', 'v_scale': (L, n_pages, page, KV)} for int8 pages, and a
 paged decode cache adds 'page_table' (B, P) and 'pos' (B,).  Both write the
 new tokens' K/V in place.
 """
@@ -74,11 +75,11 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def _logits(p, cfg, x):
+def _logits(p, cfg, x, backend):
     if cfg.tie_embeddings:
         logits = L.embed_logits(p["embed"], x)
-    else:
-        logits = L.dense(p["lm_head"], x).to(torch.float32)
+    else:   # an untied head runs through the backend, as the reference's
+        logits = L.dense(p["lm_head"], x, backend).to(torch.float32)
     if cfg.padded_vocab != cfg.vocab:  # mask padded ids
         logits[..., cfg.vocab:] = -1e30
     return logits
@@ -86,11 +87,22 @@ def _logits(p, cfg, x):
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """Contiguous decode cache with per-slot positions."""
+    """Contiguous decode cache with per-slot positions.  ``cfg.kv_quant``:
+    int8 K/V planes with per-token-per-head bf16 scales (``dtype`` is then
+    not read), as the reference builds them."""
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
-    return {"kv": {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                   "v": torch.zeros(shape, dtype=dtype, device=dev)},
+    if cfg.kv_quant:
+        kv = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+              "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+              "k_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                     device=dev),
+              "v_scale": torch.zeros(shape[:-1], dtype=torch.bfloat16,
+                                     device=dev)}
+    else:
+        kv = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+              "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    return {"kv": kv,
             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
 
 
@@ -99,7 +111,8 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
 
     batch: {'tokens': (B, S) int, 'lengths': (B,) int (optional)}.
     Returns (logits (B, 1, V) at each row's last real position, cache with
-    K/V planes (L, B, S, KV, hd) and ``pos`` = lengths).
+    K/V planes (L, B, S, KV, hd), int8 with their scales (L, B, S, KV) when
+    ``cfg.kv_quant`` is set, and ``pos`` = lengths).
     """
     dt = _dtype(cfg)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else dt
@@ -110,7 +123,7 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
         lengths = torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
-    ks, vs = [], []
+    planes = []
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
         a, kv = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
@@ -118,14 +131,19 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
         x = x + a
         x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
                          cfg.act_kind, cfg.act_levels, backend)
-        ks.append(kv["k"].to(cdt))
-        vs.append(kv["v"].to(cdt))
-    cache = {"kv": {"k": torch.stack(ks), "v": torch.stack(vs)},
+        if cfg.kv_quant:
+            (kq, ksc), (vq, vsc) = (A.quantize_kv(kv["k"]),
+                                    A.quantize_kv(kv["v"]))
+            planes.append({"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc})
+        else:
+            planes.append({"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)})
+    cache = {"kv": {name: torch.stack([p[name] for p in planes])
+                    for name in planes[0]},
              "pos": lengths.to(torch.int32)}
     last = torch.clamp(lengths.long() - 1, min=0)
     x_last = x[torch.arange(B, device=x.device), last][:, None]
     x_last = L.rms_norm(params["final_norm"], x_last)
-    return _logits(params, cfg, x_last), cache
+    return _logits(params, cfg, x_last, backend), cache
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, dtype=torch.bfloat16,
@@ -186,7 +204,7 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
         x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
                          cfg.act_kind, cfg.act_levels, backend)
     x_last = L.rms_norm(params["final_norm"], x[:, length - 1:length])
-    return _logits(params, cfg, x_last), cache
+    return _logits(params, cfg, x_last, backend), cache
 
 
 def _decode_step_paged(params, cfg, tokens, cache, backend):
@@ -220,7 +238,7 @@ def _decode_step_paged(params, cfg, tokens, cache, backend):
         x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
                          cfg.act_kind, cfg.act_levels, backend)
     x = L.rms_norm(params["final_norm"], x)
-    return _logits(params, cfg, x), {**cache, "pos": pos + 1}
+    return _logits(params, cfg, x, backend), {**cache, "pos": pos + 1}
 
 
 def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
@@ -229,8 +247,8 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     ``page_table`` is a page pool and takes the paged step.
 
     Retired slots keep decoding into ``min(pos, S-1)`` until the engine
-    reuses them.  The cache's K/V planes are updated in place; the returned
-    cache carries ``pos + 1``.
+    reuses them.  The cache's K/V planes (and, for ``cfg.kv_quant``, their
+    scales) are updated in place; the returned cache carries ``pos + 1``.
     """
     if "page_table" in cache:
         return _decode_step_paged(params, cfg, tokens, cache, backend)
@@ -241,14 +259,15 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     vlen = torch.clamp(pos_v + 1, max=S)
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
-    k_all, v_all = cache["kv"]["k"], cache["kv"]["v"]
+    kv = cache["kv"]
+    scales = (kv["k_scale"], kv["v_scale"]) if cfg.kv_quant else None
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
         x = x + A.attn_decode_cached(
             p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=pos_v[:, None],
-            insert_at=ins, valid_len=vlen, k_all=k_all, v_all=v_all, layer=i,
-            backend=backend)
+            insert_at=ins, valid_len=vlen, k_all=kv["k"], v_all=kv["v"],
+            layer=i, scales=scales, backend=backend)
         x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
                          cfg.act_kind, cfg.act_levels, backend)
     x = L.rms_norm(params["final_norm"], x)
-    return _logits(params, cfg, x), {**cache, "pos": pos_v + 1}
+    return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}

@@ -274,12 +274,13 @@ class ServeEngine:
         return self._pool
 
     def dense_cache_bytes(self) -> int:
-        """Device bytes of the contiguous K/V slab at this engine's shape:
-        the baseline the paged pool is compared against."""
-        cfg = self.model.cfg
-        itemsize = torch.empty((), dtype=self._cache_dtype).element_size()
-        return (2 * cfg.n_layers * self.max_batch * self.max_len * cfg.n_kv
-                * cfg.hd * itemsize)
+        """Device bytes of the contiguous K/V slab at this engine's shape
+        (every leaf ``init_cache`` builds: int8 planes and their scales for
+        ``cfg.kv_quant``): the baseline the paged pool is compared
+        against."""
+        cache = self.model.init_cache(self.max_batch, self.max_len,
+                                      dtype=self._cache_dtype, device="meta")
+        return sum(t.numel() * t.element_size() for t in cache["kv"].values())
 
     def _chunked_prefill(self, pool, prompt, adm):
         """Stream one admitted prompt through page-sized chunks; returns the

@@ -312,7 +312,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 def test_launch_counters_start_and_reset():
     ops.reset_launch_counts()
-    assert ops.launch_counts() == {"codebook_matmul": 0, "lut_matmul": 0,
+    assert ops.launch_counts() == {"codebook_matmul": 0,
+                                   "codebook_swiglu": 0, "lut_matmul": 0,
                                    "page_gather": 0, "act_quant": 0,
                                    "kmeans_assign": 0}
     x, wi, book = _codebook_case(0, 2, 16, 8)
