@@ -41,35 +41,47 @@ Phases, each of which raises on failure (the script then exits non-zero):
 5. contiguous path: qwen3-1.7b at full width and depth, random weights
    from a seeded generator, compressed to |W| = 1000 (laplacian_l1,
    global) and served through ``ServeEngine.serve``/``generate`` with the
-   codebook and lut backends, kernel launch counts checked, logits held
-   against the dense backend; lut_matmul replayed on the serving path's own
-   activation ids (a captured decode forward and 1 × 32 prefill, 196
-   launches each) on its planned route and on each route forced, beside
-   random row ids of the same shapes, bit-exact on the middle layer;
+   dense, codebook and lut backends, each on the graph route (a decode
+   step is one CUDA graph replay) against the eager route
+   (``graph_vs_eager``): serves in turns with equal tokens, generate
+   equal, a second serve and generate capturing nothing, kernel launches
+   counted per forward whose wrappers ran (a captured forward counts
+   once, a replay never), serve tok/s and peak memory of each route, and
+   one decode step on each route in turns (wall ms, the profiler's device
+   ms, idle share and kernels, the backend's kernels a step by name, the
+   replayed step's logits bit-equal to the eager step's); logits held
+   against the dense backend; lut's split-K scratch outgrown after a
+   capture (tokens still equal); lut_matmul replayed on the serving path's
+   own activation ids (an eager serve's decode forward and a 1 × 32
+   prefill, 196 launches each) on its planned route and on each route
+   forced, beside random row ids of the same shapes, bit-exact on the
+   middle layer;
 6. paged path: the same model served by ``ServeEngine(paged=True)``, page
    16, to 8 chat requests sharing a 96-token system prompt: codebook with
-   int8 and with bf16 pages, lut with int8 pages.  page_gather (one
-   launch a layer) and matmul launches per forward, prefix-cache hits,
-   the pool's refcounts and a second serve's tokens are checked, and the
-   paged bf16 prefill logits are held against the contiguous engine's;
+   int8 and with bf16 pages, lut with int8 pages, each on the graph route
+   against the eager route as in phase 5.  page_gather (one launch a
+   layer) and matmul launches per forward, prefix-cache hits, the pool's
+   refcounts after every serve, and the paged bf16 prefill logits are
+   held against the contiguous engine's;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
    MSE beside laplacian_l1's, kmeans_assign at the full n against its
    plain version (and run twice, bit-identical; both forms), its three
    forms timed (search alone, sums only, full), then served through
-   codebook and lut (contiguous) and codebook with int8 pages: codebook
-   launches 5 × 28 codebook_matmul, 28 codebook_swiglu and no act_quant
-   a forward, lut 7 × 28 lut_matmul and 28 act_quant (with its
-   multiplier); act_quant and the gated launch held against their plain
-   versions on one layer's real FFN input; decode step and serve figures
-   beside phase 5's, and the codebook step with the gated launch against
-   the unfused chain it replaced, in turns;
+   codebook and lut (contiguous) and codebook with int8 pages, each on
+   the graph route against the eager route: codebook launches 5 × 28
+   codebook_matmul, 28 codebook_swiglu and no act_quant a forward, lut
+   7 × 28 lut_matmul and 28 act_quant (with its multiplier); act_quant and
+   the gated launch held against their plain versions on one layer's real
+   FFN input; decode step and serve figures beside phase 5's, and the
+   codebook step with the gated launch against the unfused chain it
+   replaced, in turns (eager forwards);
    [kvq]: codeqwen1.5-7b at full width, 4 of its 32 layers, compressed as
    ``launch/serve.py --compress`` does, served through the codebook
-   backend with its int8 contiguous cache: launches, cache bytes against
-   a bf16 cache's, decode step with each, and the gap between their
-   decode logits;
+   backend with its int8 contiguous cache on both routes as in phase 5:
+   launches, cache bytes against a bf16 cache's, decode step with each,
+   and the gap between their decode logits;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -857,9 +869,9 @@ def reduced_kv_quant(dev):
                                  f"tokens {got} != CPU tokens {want}")
         counts = ops.launch_counts()
         if be == "codebook" and counts["codebook_matmul"] != (
-                7 * cfg.n_layers + 1) * on_dev.n_forwards:
+                7 * cfg.n_layers + 1) * called_forwards(on_dev):
             raise AssertionError(f"codeqwen reduced codebook: {counts} over "
-                                 f"{on_dev.n_forwards} forwards")
+                                 f"{called_forwards(on_dev)} forwards")
     cache = model.init_cache(4, 64, device=dev)["kv"]
     n_bytes = ServeEngine(model, cp_dev, max_len=64, max_batch=4,
                           device=dev).dense_cache_bytes()
@@ -918,7 +930,7 @@ def reduced_working_point(dev):
         on_dev = e.serve(prompts, max_new=8)
         # codebook: the gated launch a layer; dense, lut: act_quant
         n_fwd["codebook_swiglu" if be == "codebook" else "act_quant"] += \
-            e.n_forwards
+            called_forwards(e)
         if on_cpu != on_dev:
             raise AssertionError(f"reduced working point, {be} {kw}: card "
                                  f"tokens {on_dev} != CPU tokens {on_cpu}")
@@ -994,12 +1006,19 @@ def _to_f32(tree):
     return tree.to(torch.float32) if tree.is_floating_point() else tree
 
 
-def device_time(fn, top: int = 5, match: str = "page_gather"):
+# Copies and fills, not kernels: a CUDA graph runs some device-to-device
+# copies as memcpy kernels of its own ("memcpy32_post")
+COPIES = ("Memcpy", "Memset", "memcpy", "memset")
+
+
+def device_time(fn, top: int = 5, match: str = "page_gather", count=()):
     """Device time of one call from torch.profiler's CUDA activity:
     (busy ms summed over kernels and copies, [(name, ms, count)] of the
     largest, ms of the kernels whose name holds ``match``, kernels launched
-    (copies and memsets not counted)).  Busy time over wall time gives the
-    device's idle share."""
+    (copies and memsets not counted), {pattern: kernels whose name holds
+    it} for each pattern of ``count``).  Busy time over wall time gives the
+    device's idle share.  Kernels a CUDA graph replays are seen one by
+    one."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1007,8 +1026,10 @@ def device_time(fn, top: int = 5, match: str = "page_gather"):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     # device-side events only: a CPU op (aten::index) also carries the
     # device time of the kernel it launched, which would count it twice
     evs = [e for e in prof.key_averages()
@@ -1017,10 +1038,10 @@ def device_time(fn, top: int = 5, match: str = "page_gather"):
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     matched = sum(e.self_device_time_total for e in evs
                   if match in e.key) / 1e3
-    n_kernels = sum(e.count for e in evs
-                    if not e.key.startswith(("Memcpy", "Memset")))
+    n_kernels = sum(e.count for e in evs if not e.key.startswith(COPIES))
+    found = {p: sum(e.count for e in evs if p in e.key) for p in count}
     return busy, [(e.key[:48], e.self_device_time_total / 1e3, e.count)
-                  for e in evs[:top]], matched, n_kernels
+                  for e in evs[:top]], matched, n_kernels, found
 
 
 def kernel_ms(fn, match: str, reps: int = 3) -> float:
@@ -1028,22 +1049,35 @@ def kernel_ms(fn, match: str, reps: int = 3) -> float:
     name holds ``match`` once: the sum of those kernels' mean durations
     over ``reps`` profiled calls.  For a wrapper that syncs with the host
     (the k-means forms read their overflow flag), which ``time_ms`` cannot
-    queue behind a device-side sleep."""
+    queue behind a device-side sleep.
+
+    One run on an H100 got a session here that held no kmeans kernel at
+    all.  So the session records host activity as ``device_time``'s does,
+    leaves idle margins of 50 ms before and after the calls, and is made
+    again, up to three times in all, when it holds no kernel of
+    ``match``; each empty session is logged."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and match in e.key
-           and e.count]
-    if not evs:
-        raise AssertionError(f"no {match} kernel in the profile")
-    return sum(e.self_device_time_total / e.count for e in evs) / 1e3
+    for attempt in range(1, 4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and match in e.key
+               and e.count]
+        if evs:
+            return sum(e.self_device_time_total / e.count
+                       for e in evs) / 1e3
+        log(f"[time] kernel_ms: no {match} kernel in profiler session "
+            f"{attempt} of 3")
+    raise AssertionError(f"no {match} kernel in three profiler sessions")
 
 
 def timed(fn):
@@ -1089,12 +1123,274 @@ def compressed_model(dev, cfg, tag: str):
     return model, cp
 
 
-def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
-    """The contiguous path: serve/generate with codebook and lut, launch
-    counts, logits against dense, step timings."""
-    import numpy as np
+# --- the decode step as a CUDA graph -------------------------------------------
+
+def called_forwards(e) -> int:
+    """Forwards of engine ``e`` whose kernel wrappers ran: prefills, eager
+    decode steps, and each decode step captured into a CUDA graph, once.
+    A replay calls no wrapper, so launches count per captured forward."""
+    return e.n_forwards - e.n_replays + e.n_captures
+
+
+def check_launches(tag: str, counts: dict, per_fwd: dict, fwd: int) -> None:
+    """Each kernel of ``per_fwd`` launched that many times a forward over
+    ``fwd`` forwards, every other kernel never."""
+    want = {k: per_fwd.get(k, 0) * fwd for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} over {fwd} "
+                             f"forwards, want {want}")
+
+
+def step_state(e, pos: int, n_pages: int = 0):
+    """A loop state of its own for engine ``e`` (the engine's serving state
+    is left alone): MAX_BATCH live slots at ``pos``, token 0 in each, on a
+    zeroed contiguous cache, or on a fresh page pool of ``n_pages`` pages
+    where slot b owns pages 1 + b·P .. (b + 1)·P."""
+    import torch
+    from repro_torch.serving.engine import _Slots
+    if e.paged:
+        dtype = torch.int8 if e.kv_dtype == "int8" else e._cache_dtype
+        cache = {**e.model.init_paged_cache(n_pages, e.page_size, dtype,
+                                            device=e.device),
+                 "page_table": torch.arange(
+                     1, n_pages, dtype=torch.int32,
+                     device=e.device).reshape(MAX_BATCH, -1)}
+    else:
+        cache = e.model.init_cache(MAX_BATCH, e.max_len,
+                                   dtype=e._cache_dtype, device=e.device)
+    cache["pos"] = torch.full((MAX_BATCH,), pos, dtype=torch.int32,
+                              device=e.device)
+    st = _Slots(cache, e.max_len)
+    st.active.fill_(True)
+    st.stops.fill_(1 << 30)
+    return st
+
+
+def step_turns(tag: str, e, st, per_step: dict, match: str = "page_gather"
+               ) -> dict:
+    """One decode step of ``st`` on the eager route and as a graph replay,
+    in turns (eager, graph, graph, eager), each turn from the same state:
+    wall ms (median of 5 steps a turn), and once a route the device busy
+    ms, its idle share (against the mean of the route's two turns) and
+    kernels from the profiler.  Holds the
+    replayed step's logits bit-equal to the eager step's, both routes'
+    kernels equal (copies apart) and the kernels whose names hold each
+    pattern of ``per_step`` to its count, the two busy times within 5 %,
+    and the logits finite."""
+    import torch
+    saved = {k: t.clone() for k, t in st.state().items()}
+
+    def restore():
+        for k, t in st.state().items():
+            t.copy_(saved[k])
+
+    def one(graphs: bool):
+        restore()
+        e._graphs = graphs
+        e._step(st)
+        return st.logits.clone()
+    c0 = e.n_captures
+    one(True)                                    # the capture, untimed
+    res = {"eager": {"wall_ms": []}, "graph": {"wall_ms": []},
+           "captures": e.n_captures - c0}
+    def profiled(route):
+        restore()
+        e._graphs = route == "graph"
+        busy, top, m_ms, n_k, found = device_time(
+            lambda: e._step(st), match=match, count=tuple(per_step))
+        res[route].update(device_ms=busy, kernels=n_k, found=found,
+                          match_ms=m_ms, top=top)
+
+    for route in ("eager", "graph", "graph", "eager"):
+        restore()
+        e._graphs = route == "graph"
+        walls = [timed(lambda: e._step(st))[1] for _ in range(6)][1:]
+        res[route]["wall_ms"].append(1e3 * sorted(walls)[len(walls) // 2])
+        if "device_ms" not in res[route]:
+            profiled(route)
+    g, ea = res["graph"], res["eager"]
+
+    def agree() -> bool:
+        return (g["found"] == ea["found"] == per_step
+                and g["kernels"] == ea["kernels"]
+                and abs(g["device_ms"] - ea["device_ms"])
+                <= 0.05 * ea["device_ms"])
+    # the profiler has been seen to lose a few of a step's kernel events
+    # once in a run (with a warning from its event collection): profile
+    # both routes again before holding them to each other
+    res["profiles_retaken"] = 0
+    while not agree() and res["profiles_retaken"] < 5:
+        res["profiles_retaken"] += 1
+        log(f"{tag}: profiles disagree (kernels {ea['kernels']} eager, "
+            f"{g['kernels']} graph; by name {ea['found']}, {g['found']}); "
+            "taking both again")
+        profiled("eager")
+        profiled("graph")
+    for route in ("eager", "graph"):
+        r = res[route]
+        r["mean_wall_ms"] = sum(r["wall_ms"]) / len(r["wall_ms"])
+        r["idle_share"] = 1 - r["device_ms"] / r["mean_wall_ms"]
+        if r["found"] != per_step:
+            raise AssertionError(f"{tag}: {route} step's kernels by name "
+                                 f"{r['found']}, want {per_step}")
+    if g["kernels"] != ea["kernels"]:
+        raise AssertionError(f"{tag}: a replayed step ran {g['kernels']} "
+                             f"kernels, the eager step {ea['kernels']}")
+    if abs(g["device_ms"] - ea["device_ms"]) > 0.05 * ea["device_ms"]:
+        raise AssertionError(f"{tag}: device busy {g['device_ms']:.3f} ms "
+                             f"replayed against {ea['device_ms']:.3f} eager")
+    lg_e, lg_g = one(False), one(True)
+    if not bool(torch.isfinite(lg_e[..., :e.model.cfg.vocab]).all()):
+        raise AssertionError(f"{tag}: non-finite decode logits")
+    if not torch.equal(lg_g, lg_e):
+        raise AssertionError(f"{tag}: the replayed step's logits differ from "
+                             f"the eager step's by "
+                             f"{(lg_g - lg_e).abs().max().item():.3e}")
+    restore()
+    res["captures"] = e.n_captures - c0
+    res["logits_bit_equal"] = True
+    return res
+
+
+def graph_vs_eager(tag: str, e, reqs, gen_reqs, per_fwd: dict,
+                   per_step: dict, step_pos: int, n_pages: int = 0,
+                   match: str = "page_gather", after_serve=None) -> tuple:
+    """Engine ``e`` (a fresh one) on the graph route against the eager
+    route, in one run:
+
+    * ``serve(reqs, max_new=16)`` in turns (eager, graph — its first,
+      which captures —, graph, eager): tokens equal in all four, the second
+      graph serve captures nothing, tok/s and peak device memory
+      allocated of each, and the memory the graphs' pool keeps reserved
+      (after ``empty_cache``, against the same after the first serve);
+    * ``generate(gen_reqs, max_new=8)`` eager, then graph twice: tokens
+      equal, the second captures nothing;
+    * launches: ``per_fwd`` a forward whose wrappers ran
+      (``called_forwards``), over the serves; over the generates the same
+      but page_gather (generate decodes on the contiguous cache);
+    * ``step_turns`` on a state at ``step_pos`` (``step_state``).
+
+    ``after_serve(i)``, if given, runs after the i-th serve.  Returns the
+    figures and the tokens."""
     import torch
     from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    c0, f0, r0, k0 = (called_forwards(e), e.n_forwards, e.n_replays,
+                      e.n_captures)
+    out = {"eager": None, "graph": None}
+    res = {"serve_s": {"eager": [], "graph": []}, "peak_gib": {}}
+    for i, route in enumerate(("eager", "graph", "graph", "eager")):
+        e._graphs = route == "graph"
+        before = e.n_captures
+        torch.cuda.reset_peak_memory_stats()
+        toks, secs = timed(lambda: e.serve(reqs, max_new=16))
+        res["serve_s"][route].append(secs)
+        res["peak_gib"].setdefault(
+            route, torch.cuda.max_memory_allocated() / 2 ** 30)
+        if i == 0:            # what stays reserved once the loop state is
+            torch.cuda.empty_cache()               # made, before a graph
+            reserved = torch.cuda.memory_reserved()
+        if i == 2 and e.n_captures != before:
+            raise AssertionError(f"{tag}: the second graph serve captured "
+                                 f"{e.n_captures - before} graphs")
+        if after_serve is not None:
+            after_serve(i)
+        if out[route] is None:
+            out[route] = toks
+        if toks != out["eager"] or toks != out[route]:
+            raise AssertionError(f"{tag}: {route} serve's tokens differ "
+                                 "from the eager route's")
+    for seq in out["eager"]:
+        if not all(0 <= t < e.model.cfg.vocab for t in seq):
+            raise AssertionError(f"{tag}: token id out of range")
+    counts, fwd = ops.launch_counts(), called_forwards(e) - c0
+    check_launches(tag, counts, per_fwd, fwd)
+    # generate decodes on the contiguous cache, a paged engine's too
+    ops.reset_launch_counts()
+    g0 = called_forwards(e)
+    e._graphs = False
+    gen = e.generate(gen_reqs, max_new=8)
+    e._graphs = True
+    for i in range(2):
+        before = e.n_captures
+        if e.generate(gen_reqs, max_new=8) != gen:
+            raise AssertionError(f"{tag}: graph generate's tokens differ "
+                                 "from the eager route's")
+        if i and e.n_captures != before:
+            raise AssertionError(f"{tag}: a second graph generate captured")
+    g_counts = ops.launch_counts()
+    check_launches(f"{tag} generate", g_counts,
+                   {k: v for k, v in per_fwd.items() if k != "page_gather"},
+                   called_forwards(e) - g0)
+    counts = {k: v + g_counts[k] for k, v in counts.items()}
+    torch.cuda.empty_cache()          # the graphs' pool stays reserved
+    res["graph_pool_gib"] = (torch.cuda.memory_reserved() - reserved) / 2 ** 30
+    res.update(forwards=e.n_forwards - f0, replays=e.n_replays - r0,
+               captures=e.n_captures - k0,
+               wrapper_forwards=called_forwards(e) - c0,
+               launches=counts,
+               serve_tok_s={r: 16 * len(reqs) / min(v)
+                            for r, v in res["serve_s"].items()},
+               graph_serve_with_capture_s=res["serve_s"]["graph"][0])
+    st = step_state(e, step_pos, n_pages)
+    res["step"] = step_turns(tag, e, st, per_step, match=match)
+    del st
+    sp = res["step"]
+    log(f"{tag}: graph against eager in turns — serve {16 * len(reqs)} tokens"
+        f" (eager, graph, graph, eager) "
+        + ", ".join(f"{s:.3f}" for s in (res["serve_s"]["eager"][0],
+                                         *res["serve_s"]["graph"],
+                                         res["serve_s"]["eager"][1]))
+        + f" s → eager {res['serve_tok_s']['eager']:.1f}, graph "
+        f"{res['serve_tok_s']['graph']:.1f} tok/s (the first graph serve "
+        f"captures); tokens equal, generate too; {res['forwards']} forwards, "
+        f"{res['replays']} replayed, {res['captures']} captures (the second "
+        f"serve and generate none); over the serves wrappers ran for "
+        f"{fwd} forwards: "
+        + ", ".join(f"{counts[k] - g_counts[k]} {k} (= {v} × {fwd})"
+                    for k, v in per_fwd.items())
+        + f"; peak memory allocated eager {res['peak_gib']['eager']:.2f} "
+        f"GiB, graph with its capture {res['peak_gib']['graph']:.2f} GiB; "
+        f"the graphs' pool holds {res['graph_pool_gib']:.2f} GiB more "
+        "reserved")
+    log(f"{tag}: decode step ({MAX_BATCH} slots at {step_pos}) in turns "
+        "(eager, graph, graph, eager): wall "
+        + ", ".join(f"{w:.2f}" for w in (sp["eager"]["wall_ms"][0],
+                                         *sp["graph"]["wall_ms"],
+                                         sp["eager"]["wall_ms"][1]))
+        + f" ms; device busy eager {sp['eager']['device_ms']:.3f} ms (idle "
+        f"share {sp['eager']['idle_share']:.3f}), graph "
+        f"{sp['graph']['device_ms']:.3f} ms (idle share "
+        f"{sp['graph']['idle_share']:.3f}); {sp['graph']['kernels']} kernels "
+        f"a step on both routes, by name {sp['graph']['found']}; replayed "
+        "logits bit-equal to eager; top (graph): "
+        + "; ".join(f"{k} {ms:.3f}ms×{n}" for k, ms, n in sp["graph"]["top"]))
+    return res, out["eager"]
+
+
+def step_stats(res: dict) -> dict:
+    """The decode figures of ``graph_vs_eager``'s result that phases 5 and 7
+    print and compare: the graph route's under the old names, the eager
+    route's with ``_eager``."""
+    st = res["step"]
+    out = {}
+    for route, sfx in (("graph", ""), ("eager", "_eager")):
+        out.update({f"decode_step_ms{sfx}": st[route]["mean_wall_ms"],
+                    f"decode_device_ms{sfx}": st[route]["device_ms"],
+                    f"decode_idle_share{sfx}": st[route]["idle_share"],
+                    f"serve_tok_s{sfx}": res["serve_tok_s"][route]})
+    out.update(decode_kernels=st["graph"]["kernels"],
+               decode_top_kernels=st["graph"]["top"])
+    return out
+
+
+def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
+    """The contiguous path: serve/generate with dense, codebook and lut,
+    each on the graph route against the eager route (``graph_vs_eager``),
+    launch counts, logits against dense, the lut scratch-growth check,
+    prefill timings."""
+    import torch
+    from repro_torch.kernels import _common
     from repro_torch.models import layers as L
     from repro_torch.serving import ServeEngine
 
@@ -1102,39 +1398,18 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
     eng = {be: ServeEngine(model, cp, backend=be, **kw)
            for be in ("dense", "codebook", "lut")}
     per_fwd = 7 * cfg.n_layers
-    runs, tokens = {}, {}
-
-    def drive(be, n_serve, n_generate):
-        """serve n_serve requests, then generate for n_generate (if any),
-        counting launches over both; tok/s is serve's alone."""
-        e = eng[be]
-        ops.reset_launch_counts()
-        f0 = e.n_forwards
-        out, secs = timed(lambda: e.serve(prompts[:n_serve], max_new=16))
-        if n_generate:
-            timed(lambda: e.generate(prompts[:n_generate], max_new=16))
-        counts = ops.launch_counts()
-        runs[be] = (secs, counts, e.n_forwards - f0, n_serve * 16)
-        tokens[be] = out
-
-    drive("codebook", 8, 4)
-    drive("lut", 4, 0)
-    for be, (secs, counts, fwd, n_tok) in runs.items():
+    stats, tokens, launches = {}, {}, {}
+    for be, n in (("codebook", 8), ("lut", 4), ("dense", 8)):
         name = f"{be}_matmul"
-        other = "lut_matmul" if be == "codebook" else "codebook_matmul"
-        if (counts[name] != per_fwd * fwd or counts[other] != 0
-                or counts["codebook_swiglu"] or counts["act_quant"]):
-            raise AssertionError(f"{be}: launches {counts} over {fwd} "
-                                 f"forwards, want {per_fwd}×{fwd}")
-        log(f"[main] {be}: {fwd} forwards, {counts[name]} {name} launches "
-            f"(= 7 × {cfg.n_layers} × {fwd}); serve: {n_tok} tokens in "
-            f"{secs:.3f}s → {n_tok / secs:.1f} tok/s")
-    launches = {f"{be}_matmul": r[1][f"{be}_matmul"] for be, r in runs.items()}
+        want = {} if be == "dense" else {name: per_fwd}
+        res, tokens[be] = graph_vs_eager(
+            f"[main] {be}", eng[be], prompts[:n], prompts[:4], want,
+            {} if be == "dense" else {("StoreSum" if be == "codebook"
+                                       else "lut_"): per_fwd}, step_pos=40)
+        stats[be] = {**step_stats(res), "graph": res}
+        if be != "dense":
+            launches[name] = res["launches"][name]
 
-    tokens["dense"] = eng["dense"].serve(prompts, max_new=16)
-    for seq in tokens["codebook"] + tokens["lut"]:
-        if not all(0 <= t < cfg.vocab for t in seq):
-            raise AssertionError("token id out of range")
     for be in ("codebook", "lut"):
         got, ref = tokens[be], tokens["dense"][:len(tokens[be])]
         same = sum(a == b for g_, r_ in zip(got, ref)
@@ -1164,32 +1439,39 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
         if be == "codebook" and d > 0.05 * scale:
             raise AssertionError(f"codebook logits differ from dense by {d}")
 
-    # step timings (after the counted runs)
-    stats = {"peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # lut's split-K scratch under a graph: capture a decode step on a fresh
+    # scratch buffer, outgrow it with an eager prefill of 256 rows, serve
+    # again: the replays must still find their own buffer
+    e = eng["lut"]
+    _common._SCRATCH.clear()          # the buffers handed out stay kept
+    e._slot_sets.clear()              # a new loop state: a new capture
+    c0 = e.n_captures
+    first = e.serve(prompts[:4], max_new=16)
+    held = dict(_common._SCRATCH)
+    t256, l256 = e._pad_prompts([(p * 8)[:64] for p in prompts[:4]])
+    e._prefill(t256, l256)
+    grown = [k for k, v in held.items() if _common._SCRATCH[k] is not v]
+    again = e.serve(prompts[:4], max_new=16)
+    if not grown or e.n_captures - c0 != 1 or not (
+            first == again == tokens["lut"]):
+        raise AssertionError(f"[main] lut scratch growth: grown {grown}, "
+                             f"captures {e.n_captures - c0}, tokens equal "
+                             f"{first == again == tokens['lut']}")
+    log(f"[main] lut scratch growth: a decode step captured on a fresh "
+        f"scratch, {', '.join(t for t, _ in grown)} outgrown by a "
+        f"{tuple(t256.shape)} prefill, then served again: tokens equal the "
+        "eager route's")
+
+    # prefill timings (after the counted runs)
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     t32, l32 = eng["dense"]._pad_prompts([(prompts[0] * 4)[:32]])
     stats["lut_path_ids"] = lut_path_ids(dev, eng["lut"], prompts, t32, l32,
                                          cfg.n_layers)
     for be, e in eng.items():
         pre = [timed(lambda: e._prefill(t32, l32))[1] for _ in range(4)][1:]
-        cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
-        cache["pos"][:] = 40
-        last = np.zeros(4, np.int64)
-        dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-        stats[be] = {"prefill_ms": 1e3 * sorted(pre)[len(pre) // 2],
-                     "decode_step_ms": 1e3 * sorted(dec)[len(dec) // 2]}
-        if be in runs:
-            stats[be]["serve_tok_s"] = runs[be][3] / runs[be][0]
-        busy, top, _, n_k = device_time(lambda: e._decode(last, cache))
-        idle = 1 - busy / stats[be]["decode_step_ms"] if busy else None
-        stats[be].update(decode_device_ms=busy or None,
-                         decode_idle_share=idle, decode_kernels=n_k,
-                         decode_top_kernels=top)
+        stats[be]["prefill_ms"] = 1e3 * sorted(pre)[len(pre) // 2]
         log(f"[main] {be}: prefill 1×32 tokens {stats[be]['prefill_ms']:.2f}"
-            f" ms, decode step (4 slots, pos 40) "
-            f"{stats[be]['decode_step_ms']:.2f} ms, device busy "
-            + (f"{busy:.2f} ms (idle share {idle:.3f}), {n_k} kernels; top: "
-               + "; ".join(f"{k} {ms:.3f}ms×{n}" for k, ms, n in top)
-               if busy else "not measured (the profiler saw no device time)"))
+            " ms")
     x = torch.randn(4, 1, cfg.d_model, device=dev).to(torch.bfloat16)
     stats["tied_logits_ms"] = time_ms(lambda: L.embed_logits(cp["embed"], x),
                                       reps=10)
@@ -1201,7 +1483,8 @@ def main_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
 
 def lut_path_ids(dev, e, prompts, t32, l32, n_layers) -> dict:
     """lut_matmul on the serving path's own activation ids: every call of a
-    4-request serve and of a 1 × 32 prefill through engine ``e`` captured
+    4-request serve (on the eager route) and of a 1 × 32 prefill through
+    engine ``e`` captured
     (a_idx copied; ids and table are the model's), then one decode forward
     (M = 4) and the prefill forward (M = 32), 7 × n_layers launches each,
     replayed on each lut route, and again with uniformly random row ids of
@@ -1218,12 +1501,14 @@ def lut_path_ids(dev, e, prompts, t32, l32, n_layers) -> dict:
         calls.append((a.clone(), w, t))
         return orig(a, w, t)
     ops.lut_matmul = rec
+    e._graphs = False                 # a replay would call no wrapper
     try:
         e.serve(prompts[:4], max_new=16)
         n_serve = len(calls)
         e._prefill(t32, l32)
     finally:
         ops.lut_matmul = orig
+        e._graphs = True
     fwds = [calls[i:i + per_fwd] for i in range(0, n_serve, per_fwd)]
     dec = [f for f in fwds if all(c[0].shape[0] == MAX_BATCH for c in f)]
     pre = calls[n_serve:]
@@ -1279,13 +1564,14 @@ def _pool_clean(pool) -> bool:
 
 def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     """The paged path at full width: ServeEngine(paged=True), page PAGE,
-    max_len PAGED_MAX_LEN, MAX_BATCH slots, 16 new tokens per request.
-    Each run is counted alone: page_gather launches must be one a layer
-    (K, V and, with int8 pages, their scales in one launch) × layers ×
-    forwards, matmul launches 7 × layers × forwards."""
-    import numpy as np
+    max_len PAGED_MAX_LEN, MAX_BATCH slots, 16 new tokens per request, on
+    the graph route against the eager route (``graph_vs_eager``).  Each
+    engine is counted alone: page_gather launches must be one a layer (K,
+    V and, with int8 pages, their scales in one launch) × layers ×
+    forwards, matmul launches 7 × layers × forwards; the pool holds no
+    reference after each serve, and every serve after the first hits the
+    prefix cache more than the first did."""
     import torch
-    from repro_torch.kernels import ops
     from repro_torch.serving import ServeEngine
 
     kw = dict(paged=True, page_size=PAGE, max_len=PAGED_MAX_LEN,
@@ -1296,59 +1582,48 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
                       ("lut", "int8", 4)):
         e = eng[be, kv] = ServeEngine(model, cp, backend=be, kv_dtype=kv,
                                       **kw)
-        pool = e.pool
-        ops.reset_launch_counts()
-        f0 = e.n_forwards
-        first, secs = timed(lambda: e.serve(chats[:n], max_new=16))
-        fwd1 = e.n_forwards - f0
-        if not _pool_clean(pool):
-            raise AssertionError(f"paged {be} {kv}: pages still referenced "
-                                 "after serve")
-        hits1 = pool.stats.hit_pages
-        again, secs2 = timed(lambda: e.serve(chats[:n], max_new=16))
-        counts = ops.launch_counts()
-        fwd = e.n_forwards - f0
-        if not _pool_clean(pool):
-            raise AssertionError(f"paged {be} {kv}: pages still referenced "
-                                 "after the second serve")
-        if hits1 <= 0 or pool.stats.hit_pages - hits1 <= hits1:
-            raise AssertionError(f"paged {be} {kv}: hit pages {hits1} then "
-                                 f"{pool.stats.hit_pages - hits1}")
-        if again != first:
-            raise AssertionError(f"paged {be} {kv}: the second serve's "
-                                 "tokens differ from the first's")
-        other = "lut_matmul" if be == "codebook" else "codebook_matmul"
-        if (counts["page_gather"] != n_l * fwd
-                or counts[f"{be}_matmul"] != 7 * n_l * fwd
-                or counts[other] != 0):
-            raise AssertionError(f"paged {be} {kv}: launches {counts} over "
-                                 f"{fwd} forwards")
-        for seq in first:
-            if not all(0 <= t < cfg.vocab for t in seq):
-                raise AssertionError("token id out of range")
-        tokens[be, kv] = first
-        for k_ in ("page_gather", f"{be}_matmul"):
-            launches[k_] = launches.get(k_, 0) + counts[k_]
+        pool, hits = e.pool, []
+
+        def after_serve(i, pool=pool, hits=hits, tag=f"paged {be} {kv}"):
+            if not _pool_clean(pool):
+                raise AssertionError(f"{tag}: pages still referenced after "
+                                     f"serve {i}")
+            hits.append(pool.stats.hit_pages - sum(hits))
+        name = f"{be}_matmul"
+        res, tokens[be, kv] = graph_vs_eager(
+            f"[paged] {be} {kv} pages", e, chats[:n], chats[:4],
+            {name: 7 * n_l, "page_gather": n_l},
+            {("StoreSum" if be == "codebook" else "lut_"): 7 * n_l,
+             "page_gather": n_l}, step_pos=120, n_pages=N_PAGES,
+            after_serve=after_serve)
+        if hits[0] <= 0 or min(hits[1:]) <= hits[0]:
+            raise AssertionError(f"paged {be} {kv}: hit pages by serve "
+                                 f"{hits}")
+        for k_ in ("page_gather", name):
+            launches[k_] = launches.get(k_, 0) + res["launches"][k_]
         st = pool.stats
+        step = res["step"]
         stats[f"{be}_{kv}"] = {
-            "requests": n, "forwards": fwd, "serve_s": secs,
-            "serve_again_s": secs2, "serve_tok_s": 16 * n / secs,
-            "hit_pages_first": hits1, "hit_pages_again": st.hit_pages - hits1,
+            "requests": n, "graph": res, "hit_pages_by_serve": hits,
+            "serve_tok_s": res["serve_tok_s"]["graph"],
+            "serve_tok_s_eager": res["serve_tok_s"]["eager"],
             "miss_pages": st.miss_pages, "cow_copies": st.cow_copies,
             "peak_pages_in_use": st.peak_pages_in_use,
             "pool_bytes": pool.bytes_total(),
-            "slab_bytes": e.dense_cache_bytes()}
-        log(f"[paged] {be} {kv} pages: {n} requests twice, {fwd} forwards "
-            f"({fwd1} in the first serve), {counts['page_gather']} "
-            f"page_gather launches (= one a layer × {n_l} × {fwd}), "
-            f"{counts[f'{be}_matmul']} {be}_matmul (= 7 × {n_l} × {fwd}); "
-            f"first serve {16 * n} tokens in {secs:.3f}s → "
-            f"{16 * n / secs:.1f} tok/s, again {secs2:.3f}s with the same "
-            f"tokens; hit pages {hits1} then {st.hit_pages - hits1}, miss "
-            f"{st.miss_pages}, CoW {st.cow_copies}, peak pages "
-            f"{st.peak_pages_in_use}/{pool.usable_pages}; pool "
+            "slab_bytes": e.dense_cache_bytes(),
+            "page_gather_device_ms": step["graph"]["match_ms"],
+            "page_gather_share": (step["graph"]["match_ms"]
+                                  / step["graph"]["device_ms"])}
+        log(f"[paged] {be} {kv} pages: {n} requests, 4 serves; hit pages by "
+            f"serve {hits}, miss {st.miss_pages}, CoW {st.cow_copies}, peak "
+            f"pages {st.peak_pages_in_use}/{pool.usable_pages}; pool "
             f"{pool.bytes_total()} B vs contiguous slab "
-            f"{e.dense_cache_bytes()} B")
+            f"{e.dense_cache_bytes()} B; step (4 slots at 120, max_len "
+            f"{PAGED_MAX_LEN}): page_gather "
+            f"{step['graph']['match_ms']:.3f} ms of "
+            f"{step['graph']['device_ms']:.3f} device ms "
+            f"({n_l} launches, "
+            f"{1e3 * step['graph']['match_ms'] / n_l:.2f} us each)")
 
     # paged bf16 last-chunk logits against the contiguous engine's prefill
     contig = ServeEngine(model, cp, backend="codebook", max_len=PAGED_MAX_LEN,
@@ -1388,20 +1663,14 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     stats["prefill_logits"] = {"max_abs_diff": worst, "max_abs_logit": scale,
                                "argmax_agree": agree}
 
-    # step timings on a fresh pool: 4 slots at pos 120, 32 pages each
+    # the contiguous engine's step beside the paged ones, and a paged
+    # prefill chunk on a fresh pool
+    c_step = step_turns("[paged] contiguous codebook", contig,
+                        step_state(contig, 120), {"StoreSum": 7 * n_l})
     e = eng["codebook", "int8"]
     pool = model.init_paged_cache(N_PAGES, PAGE, torch.int8, device=dev)
     pt = torch.arange(1, N_PAGES, dtype=torch.int32,
                       device=dev).reshape(MAX_BATCH, -1)
-    cache = {**pool, "page_table": pt,
-             "pos": torch.full((MAX_BATCH,), 120, dtype=torch.int32,
-                               device=dev)}
-    last = np.zeros(MAX_BATCH, np.int64)
-    logits = e._decode(last, cache)[0]
-    if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
-        raise AssertionError("non-finite paged decode logits")
-    dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-    busy, top, pg_ms, _ = device_time(lambda: e._decode(last, cache))
     batch = {"tokens": torch.zeros((1, PAGE), dtype=torch.int64, device=dev),
              "start": SYSTEM_LEN, "length": PAGE, "page_row": pt[0],
              "write_pid": int(pt[0, SYSTEM_LEN // PAGE])}
@@ -1409,34 +1678,27 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
         pre = [timed(lambda: model.prefill_chunk(e.params, batch, pool,
                                                  e.bk))[1]
                for _ in range(6)][1:]
-    c_cache = model.init_cache(MAX_BATCH, PAGED_MAX_LEN, dtype=torch.bfloat16,
-                               device=dev)
-    c_cache["pos"][:] = 120
-    c_dec = [timed(lambda: contig._decode(last, c_cache))[1]
-             for _ in range(6)][1:]
-    c_busy, c_top, _, _ = device_time(lambda: contig._decode(last,
-                                                             c_cache))
     med = lambda xs: 1e3 * sorted(xs)[len(xs) // 2]           # noqa: E731
+    paged = stats["codebook_int8"]["graph"]["step"]
     stats["steps"] = {
-        "paged_int8_decode_ms": med(dec), "paged_int8_device_ms": busy or None,
-        "page_gather_device_ms": pg_ms or None,
-        "page_gather_share": pg_ms / busy if busy else None,
-        "paged_int8_top_kernels": top,
+        "paged_int8_decode_ms": paged["graph"]["mean_wall_ms"],
+        "paged_int8_decode_ms_eager": paged["eager"]["mean_wall_ms"],
+        "paged_int8_device_ms": paged["graph"]["device_ms"],
         "paged_prefill_chunk_ms": med(pre),
-        "contiguous_decode_ms": med(c_dec),
-        "contiguous_device_ms": c_busy or None,
-        "contiguous_top_kernels": c_top}
+        "contiguous_decode_ms": c_step["graph"]["mean_wall_ms"],
+        "contiguous_decode_ms_eager": c_step["eager"]["mean_wall_ms"],
+        "contiguous_device_ms": c_step["graph"]["device_ms"],
+        "contiguous_top_kernels": c_step["graph"]["top"]}
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[paged] codebook decode step, 4 slots at pos 120, max_len "
-        f"{PAGED_MAX_LEN}: paged int8 {med(dec):.2f} ms, device busy "
-        + (f"{busy:.2f} ms of which page_gather {pg_ms:.3f} ms "
-           f"({pg_ms / busy:.3f}; {n_l} launches, "
-           f"{1e3 * pg_ms / n_l:.2f} us each); top: "
-           + "; ".join(f"{k} {ms:.3f}ms×{n}" for k, ms, n in top)
-           if busy else "not measured (the profiler saw no device time)")
-        + f" | contiguous bf16 {med(c_dec):.2f} ms, device busy "
-        + (f"{c_busy:.2f} ms" if c_busy else "not measured")
-        + f" | paged prefill chunk 1×{PAGE} at start {SYSTEM_LEN}: "
+        f"{PAGED_MAX_LEN}, graph (eager): paged int8 "
+        f"{paged['graph']['mean_wall_ms']:.2f} "
+        f"({paged['eager']['mean_wall_ms']:.2f}) ms, device busy "
+        f"{paged['graph']['device_ms']:.2f} ms | contiguous bf16 "
+        f"{c_step['graph']['mean_wall_ms']:.2f} "
+        f"({c_step['eager']['mean_wall_ms']:.2f}) ms, device busy "
+        f"{c_step['graph']['device_ms']:.2f} ms, replayed logits bit-equal "
+        f"| paged prefill chunk 1×{PAGE} at start {SYSTEM_LEN}: "
         f"{med(pre):.2f} ms; peak memory {stats['peak_mem_gib']:.2f} GiB")
     return stats, launches
 
@@ -1563,37 +1825,33 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
                                page_size=PAGE, kv_dtype="int8",
                                max_len=PAGED_MAX_LEN, max_batch=MAX_BATCH,
                                device=dev)
-    launches = {}
+    launches, graphs = {}, {}
     for name, reqs in (("codebook", prompts[:8]), ("lut", prompts[:4]),
                        ("paged", chats[:8])):
         e = eng[name]
         be = e.backend
-        ops.reset_launch_counts()
-        f0 = e.n_forwards
-        out, secs = timed(lambda: e.serve(reqs, max_new=16))
-        counts, fwd = ops.launch_counts(), e.n_forwards - f0
         # codebook: w1, w3 and the activation in one gated launch a layer;
         # lut: the activation with its multiplier, one launch a layer
         gated = be == "codebook"
-        want = {"act_quant": 0 if gated else n_l * fwd,
-                "codebook_swiglu": n_l * fwd if gated else 0,
-                f"{be}_matmul": (5 if gated else 7) * n_l * fwd,
-                "page_gather": n_l * fwd if name == "paged" else 0}
-        if any(counts[k_] != v for k_, v in want.items()):
-            raise AssertionError(f"working point {name}: launches {counts} "
-                                 f"over {fwd} forwards, want {want}")
-        for seq in out:
-            if not all(0 <= t < cfg.vocab for t in seq):
-                raise AssertionError("token id out of range")
-        for k_, v in want.items():
-            launches[k_] = launches.get(k_, 0) + v
-        stats[f"{name}_serve_tok_s"] = 16 * len(reqs) / secs
-        log(f"[point] {name}: {len(reqs)} requests, {fwd} forwards, "
-            + ", ".join(f"{counts[k_]} {k_}" for k_ in want)
-            + f" (= {0 if gated else 1}, {1 if gated else 0}, "
-            f"{5 if gated else 7} × {n_l} × {fwd}); serve "
-            f"{16 * len(reqs)} tokens in {secs:.3f}s → "
-            f"{16 * len(reqs) / secs:.1f} tok/s")
+        want = {"act_quant": 0 if gated else n_l,
+                "codebook_swiglu": n_l if gated else 0,
+                f"{be}_matmul": (5 if gated else 7) * n_l,
+                "page_gather": n_l if name == "paged" else 0}
+        want = {k_: v for k_, v in want.items() if v}
+        by_name = {"page_gather": "page_gather", "act_quant": "act_quant",
+                   "codebook_swiglu": "StoreSwiglu",
+                   "codebook_matmul": "StoreSum", "lut_matmul": "lut_"}
+        act_kernel = "StoreSwiglu" if gated else "act_quant"
+        res, _ = graph_vs_eager(
+            f"[point] {name}", e, reqs, reqs[:4], want,
+            {by_name[k_]: v for k_, v in want.items()},
+            step_pos=120 if name == "paged" else 40, n_pages=N_PAGES,
+            match=act_kernel)
+        for k_ in want:
+            launches[k_] = launches.get(k_, 0) + res["launches"][k_]
+        graphs[name] = res
+        stats[f"{name}_serve_tok_s"] = res["serve_tok_s"]["graph"]
+        stats[f"{name}_serve_tok_s_eager"] = res["serve_tok_s"]["eager"]
     launches["kmeans_assign"] = cl_counts["kmeans_assign"]
 
     # prefill logits codebook vs dense, with every FFN input captured: in
@@ -1696,37 +1954,25 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
     for be in ("codebook", "lut"):
         e = eng[be]
         pre = [timed(lambda: e._prefill(t32, l32))[1] for _ in range(4)][1:]
-        cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
-        cache["pos"][:] = 40
-        last = np.zeros(4, np.int64)
-        dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-        # the activation's kernel: the gated launch (codebook), act_quant
-        # with its multiplier (lut)
-        act_kernel = "StoreSwiglu" if be == "codebook" else "act_quant"
-        busy, top, aq_ms, n_k = device_time(lambda: e._decode(last, cache),
-                                            match=act_kernel)
+        step = graphs[be]["step"]["graph"]
         st = {"prefill_ms": 1e3 * sorted(pre)[len(pre) // 2],
-              "decode_step_ms": 1e3 * sorted(dec)[len(dec) // 2],
-              "decode_device_ms": busy or None,
-              "act_kernel": act_kernel,
-              "act_kernel_device_ms": aq_ms or None,
-              "decode_kernels": n_k,
-              "decode_top_kernels": top}
-        st["decode_idle_share"] = (1 - busy / st["decode_step_ms"]
-                                   if busy else None)
+              **step_stats(graphs[be]),
+              "act_kernel": "StoreSwiglu" if be == "codebook" else "act_quant",
+              "act_kernel_device_ms": step["match_ms"],
+              "graph": graphs[be]}
         stats[be] = st
         b = base.get(be, {})
-        log(f"[point] {be}: prefill 1×32 {st['prefill_ms']:.2f} ms "
-            f"(phase 5, act_levels 0: {b.get('prefill_ms', 0):.2f}), decode "
-            f"step {st['decode_step_ms']:.2f} ms "
+        log(f"[point] {be}, graph route (phase 5, act_levels 0): prefill 1×32 "
+            f"{st['prefill_ms']:.2f} ms ({b.get('prefill_ms', 0):.2f}), "
+            f"decode step {st['decode_step_ms']:.2f} ms "
             f"({b.get('decode_step_ms', 0):.2f}), device busy "
-            + (f"{busy:.2f} ms ({b.get('decode_device_ms') or 0:.2f}), idle "
-               f"share {st['decode_idle_share']:.3f} "
-               f"({b.get('decode_idle_share') or 0:.3f}), {n_k} kernels "
-               f"({b.get('decode_kernels', 0)}), {act_kernel} "
-               f"{aq_ms:.3f} ms of it ({n_l} launches)"
-               if busy else "not measured")
-            + f"; serve {stats[f'{be}_serve_tok_s']:.1f} tok/s "
+            f"{st['decode_device_ms']:.2f} ms "
+            f"({b.get('decode_device_ms', 0):.2f}), idle share "
+            f"{st['decode_idle_share']:.3f} "
+            f"({b.get('decode_idle_share', 0):.3f}), {st['decode_kernels']} "
+            f"kernels ({b.get('decode_kernels', 0)}), {st['act_kernel']} "
+            f"{st['act_kernel_device_ms']:.3f} ms of it ({n_l} launches); "
+            f"serve {st['serve_tok_s']:.1f} tok/s "
             f"({b.get('serve_tok_s', 0):.1f})")
     stats["unfused_chain"] = unfused_step(dev, eng["codebook"], L)
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -1743,15 +1989,14 @@ def kv_quant_path(dev) -> tuple[dict, dict]:
     hd 128, d_ff 13440, vocab 92416, untied head, bf16), KVQ_LAYERS of its
     32 layers, compressed as ``launch/serve.py --compress`` does, served
     through the codebook backend with its int8 contiguous cache
-    (``kv_quant``): 8 requests over 4 slots, launches checked (7 × layers
-    + 1 codebook_matmul a forward); the cache's bytes against a bf16
-    cache's; the decode step (4 slots at 40) with each cache; the gap
-    between the two caches' decode logits over 8 steps fed the same
-    tokens.  Returns (stats, launches)."""
-    import numpy as np
+    (``kv_quant``): 8 requests over 4 slots on the graph route against the
+    eager route (``graph_vs_eager``), launches checked (7 × layers + 1
+    codebook_matmul a forward); the cache's bytes against a bf16 cache's;
+    the decode step (4 slots at 40) with each cache on both routes; the
+    gap between the two caches' decode logits over 8 eager forwards fed
+    the same tokens.  Returns (stats, launches)."""
     import torch
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.models.model_zoo import build
     from repro_torch.serving import ServeEngine
     full = configs.get("codeqwen1.5-7b")
@@ -1762,31 +2007,23 @@ def kv_quant_path(dev) -> tuple[dict, dict]:
     e8 = ServeEngine(model, cp, **kw)
     e16 = ServeEngine(build(cfg.replace(kv_quant=False)), cp, **kw)
     prompts = prompts_for(8, cfg.vocab)
-    ops.reset_launch_counts()
-    f0 = e8.n_forwards
-    out, secs = timed(lambda: e8.serve(prompts, max_new=16))
-    counts, fwd = ops.launch_counts(), e8.n_forwards - f0
     per_fwd = 7 * cfg.n_layers + 1
-    if counts["codebook_matmul"] != per_fwd * fwd or any(
-            counts[k] for k in counts if k != "codebook_matmul"):
-        raise AssertionError(f"[kvq] launches {counts} over {fwd} forwards, "
-                             f"want {per_fwd} codebook_matmul a forward")
-    for seq in out:
-        if not all(0 <= t < cfg.vocab for t in seq):
-            raise AssertionError("[kvq] token id out of range")
+    res, _ = graph_vs_eager("[kvq] codebook int8 cache", e8, prompts,
+                            prompts[:4], {"codebook_matmul": per_fwd},
+                            {"StoreSum": per_fwd}, step_pos=40)
+    step16 = step_turns("[kvq] codebook bf16 cache", e16,
+                        step_state(e16, 40), {"StoreSum": per_fwd})
     stats = {"config": f"{full.name} {cfg.n_layers} of {full.n_layers} "
                        "layers, full width",
-             "serve_tok_s": 16 * len(prompts) / secs,
+             "graph": res, "bf16_step": step16,
+             "serve_tok_s": res["serve_tok_s"]["graph"],
+             "serve_tok_s_eager": res["serve_tok_s"]["eager"],
              "cache_bytes_int8": e8.dense_cache_bytes(),
              "cache_bytes_bf16": e16.dense_cache_bytes()}
-    for name, e in (("int8", e8), ("bf16", e16)):
-        cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
-        cache["pos"][:] = 40
-        last = np.zeros(4, np.int64)
-        dec = [timed(lambda: e._decode(last, cache))[1] for _ in range(6)][1:]
-        busy, _, _, n_k = device_time(lambda: e._decode(last, cache))
-        stats[f"decode_step_ms_{name}"] = 1e3 * sorted(dec)[len(dec) // 2]
-        stats[f"decode_device_ms_{name}"] = busy or None
+    for name, step in (("int8", res["step"]), ("bf16", step16)):
+        for route, sfx in (("graph", ""), ("eager", "_eager")):
+            stats[f"decode_step_ms_{name}{sfx}"] = step[route]["mean_wall_ms"]
+            stats[f"decode_device_ms_{name}{sfx}"] = step[route]["device_ms"]
     # decode logits of the two caches from the same prefill, fed the int8
     # engine's greedy tokens
     toks, lens = e8._pad_prompts(prompts[:4])
@@ -1815,20 +2052,22 @@ def kv_quant_path(dev) -> tuple[dict, dict]:
                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     log(f"[kvq] {stats['config']} (cut from {full.n_layers} to "
         f"{cfg.n_layers} layers for time), codebook backend, int8 "
-        f"contiguous cache: {fwd} forwards, {counts['codebook_matmul']} "
-        f"codebook_matmul (= {per_fwd} × {fwd}); serve {16 * len(prompts)} "
-        f"tokens in {secs:.3f}s → {stats['serve_tok_s']:.1f} tok/s; cache "
+        f"contiguous cache: serve {stats['serve_tok_s']:.1f} tok/s on the "
+        f"graph route, {stats['serve_tok_s_eager']:.1f} eager; cache "
         f"{stats['cache_bytes_int8']} B against a bf16 cache's "
         f"{stats['cache_bytes_bf16']} B "
         f"({stats['cache_bytes_int8'] / stats['cache_bytes_bf16']:.4f}); "
-        f"decode step (4 slots at 40) int8 {stats['decode_step_ms_int8']:.2f}"
-        f" ms (device {stats['decode_device_ms_int8'] or 0:.3f}), bf16 "
-        f"{stats['decode_step_ms_bf16']:.2f} ms (device "
-        f"{stats['decode_device_ms_bf16'] or 0:.3f}); decode logits int8 vs "
+        f"decode step (4 slots at 40), graph (eager) int8 "
+        f"{stats['decode_step_ms_int8']:.2f} "
+        f"({stats['decode_step_ms_int8_eager']:.2f}) ms (device "
+        f"{stats['decode_device_ms_int8']:.3f}), bf16 "
+        f"{stats['decode_step_ms_bf16']:.2f} "
+        f"({stats['decode_step_ms_bf16_eager']:.2f}) ms (device "
+        f"{stats['decode_device_ms_bf16']:.3f}); decode logits int8 vs "
         f"bf16 cache over 8 steps: max |Δ| {max(gaps):.4e} (max |logit| "
         f"{scale:.4e}), argmax agree {agree}/{4 * len(gaps)}; peak memory "
         f"{stats['peak_mem_gib']:.2f} GiB")
-    launches = {"codebook_matmul": counts["codebook_matmul"]}
+    launches = {"codebook_matmul": res["launches"]["codebook_matmul"]}
     del e8, e16, model, cp
     return stats, launches
 
@@ -1838,8 +2077,10 @@ def unfused_step(dev, e, L) -> dict:
     gated launch, and with the FFN as the port ran it before that launch
     (two codebook_matmul, their casts, act_quant, a separate product: the
     formula swapped into ``layers.swiglu`` for this measurement only), in
-    turns (unfused, gated, gated, unfused): wall ms (median of 5 steps a
-    turn), device busy ms and kernels of a step."""
+    turns (unfused, gated, gated, unfused), on the eager route (the
+    forward alone, ``_decode``) and as a graph replay (one captured loop
+    state a formula, captured with its formula in place): wall ms (median
+    of 5 steps a turn), device busy ms and kernels of a step."""
     import numpy as np
     import torch
     gated = L.swiglu
@@ -1851,22 +2092,42 @@ def unfused_step(dev, e, L) -> dict:
     cache = e.model.init_cache(4, 128, dtype=torch.bfloat16, device=dev)
     cache["pos"][:] = 40
     last = np.zeros(4, np.int64)
-    res = {"gated": {"wall_ms": []}, "unfused": {"wall_ms": []}}
+    states = {name: step_state(e, 40) for name in ("gated", "unfused")}
+    saved = {name: {k: t.clone() for k, t in st.state().items()}
+             for name, st in states.items()}
+    res = {name: {"wall_ms": [], "graph_wall_ms": []}
+           for name in ("gated", "unfused")}
+    e._graphs = True
     try:
         for name in ("unfused", "gated", "gated", "unfused"):
             L.swiglu = unfused if name == "unfused" else gated
+            st = states[name]
+
+            def replay():
+                for k, t in st.state().items():
+                    t.copy_(saved[name][k])
+                e._step(st)                  # the first one captures
             dec = [timed(lambda: e._decode(last, cache))[1]
                    for _ in range(6)][1:]
             res[name]["wall_ms"].append(1e3 * sorted(dec)[len(dec) // 2])
+            replay()
+            dec = [timed(replay)[1] for _ in range(6)][1:]
+            res[name]["graph_wall_ms"].append(1e3 * sorted(dec)[len(dec) // 2])
             if "device_ms" not in res[name]:
-                busy, _, _, n_k = device_time(lambda: e._decode(last, cache))
-                res[name].update(device_ms=busy or None, kernels=n_k)
+                busy, _, _, n_k, _ = device_time(
+                    lambda: e._decode(last, cache))
+                g_busy, _, _, g_k, _ = device_time(replay)
+                res[name].update(device_ms=busy, kernels=n_k,
+                                 graph_device_ms=g_busy, graph_kernels=g_k)
     finally:
         L.swiglu = gated
     log("[point] codebook decode step, gated launch against the unfused "
         "chain, in turns (unfused, gated, gated, unfused): " + "; ".join(
-            f"{k} wall {', '.join(f'{w:.2f}' for w in r['wall_ms'])} ms, "
-            f"device busy {r['device_ms'] or 0:.3f} ms, {r['kernels']} "
+            f"{k} eager wall {', '.join(f'{w:.2f}' for w in r['wall_ms'])} "
+            f"ms, device busy {r['device_ms']:.3f} ms, {r['kernels']} "
+            f"kernels; replayed wall "
+            f"{', '.join(f'{w:.2f}' for w in r['graph_wall_ms'])} ms, device "
+            f"busy {r['graph_device_ms']:.3f} ms, {r['graph_kernels']} "
             "kernels" for k, r in res.items()))
     return res
 

@@ -13,8 +13,9 @@ caller to what the route takes.  Their constants mirror those of
 tile meet in the same launch: in one thread block cluster (codebook, at most
 8 splits), or through an arrival counter per tile (lut,
 ``csrc/common.cuh``); lut's counters and accumulator are ``scratch``:
-allocated zeroed once per device, kept, and left zeroed by every launch, so
-launches that share them run in stream order.
+allocated zeroed once per device, kept (never freed, for the CUDA graphs
+that hold their addresses), and left zeroed by every launch, so launches
+that share them run in stream order.
 """
 
 from __future__ import annotations
@@ -223,18 +224,26 @@ def check_plan(plan: Plan, K: int, takes: dict, max_splits: int) -> None:
                          f"{max_splits} splits of whole stages")
 
 
-_SCRATCH: dict = {}
+_SCRATCH: dict = {}              # (tag, device) -> the buffer handed out now
+_HANDED: list = []               # every buffer ever handed out
 
 
 def scratch(tag: str, device, numel: int, dtype) -> torch.Tensor:
     """A zeroed tensor of at least ``numel`` elements, kept per device and
-    tag.  Kernels leave it zeroed; it is reallocated only to grow."""
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    buf = _SCRATCH.get((tag, idx))
+    tag.  Kernels leave it zeroed; it is replaced only to grow.
+
+    A buffer once handed out is never freed: a CUDA graph captured on it
+    keeps its address but no reference to it, so a buffer outgrown by a
+    later, larger call (a prefill after a captured decode step) must stay
+    allocated, and zeroed, for the graph's replays."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    buf = _SCRATCH.get((tag, device))
     if buf is None or buf.numel() < numel:
-        buf = torch.zeros(max(numel, 1024), dtype=dtype,
-                          device=torch.device("cuda", idx))
-        _SCRATCH[(tag, idx)] = buf
+        buf = torch.zeros(max(numel, 1024), dtype=dtype, device=device)
+        _SCRATCH[(tag, device)] = buf
+        _HANDED.append(buf)
     return buf
 
 

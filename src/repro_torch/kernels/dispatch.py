@@ -18,6 +18,7 @@ value that the engine holds and passes down to every ``dense`` call.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -147,11 +148,19 @@ def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
     return y.reshape(*lead, -1).to(x.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _grid_step(spec: LutSpec, device: torch.device) -> torch.Tensor:
+    """Δa as an f32 tensor on ``device``, made once per spec and device:
+    a call then copies no scalar to the card (a copy that a stream being
+    captured into a CUDA graph refuses)."""
+    return torch.tensor(spec.da, dtype=torch.float32, device=device)
+
+
 def lut_acc(x2: torch.Tensor, w_idx: torch.Tensor, codebook: torch.Tensor,
             spec: LutSpec, table: torch.Tensor | None = None) -> torch.Tensor:
     """The §4 integer accumulator: snap activations to the level grid
     (half-to-even), gather M[a_idx·C + w_idx], sum in int32 (no decode)."""
-    da = torch.tensor(spec.da, dtype=torch.float32, device=x2.device)
+    da = _grid_step(spec, x2.device)
     a_idx = torch.clamp(torch.round((x2.to(torch.float32) - spec.a_min) / da),
                         0, spec.levels - 1).to(torch.int32)
     if table is None:

@@ -5,10 +5,19 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
   prompt lengths are bucketed to powers of two (at least 8), logits come
   from each row's last real position, and the K/V planes are padded to
   ``max_len``.
-* **Decode** is a Python loop over ``decode_step`` (the reference's
-  ``lax.while_loop``).  Per-request stop lengths retire rows in place;
-  retired rows keep decoding into their own clamped cache slot until the
-  loop exits.
+* **Decode** is the reference's jitted ``_loop_fn`` (a ``lax.while_loop``)
+  as a Python loop over one step a token.  The loop's carry (last token,
+  active flags, tokens generated, stop lengths, the out buffer, positions,
+  the page table and the cache) lives in static device buffers
+  (``_Slots``), one set per batch shape and cache kind.  On the card each
+  step is one CUDA graph replay, captured once per set: at temperature 0
+  the graph holds the forward, the argmax and the bookkeeping; above it
+  the forward only, and sampling and bookkeeping follow the replay.  A
+  step then reads one small tensor back (the step's ids, the active flags
+  and the counts), and the host copies nothing to the card; host writes
+  happen at admission and harvest.  On the CPU the same step runs
+  eagerly.  Per-request stop lengths retire rows in place; retired rows
+  keep decoding into their own clamped cache slot until the loop exits.
 * **Continuous batching** (``serve``): the batch is a pool of ``max_batch``
   slots.  Each request prefills alone and is spliced into a free slot at its
   own position offset; the loop exits when some request finishes, the slot
@@ -78,6 +87,83 @@ def _index_form_stats(params):
     return fan_in > 0, fan_in, book
 
 
+class _Slots:
+    """The decode loop's carry for one batch shape and cache kind, in static
+    device buffers (the state the reference's ``_loop_fn`` threads through
+    its ``while_loop``): a CUDA graph captured on them replays one step.
+
+    ``cache`` holds the K/V planes (contiguous) or the page pool with the
+    slots' ``page_table``, and ``pos``; ``last`` (B,) the last token,
+    ``active`` (B,) the live slots, ``n_gen`` (B,) tokens generated,
+    ``stops`` (B,) stop lengths, ``out`` (B, width) the tokens, ``cap``
+    the out column a step writes at most (the call's cap − 1, a tensor so
+    that no cap captures anew).  ``report`` (3, B) is what a step reads
+    back: the step's ids, the active flags and ``n_gen``; ``h_active``
+    and ``h_n_gen`` are its host copies.  ``graph`` is (CUDAGraph, its
+    logits) once captured; ``logits`` the last step's.
+    """
+
+    def __init__(self, cache: dict, width: int):
+        pos = cache["pos"]
+        B, dev = pos.shape[0], pos.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.cache = cache
+        self.last = torch.zeros((B,), **i64)
+        self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
+        self.n_gen = torch.zeros((B,), **i64)
+        self.stops = torch.ones((B,), **i64)
+        self.out = torch.zeros((B, width), **i64)
+        self.cap = torch.full((), width - 1, **i64)
+        self.rows = torch.arange(B, device=dev)
+        self.report = torch.zeros((3, B), **i64)
+        self.h_active = np.zeros((B,), bool)
+        self.h_n_gen = np.zeros((B,), np.int64)
+        self.graph = None
+        self.logits = None
+
+    def state(self) -> dict:
+        """The tensors a step reads and writes besides the K/V planes."""
+        return {"last": self.last, "active": self.active,
+                "n_gen": self.n_gen, "stops": self.stops, "out": self.out,
+                "cap": self.cap, "pos": self.cache["pos"]}
+
+    def reset(self) -> None:
+        """Every slot empty, at position 0 (the page table all trash)."""
+        for t in self.state().values():
+            t.zero_()
+        self.stops.fill_(1)
+        if "page_table" in self.cache:
+            self.cache["page_table"].zero_()
+        self.h_active[:] = False
+        self.h_n_gen[:] = 0
+
+    def start(self, first: torch.Tensor, stops) -> None:
+        """Every slot starts a request at once (``generate``): first
+        tokens ``first`` (B,) on the device, stop lengths ``stops`` (B,)
+        host ints.  Positions are the cache's."""
+        stops = np.asarray(stops, np.int64)
+        self.last.copy_(first)
+        self.out.zero_()
+        self.out[:, 0] = first
+        self.n_gen.fill_(1)
+        self.stops.copy_(torch.from_numpy(stops))
+        self.active.copy_(torch.from_numpy(stops > 1))
+        self.h_active = stops > 1
+        self.h_n_gen = np.ones_like(stops)
+
+    def admit(self, b: int, first: int, stop: int) -> None:
+        """Slot ``b`` starts a request whose first token is ``first``; the
+        prefill sample is token #1, so a stop of 1 is done on arrival."""
+        self.last[b] = first
+        self.active[b] = stop > 1
+        self.n_gen[b] = 1
+        self.stops[b] = stop
+        self.out[b] = 0
+        self.out[b, 0] = first
+        self.h_active[b] = stop > 1
+        self.h_n_gen[b] = 1
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Continuous-batching inference engine over one model + param set.
@@ -100,7 +186,13 @@ class ServeEngine:
     device:      where the engine runs; None = the GPU (raises without one).
     seed:        seed of the sampling generator (temperature > 0).
 
-    ``n_forwards`` counts model forwards (prefill calls + decode steps).
+    ``n_forwards`` counts model forwards run (prefill calls + decode
+    steps, replayed or eager); ``n_captures`` the decode steps captured
+    into a CUDA graph and ``n_replays`` the steps run by replay, so that
+    the kernels' wrappers are called for ``n_forwards − n_replays +
+    n_captures`` forwards.  On the card decode takes the graph route; the
+    private ``_graphs`` switch turns it off (the eager route, for holding
+    one against the other).
     """
 
     model: Model
@@ -155,8 +247,11 @@ class ServeEngine:
                              else torch.bfloat16)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
-        self.n_forwards = 0
+        self.n_forwards = self.n_captures = self.n_replays = 0
         self._pool: PagePool | None = None
+        self._slot_sets: dict = {}
+        self._graphs = self.device.type == "cuda"
+        self._graph_pool = None
 
     @property
     def lut_spec(self):
@@ -171,9 +266,11 @@ class ServeEngine:
                                                 "lengths": lengths}, self.bk)
 
     @torch.no_grad()
-    def _decode(self, last: np.ndarray, cache):
-        self.n_forwards += 1
-        tokens = torch.from_numpy(last).to(self.device)[:, None]
+    def _decode(self, last, cache):
+        """The model's decode forward on ``cache`` for tokens ``last`` (B,):
+        a device tensor (the loop's static ``last``) or host ids, copied
+        to the card."""
+        tokens = torch.as_tensor(last, device=self.device)[:, None]
         return self.model.decode(self.params, tokens, cache, self.bk)
 
     @torch.no_grad()
@@ -195,42 +292,126 @@ class ServeEngine:
             return torch.multinomial(probs, 1, generator=self._gen)[:, 0]
         return torch.argmax(lg, dim=-1)
 
-    def _grow(self, cache):
-        """Pad prefill-emitted K/V planes (S = prompt bucket) to max_len."""
-        kv = {}
-        for name, plane in cache["kv"].items():
-            L, B, S = plane.shape[:3]
-            full = plane.new_zeros((L, B, self.max_len) + plane.shape[3:])
-            full[:, :, :S] = plane
-            kv[name] = full
-        return {**cache, "kv": kv}
+    # --- the decode loop ---------------------------------------------------
 
-    def _decode_loop(self, cache, last, active, n_gen, stops, out, *,
-                     stop_on_event: bool):
-        """One iteration == one token for every slot.
+    def _slots(self, batch: int, paged: bool = False) -> _Slots:
+        """The engine's static loop state for ``batch`` slots on the
+        contiguous cache (``max_len`` long) or the page pool, made once."""
+        key = (batch, paged)
+        st = self._slot_sets.get(key)
+        if st is None:
+            if paged:
+                pool = self.pool
+                cache = {**pool.cache,
+                         "page_table": torch.zeros(
+                             (batch, pool.pages_per_slot), dtype=torch.int32,
+                             device=self.device),
+                         "pos": torch.zeros((batch,), dtype=torch.int32,
+                                            device=self.device)}
+            else:
+                cache = self.model.init_cache(batch, self.max_len,
+                                              dtype=self._cache_dtype,
+                                              device=self.device)
+            st = self._slot_sets[key] = _Slots(cache, self.max_len)
+        return st
 
-        ``last``/``active``/``n_gen``/``stops``/``out`` are host numpy
-        arrays updated in place; the sampled ids are the one device→host
-        copy per step.  Exits when every slot is retired, the out buffer
-        is full, or (stop_on_event) some slot hits its stop length.
-        Returns the cache.
+    def _advance(self, st: _Slots, nxt: torch.Tensor) -> None:
+        """The body of ``_loop_fn`` after the forward, on ``st`` in place:
+        the sampled ids ``nxt`` (B,) enter the active slots and the out
+        buffer, counts grow, slots at their stop retire, and the report
+        takes the ids, the active flags and the counts."""
+        nxt = torch.where(st.active, nxt, st.last)
+        col = torch.minimum(torch.clamp(st.n_gen, min=0), st.cap)
+        st.out[st.rows, col] = torch.where(st.active, nxt, st.out[st.rows, col])
+        st.last.copy_(nxt)
+        st.n_gen += st.active
+        st.active &= st.n_gen < st.stops
+        st.report[0].copy_(nxt)
+        st.report[1].copy_(st.active)
+        st.report[2].copy_(st.n_gen)
+
+    def _forward(self, st: _Slots) -> torch.Tensor:
+        """What a graph of ``st`` holds: the decode forward on the static
+        cache, ``pos + 1`` copied back into the static ``pos``, and at
+        temperature 0 the argmax and the bookkeeping.  Returns logits."""
+        logits, cache = self._decode(st.last, st.cache)
+        st.cache["pos"].copy_(cache["pos"])
+        if self.temperature == 0:
+            self._advance(st, self._sample(logits))
+        return logits
+
+    def _capture(self, st: _Slots) -> torch.Tensor:
+        """The first step of ``st`` on the graph route: run eagerly on a
+        side stream (the warm-up: it builds and loads the kernels, opts
+        them into their shared memory, and makes the cached constants,
+        plans and scratch a capture must not make), then captured into
+        the engine's graph memory pool.  Returns the eager step's logits.
+        A capture that fails raises."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            logits = self._forward(st)
+        cur.wait_stream(side)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._graph_pool):
+            st.graph = (graph, self._forward(st))
+        self.n_captures += 1
+        return logits
+
+    @torch.no_grad()
+    def _step(self, st: _Slots) -> None:
+        """One decode step for every slot of ``st``: one graph replay on
+        the card (``_capture`` the first time), the eager ``_forward``
+        where ``_graphs`` is off; then, at temperature > 0, the sample and
+        the bookkeeping; then the one read of the report, into
+        ``st.h_active`` and ``st.h_n_gen``."""
+        self.n_forwards += 1
+        if not self._graphs:
+            st.logits = self._forward(st)
+        elif st.graph is None:
+            st.logits = self._capture(st)
+        else:
+            st.graph[0].replay()
+            st.logits = st.graph[1]
+            self.n_replays += 1
+        if self.temperature > 0:
+            self._advance(st, self._sample(st.logits))
+        report = st.report.to("cpu", copy=True).numpy()
+        st.h_active = report[1].astype(bool)
+        st.h_n_gen = report[2]
+
+    def _decode_loop(self, st: _Slots, cap: int, *, stop_on_event: bool):
+        """One iteration == one token for every slot of ``st``.
+
+        Exits when every slot is retired, ``cap`` steps are done, or
+        (stop_on_event) some slot hits its stop length.  Writes at most
+        column ``cap − 1`` of the out buffer, as the reference's buffer
+        of width ``cap``.
         """
-        B, cap = out.shape
-        rows = np.arange(B)
+        st.cap.fill_(cap - 1)
         steps = 0
-        while active.any() and steps < cap:
-            logits, cache = self._decode(last, cache)
-            nxt = self._sample(logits).cpu().numpy()
-            last[:] = np.where(active, nxt, last)
-            col = np.clip(n_gen, 0, cap - 1)
-            out[rows, col] = np.where(active, last, out[rows, col])
-            n_gen += active
-            newly = active & (n_gen >= stops)
-            active &= ~newly
+        while st.h_active.any() and steps < cap:
+            before = st.h_active
+            self._step(st)
             steps += 1
-            if stop_on_event and newly.any():
+            if stop_on_event and (before & ~st.h_active).any():
                 break
-        return cache
+
+    def _grow(self, cache):
+        """Copy prefill-emitted K/V planes (S = prompt bucket) into the
+        static cache of their batch size, zeros beyond S, with their
+        positions; returns that cache."""
+        st = self._slots(cache["pos"].shape[0])
+        for name, plane in cache["kv"].items():
+            dst = st.cache["kv"][name]
+            S = plane.shape[2]
+            dst[:, :, :S] = plane
+            dst[:, :, S:] = 0
+        st.cache["pos"].copy_(cache["pos"])
+        return st.cache
 
     def _splice(self, cache, c1, slot: int):
         """Copy a batch-1 prefill cache into slot ``slot`` (in place)."""
@@ -321,15 +502,10 @@ class ServeEngine:
                     f"request (prompt {len(p)} + {s} new) can never fit the "
                     f"{pool.usable_pages}-page pool")
         n = len(prompts)
-        B, cap, P = self.max_batch, max(stops_req), pool.pages_per_slot
-
-        pt_np = np.zeros((B, P), np.int32)            # all-trash rows
-        pos = torch.zeros((B,), dtype=torch.int32, device=self.device)
-        last = np.zeros((B,), np.int64)
-        active = np.zeros((B,), bool)
-        n_gen = np.zeros((B,), np.int64)
-        stops = np.ones((B,), np.int64)
-        out = np.zeros((B, cap), np.int64)
+        B, cap = self.max_batch, max(stops_req)
+        st = self._slots(B, paged=True)
+        st.reset()                          # all-trash page-table rows
+        pt, pos = st.cache["page_table"], st.cache["pos"]
 
         queue = deque(range(n))
         slot_rid: list[int | None] = [None] * B
@@ -346,32 +522,23 @@ class ServeEngine:
                 if adm is None:
                     break
                 queue.popleft()
-                pt_np[b, :len(adm.pids)] = adm.pids
+                pt[b, :len(adm.pids)] = torch.tensor(adm.pids,
+                                                     dtype=torch.int32)
                 pos[b] = len(prompts[rid])
-                last[b] = first
-                active[b] = stops_req[rid] > 1
-                n_gen[b] = 1
-                stops[b] = stops_req[rid]
-                out[b] = 0
-                out[b, 0] = first
+                st.admit(b, first, stops_req[rid])
                 slot_rid[b], slot_adm[b] = rid, adm
             if queue and all(r is None for r in slot_rid):
                 raise RuntimeError(
                     "paged admission deadlock: no request in flight and the "
                     "pool cannot admit the next one")
-            cache = {**pool.cache,
-                     "page_table": torch.from_numpy(pt_np).to(self.device),
-                     "pos": pos}
-            cache = self._decode_loop(cache, last, active, n_gen, stops, out,
-                                      stop_on_event=True)
-            pos = cache["pos"]
+            self._decode_loop(st, cap, stop_on_event=True)
             for b in range(B):            # harvest retired slots
                 rid = slot_rid[b]
-                if rid is not None and not active[b]:
+                if rid is not None and not st.h_active[b]:
                     results[rid] = (list(prompts[rid])
-                                    + out[b, :n_gen[b]].tolist())
+                                    + st.out[b, :st.h_n_gen[b]].tolist())
                     pool.retire(slot_adm[b])
-                    pt_np[b] = 0                      # retired → trash page
+                    pt[b] = 0                         # retired → trash page
                     pos[b] = 0
                     slot_rid[b], slot_adm[b] = None, None
         return [results[i] for i in range(n)]
@@ -387,17 +554,12 @@ class ServeEngine:
         if int(lengths.max()) + max_new > self.max_len:
             raise ValueError("prompt + max_new exceeds max_len")
         logits, cache = self._prefill(toks, lengths)
-        cache = self._grow(cache)
-        first = self._sample(logits).cpu().numpy()
-        stops = np.full((B,), max_new, np.int64)
-        n_gen = np.ones((B,), np.int64)
-        active = n_gen < stops
-        out = np.zeros((B, max_new), np.int64)
-        out[:, 0] = first
-        self._decode_loop(cache, first, active, n_gen, stops, out,
-                          stop_on_event=False)
-        return [list(p) + out[i, :max_new].tolist()
-                for i, p in enumerate(prompts)]
+        self._grow(cache)
+        st = self._slots(B)
+        st.start(self._sample(logits), [max_new] * B)
+        self._decode_loop(st, max_new, stop_on_event=False)
+        return [list(p) + row
+                for p, row in zip(prompts, st.out[:, :max_new].tolist())]
 
     def serve(self, prompts: list[list[int]], max_new=32) -> list[list[int]]:
         """Continuous batching over a queue of requests.
@@ -420,13 +582,10 @@ class ServeEngine:
         if self.paged:
             return self._serve_paged(prompts, stops_req)
         B, cap = self.max_batch, max(stops_req)
-        cache = self.model.init_cache(B, self.max_len, dtype=self._cache_dtype,
-                                      device=self.device)
-        last = np.zeros((B,), np.int64)
-        active = np.zeros((B,), bool)
-        n_gen = np.zeros((B,), np.int64)
-        stops = np.ones((B,), np.int64)
-        out = np.zeros((B, cap), np.int64)
+        st = self._slots(B)
+        st.reset()
+        for plane in st.cache["kv"].values():     # a fresh cache, as the
+            plane.zero_()                          # reference's init_cache
 
         queue = deque(range(n))
         slot_rid: list[int | None] = [None] * B
@@ -439,22 +598,14 @@ class ServeEngine:
                 toks1, len1 = self._pad_prompts([prompts[rid]])
                 lg1, c1 = self._prefill(toks1, len1)
                 first = int(self._sample(lg1)[0])
-                cache = self._splice(cache, c1, b)
-                last[b] = first
-                # the prefill sample is token #1: a stop of 1 is done on
-                # arrival
-                active[b] = stops_req[rid] > 1
-                n_gen[b] = 1
-                stops[b] = stops_req[rid]
-                out[b] = 0
-                out[b, 0] = first
+                self._splice(st.cache, c1, b)
+                st.admit(b, first, stops_req[rid])
                 slot_rid[b] = rid
-            cache = self._decode_loop(cache, last, active, n_gen, stops, out,
-                                      stop_on_event=True)
+            self._decode_loop(st, cap, stop_on_event=True)
             for b in range(B):            # harvest retired slots
                 rid = slot_rid[b]
-                if rid is not None and not active[b]:
+                if rid is not None and not st.h_active[b]:
                     results[rid] = (list(prompts[rid])
-                                    + out[b, :n_gen[b]].tolist())
+                                    + st.out[b, :st.h_n_gen[b]].tolist())
                     slot_rid[b] = None
         return [results[i] for i in range(n)]
