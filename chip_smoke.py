@@ -63,6 +63,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    layer) and matmul launches per forward, prefix-cache hits, the pool's
    refcounts after every serve, and the paged bf16 prefill logits are
    held against the contiguous engine's;
+   [spec], on phase 5's model: speculative decoding on
+   the contiguous cache.  The reduced 2-layer qwen3 (f32)
+   with n-gram, lut and dense drafts: tokens and the four acceptance
+   counters on the card equal the CPU's, and equal the baseline serve's
+   tokens.  Then phase 5's model, k = 4 (a
+   verify forward at M = 20), 4 slots: codebook target with the n-gram
+   draft (8 requests, 4 with repetitive prompts, 16 new tokens), with a
+   lut draft (4 requests, 8 new tokens), and lut target with the n-gram
+   draft (4, 8), each served in turns (eager, graph, graph, eager) with
+   tokens and counters equal, launches counted per target and per draft
+   forward whose wrappers ran, one round replayed against eager (verify
+   logits bit-equal, wall ms of a round on each route), acceptance rate,
+   tokens a round, round ms against the decode step's, and tok/s against
+   a baseline engine's; spec tokens compared with the baseline's: where
+   they part, the verify row chose the spec token, and the baseline's
+   gap to it is within twice the largest difference of verify and decode
+   rows at agreeing positions, and the baseline row's top-2 gap at most
+   1 % of its logit range; memory reserved printed after each engine,
+   every engine freed before the next; no profiler reading gates the
+   phase (the [kvq] engine's spec serve is in [kvq]);
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
@@ -81,7 +101,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``launch/serve.py --compress`` does, served through the codebook
    backend with its int8 contiguous cache on both routes as in phase 5:
    launches, cache bytes against a bf16 cache's, decode step with each,
-   and the gap between their decode logits;
+   and the gap between their decode logits; and the [spec] phase's
+   n-gram draft on this model's int8 cache, as above;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -205,9 +226,10 @@ def path_rows(prompts, paged_prompts, max_batch: int) -> list[int]:
     each prompt's bucket (the paged prompts' too: the contiguous engine
     they are compared with serves them), generate's and the logits check's
     prefill of the first four prompts, the timed 1 × 32 prefill, a paged
-    prefill chunk of ``PAGE`` rows, and a single row."""
+    prefill chunk of ``PAGE`` rows, a single row, and a speculative verify
+    over ``max_batch`` slots (k + 1 = SPEC_K + 1 rows each)."""
     from repro_torch.serving.engine import _bucket
-    rows = {1, max_batch, 32, PAGE,
+    rows = {1, max_batch, 32, PAGE, max_batch * (SPEC_K + 1),
             4 * _bucket(max(len(p) for p in prompts[:4]))}
     return sorted(rows | {_bucket(len(p)) for p in prompts + paged_prompts})
 
@@ -1011,6 +1033,22 @@ def _to_f32(tree):
 COPIES = ("Memcpy", "Memset", "memcpy", "memset")
 
 
+# A profiler session here drops a prefix of its device records, the longer
+# the process has run the more (tools/profiler_after_spec.py on an H100:
+# 8 of a probe's 16 events after 100 s asleep, none lost where the session
+# first launched 512 throwaway kernels; not tied to spec rounds, CUDA
+# graphs or CUPTI's teardown).  So each session first launches WARM_LAUNCHES
+# one-cycle sleep kernels, which the readings leave out by name.
+WARM_LAUNCHES = 1024
+WARM_KERNEL = "spin_kernel"
+
+
+def warm_session() -> None:
+    import torch
+    for _ in range(WARM_LAUNCHES):
+        torch.cuda._sleep(1)
+
+
 def device_time(fn, top: int = 5, match: str = "page_gather", count=()):
     """Device time of one call from torch.profiler's CUDA activity:
     (busy ms summed over kernels and copies, [(name, ms, count)] of the
@@ -1026,6 +1064,7 @@ def device_time(fn, top: int = 5, match: str = "page_gather", count=()):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        warm_session()
         time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
@@ -1033,7 +1072,8 @@ def device_time(fn, top: int = 5, match: str = "page_gather", count=()):
     # device-side events only: a CPU op (aten::index) also carries the
     # device time of the kernel it launched, which would count it twice
     evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total
+           and WARM_KERNEL not in e.key]
     evs.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in evs) / 1e3
     matched = sum(e.self_device_time_total for e in evs
@@ -1051,10 +1091,11 @@ def kernel_ms(fn, match: str, reps: int = 3) -> float:
     (the k-means forms read their overflow flag), which ``time_ms`` cannot
     queue behind a device-side sleep.
 
-    One run on an H100 got a session here that held no kmeans kernel at
-    all.  So the session records host activity as ``device_time``'s does,
-    leaves idle margins of 50 ms before and after the calls, and is made
-    again, up to three times in all, when it holds no kernel of
+    Runs on an H100 got sessions here that held no kmeans kernel at all
+    (the dropped prefix ``warm_session`` absorbs).  So the session records
+    host activity as ``device_time``'s does, first launches the warm-up
+    kernels, leaves idle margins of 50 ms before and after the calls, and
+    is made again, up to three times in all, when it holds no kernel of
     ``match``; each empty session is logged."""
     import torch
     from torch.autograd import DeviceType
@@ -1064,6 +1105,7 @@ def kernel_ms(fn, match: str, reps: int = 3) -> float:
     for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            warm_session()
             time.sleep(0.05)
             for _ in range(reps):
                 fn()
@@ -1703,6 +1745,453 @@ def paged_path(dev, cfg, model, cp, chats) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [spec]: speculative decoding on the contiguous cache ---------------------
+
+SPEC_K = 4                       # draft tokens a round: verify M = 4 × 5 = 20
+
+
+def spec_prompts(prompts, vocab: int):
+    """The [spec] phase's 8 requests: the main path's first 4 random
+    prompts and 4 repetitive ones (a phrase of 3 to 6 tokens repeated to
+    24 to 40 tokens, as templated text and code give), so that the n-gram
+    draft meets both."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    reps = []
+    for n, width in zip((24, 30, 36, 40), (3, 4, 5, 6)):
+        phrase = rng.integers(0, vocab, width).tolist()
+        reps.append((phrase * n)[:n])
+    return [p for pair in zip(prompts[:4], reps) for p in pair]
+
+
+def spec_counts(s) -> tuple:
+    return (s.rounds, s.proposed, s.accepted, s.emitted)
+
+
+def draft_forwards(e) -> int:
+    """Draft forwards of engine ``e`` whose kernel wrappers ran (as
+    ``called_forwards``)."""
+    return e.n_draft_forwards - e.n_draft_replays + e.n_draft_captures
+
+
+def spec_reduced(dev):
+    """The reduced check: the 2-layer qwen3 (f32, |W| = 256) of phase 4
+    served with speculative rounds (k = 3) on the card and on the CPU:
+    n-gram on codebook and lut, a lut draft (|A| 512) for a codebook
+    target, a dense draft for a dense target; greedy tokens and the four
+    counters equal the CPU's, and on the card spec tokens equal the
+    baseline serve's."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, init_state)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine, SpecConfig, \
+        to_codebook_params
+    cfg = configs.get("qwen3-1.7b").reduced().replace(n_layers=2)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    wq = WeightQuantConfig(num_weights=256)
+    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    cp = to_codebook_params(pq, wq, st, min_size=1024)
+    trees = {"cpu": {"dense": params, "index": cp},
+             "card": {"dense": _to(params, dev), "index": _to(cp, dev)}}
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8],
+               [7, 8, 9] * 5, [1, 2, 3, 4, 5, 6, 7]]
+    stops = [8, 3, 12, 1, 10, 6]
+    cases = (("codebook", "ngram"), ("lut", "ngram"), ("codebook", "lut"),
+             ("dense", "dense"))
+    lines = []
+    for be, draft in cases:
+        which = "dense" if be == "dense" else "index"
+        out = {}
+        for where, d in (("cpu", "cpu"), ("card", dev)):
+            tp = trees[where]
+            sp = SpecConfig(draft="ngram", k=3) if draft == "ngram" else \
+                SpecConfig(draft="model", k=3, draft_backend=draft,
+                           lut_levels=512,
+                           draft_params=tp["dense" if draft == "dense"
+                                           else "index"])
+            e = ServeEngine(model, tp[which], max_len=64, max_batch=2,
+                            backend=be, device=d, spec=sp)
+            out[where] = (e.serve(prompts, max_new=stops),
+                          spec_counts(e.spec_stats))
+        base = ServeEngine(model, trees["card"][which], max_len=64,
+                           max_batch=2, backend=be, device=dev).serve(
+            prompts, max_new=stops)
+        if out["card"] != out["cpu"] or out["card"][0] != base:
+            raise AssertionError(
+                f"[spec] reduced {be} target, {draft} draft: card "
+                f"{out['card']} against CPU {out['cpu']}; baseline on the "
+                f"card {base}")
+        lines.append(f"{be}+{draft} {out['card'][1]}")
+    log("[spec] reduced 2-layer qwen3 (f32), k = 3, 6 requests over 2 "
+        "slots: tokens and counters (rounds, proposed, accepted, emitted) "
+        "on the card equal the CPU's, and spec tokens equal the baseline "
+        "serve's on the card: " + "; ".join(lines))
+
+
+def baseline_rows(e, reqs, max_new: int):
+    """Two baseline serves of ``reqs`` by engine ``e`` (no spec) on the
+    graph route.  The first (which captures, if the engine has no graph
+    at this batch yet) records, for every decode step and live slot, its
+    logit row (a replay's logits are the eager step's, bit for bit); the
+    second is timed, and its tokens must equal the first's.  Returns
+    (tokens, {(request, token index): f32 logit row on the host}, tok/s).
+    Admission fills slots in request order, so each admitted slot's
+    request is the next in the queue."""
+    import numpy as np
+    V = e.model.cfg.vocab
+    st = e._slots(e.max_batch)
+    nxt, slot_rid, rec = [0], {}, {}
+    admit, step = st.admit, e._step
+
+    def admit_rec(b, first, stop):
+        slot_rid[b] = nxt[0]
+        nxt[0] += 1
+        admit(b, first, stop)
+
+    def step_rec(s):
+        live, n_before = s.h_active.copy(), s.h_n_gen.copy()
+        step(s)
+        lg = s.logits[:, -1, :V].float().cpu()
+        for b in np.flatnonzero(live):
+            rec[slot_rid[b], int(n_before[b])] = lg[b]
+
+    st.admit, e._step = admit_rec, step_rec
+    e._graphs = True
+    try:
+        toks = e.serve(reqs, max_new=max_new)
+    finally:
+        del st.admit, e._step
+    again, secs = timed(lambda: e.serve(reqs, max_new=max_new))
+    if again != toks:
+        raise AssertionError("baseline: the second graph serve's tokens "
+                             "differ from the first's")
+    return toks, rec, max_new * len(reqs) / secs
+
+
+def spec_rows(e, reqs, max_new: int):
+    """One spec serve of ``reqs`` by engine ``e`` on the route ``e`` is
+    set to, recording the verify logit row behind each emitted token:
+    row i of a round's verify scores the token at index n + i of a slot
+    that had n tokens, and the round emits rows 0 .. m − 1.  Returns
+    (tokens, {(request, token index): f32 logit row on the host})."""
+    import numpy as np
+    V = e.model.cfg.vocab
+    st = e._spec_slots(e.max_batch)
+    nxt, slot_rid, rec = [0], {}, {}
+    admit, step = st.admit, e._spec_step
+
+    def admit_rec(b, first, stop, prompt):
+        slot_rid[b] = nxt[0]
+        nxt[0] += 1
+        admit(b, first, stop, prompt)
+
+    def step_rec(s):
+        live, n_before = s.h_active.copy(), s.h_n_gen.copy()
+        step(s)
+        lg = s.logits[:, :, :V].float().cpu()
+        for b in np.flatnonzero(live):
+            for i in range(int(s.h_n_gen[b] - n_before[b])):
+                rec[slot_rid[b], int(n_before[b]) + i] = lg[b, i]
+
+    st.admit, e._spec_step = admit_rec, step_rec
+    try:
+        toks = e.serve(reqs, max_new=max_new)
+    finally:
+        del st.admit, e._spec_step
+    return toks, rec
+
+
+def spec_agreement(tag: str, got, want, reqs, rec, srec) -> dict:
+    """Spec tokens ``got`` against the baseline's ``want``, with the
+    baseline decode rows ``rec`` and the spec verify rows ``srec`` behind
+    them (``baseline_rows``, ``spec_rows``).  Up to each request's first
+    parting the two serves read the same tokens, so a verify row and the
+    decode row of the same position compute one function at two row
+    counts (M = 20 and M = 4 in bf16): their largest difference over
+    these rows, ``delta``, is what rounding alone moves a logit by.  A
+    parting, where the baseline took token a and spec token s, passes
+    only if the verify row's own argmax is s (the round emitted what its
+    row chose), the baseline row's argmax is a, the baseline's gap
+    between the two is at most 2·delta (a flip needs the rows to differ
+    by that gap on the two logits, and rounding reaches 2·delta at
+    positions that agree), and the
+    baseline row's top-2 gap is at most 1 % of its logit range (a near
+    tie).  Anything else raises."""
+    same = total = 0
+    partings, delta, rows = [], 0.0, 0
+    for r, (g, w, p) in enumerate(zip(got, want, reqs)):
+        cg, cw = g[len(p):], w[len(p):]
+        total += len(cw)
+        j = next((i for i, (a, b) in enumerate(zip(cg, cw)) if a != b),
+                 len(cw))
+        same += j
+        for i in range(j):
+            if (r, i) in rec and (r, i) in srec:
+                delta = max(delta,
+                            (srec[r, i] - rec[r, i]).abs().max().item())
+                rows += 1
+        if j < len(cw):
+            partings.append((r, j, cg[j], cw[j]))
+    out = []
+    for r, j, s_tok, a_tok in partings:
+        if (r, j) not in rec or (r, j) not in srec:
+            raise AssertionError(f"{tag}: request {r} parts from the "
+                                 f"baseline at token {j}, which no decode "
+                                 "step or no verify row made (the "
+                                 "prefill's sample)")
+        base, ver = rec[r, j], srec[r, j]
+        top2 = base.topk(2).values
+        gap = (top2[0] - top2[1]).item()
+        rng = (base.max() - base.min()).item()
+        gap_as = (base[a_tok] - base[s_tok]).item()
+        moved = gap_as - (ver[a_tok] - ver[s_tok]).item()
+        d_row = (ver - base).abs().max().item()
+        p = {"request": r, "at": j, "gap": gap, "range": rng,
+             "share": gap / rng, "gap_to_spec_token": gap_as,
+             "rows_differ_on_pair": moved, "row_delta": d_row}
+        out.append(p)
+        why = None
+        if int(ver.argmax()) != s_tok:
+            why = (f"the verify row's argmax {int(ver.argmax())} is not the "
+                   f"emitted token {s_tok}")
+        elif int(base.argmax()) != a_tok:
+            why = (f"the baseline row's argmax {int(base.argmax())} is not "
+                   f"its token {a_tok}")
+        elif rows and gap_as > 2 * delta:
+            why = (f"the baseline's gap {gap_as:.4e} between the two "
+                   f"tokens exceeds 2 × {delta:.4e}, the largest "
+                   "difference of rows at agreeing positions")
+        elif gap > 0.01 * rng:
+            why = (f"the baseline row's top-2 gap {gap:.4e} is "
+                   f"{gap / rng:.4f} of its range {rng:.4e}: more than a "
+                   "near tie")
+        if why:
+            raise AssertionError(f"{tag}: request {r} parts from the "
+                                 f"baseline at token {j}: {why}")
+    if out and not rows:
+        raise AssertionError(f"{tag}: partings but no agreeing position "
+                             "to measure the rows' difference on")
+    return {"same_before_parting": same, "total": total,
+            "partings": out, "delta": delta, "delta_rows": rows}
+
+
+def spec_state(e, pos: int):
+    """A speculative loop state of its own for engine ``e``
+    (``ServeEngine._new_spec_slots``): MAX_BATCH live slots at ``pos`` on
+    zeroed caches, each with a history of pos + 1 tokens (a period-7
+    pattern, so that the n-gram draft finds matches)."""
+    import torch
+    st = e._new_spec_slots(MAX_BATCH)
+    for c in (st.cache, st.dcache):
+        if c is not None:
+            c["pos"].fill_(pos)
+    hist = torch.arange(pos + 1, device=e.device) % 7 + 100
+    st.ctx[:, :pos + 1] = hist
+    st.ctx_len.fill_(pos + 1)
+    st.last.copy_(st.ctx[:, pos])
+    st.active.fill_(True)
+    st.stops.fill_(1 << 20)
+    return st
+
+
+def round_check(tag: str, e, pos: int) -> dict:
+    """One speculative round on a state of its own (``spec_state``) on the
+    graph route against the eager route: the replayed round's verify
+    logits bit-equal to the eager round's from the same state; the wall
+    ms of the eager round, and of a round on the graph route (the median
+    of 3 replays from the state).  No profiler reading."""
+    import torch
+    st = spec_state(e, pos)
+    saved = {k: t.clone() for k, t in st.state().items()}
+
+    def restore():
+        for k, t in st.state().items():
+            t.copy_(saved[k])
+
+    def one(graphs: bool):
+        restore()
+        e._graphs = graphs
+        e._spec_step(st)
+        return st.logits.clone()
+    one(True)                                    # the capture, untimed
+    lg_e, t_eager = timed(lambda: one(False))
+    lg_g = one(True)
+    if not bool(torch.isfinite(lg_e[..., :e.model.cfg.vocab]).all()):
+        raise AssertionError(f"{tag}: non-finite verify logits")
+    if not torch.equal(lg_g, lg_e):
+        raise AssertionError(f"{tag}: the replayed round's logits differ "
+                             "from the eager round's by "
+                             f"{(lg_g - lg_e).abs().max().item():.3e}")
+    restore()
+    e._graphs = True
+    w = [timed(lambda: e._spec_step(st))[1] for _ in range(3)]
+    restore()
+    return {"graph": 1e3 * sorted(w)[1], "eager": 1e3 * t_eager,
+            "logits_bit_equal": True}
+
+
+def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
+               baseline: tuple, max_new: int = 16) -> dict:
+    """A spec engine ``e`` (a fresh one) in one run: ``serve(reqs,
+    max_new)`` in turns (eager, graph — its first, which captures —,
+    graph, eager), tokens and the four counters equal in all four, the
+    second graph serve capturing nothing; launches ``per_fwd`` a target
+    forward and ``per_draft`` a draft forward whose wrappers ran; tok/s of
+    each route; the agreement with the baseline's tokens
+    (``spec_agreement``); a round on each route (``round_check``)."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    c0, d0 = called_forwards(e), draft_forwards(e)
+    outs, secs = [], {"eager": [], "graph": []}
+    for i, route in enumerate(("eager", "graph", "graph", "eager")):
+        e._graphs = route == "graph"
+        e.spec_stats.reset()
+        before = e.n_captures + e.n_draft_captures
+        if i == 0:             # records the verify rows (slower: not
+            (toks, srec), s = timed(           # the route's time then)
+                lambda: spec_rows(e, reqs, max_new))
+        else:
+            toks, s = timed(lambda: e.serve(reqs, max_new=max_new))
+        secs[route].append(s)
+        if i == 2 and e.n_captures + e.n_draft_captures != before:
+            raise AssertionError(f"{tag}: the second graph serve captured")
+        outs.append((toks, spec_counts(e.spec_stats)))
+        if outs[-1] != outs[0]:
+            raise AssertionError(f"{tag}: {route} serve {i} gave tokens or "
+                                 f"counters {outs[-1][1]} other than the "
+                                 f"first eager serve's {outs[0][1]}")
+    for seq in outs[0][0]:
+        if not all(0 <= t < e.model.cfg.vocab for t in seq):
+            raise AssertionError(f"{tag}: token id out of range")
+    counts = ops.launch_counts()
+    fwd, dfwd = called_forwards(e) - c0, draft_forwards(e) - d0
+    want = {k: per_fwd.get(k, 0) * fwd + per_draft.get(k, 0) * dfwd
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} over {fwd} target "
+                             f"and {dfwd} draft forwards, want {want}")
+    rounds, proposed, accepted, emitted = outs[0][1]
+    agree = spec_agreement(tag, outs[0][0], baseline[0], reqs, baseline[1],
+                           srec)
+    rt = round_check(tag, e, 40)
+    res = {"tokens": outs[0][0], "rounds": rounds, "proposed": proposed,
+           "accepted": accepted, "emitted": emitted,
+           "acceptance_rate": accepted / max(proposed, 1),
+           "tokens_per_round": emitted / max(rounds, 1),
+           "serve_s": secs,
+           # the first eager serve records rows: the second is timed
+           "serve_tok_s": {"eager": max_new * len(reqs) / secs["eager"][1],
+                           "graph": max_new * len(reqs)
+                           / min(secs["graph"])},
+           "launches": counts, "target_forwards": fwd,
+           "draft_forwards": dfwd, "agreement": agree, "round_ms": rt,
+           "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+    log(f"{tag}: serve {max_new * len(reqs)} tokens in turns (eager, graph, "
+        "graph, eager) " + ", ".join(f"{s:.3f}" for s in (
+            secs["eager"][0], *secs["graph"], secs["eager"][1]))
+        + f" s → eager {res['serve_tok_s']['eager']:.1f}, graph "
+        f"{res['serve_tok_s']['graph']:.1f} tok/s; tokens and counters "
+        f"equal; {rounds} rounds, {proposed} proposed, {accepted} accepted "
+        f"(rate {res['acceptance_rate']:.3f}), {emitted} emitted "
+        f"({res['tokens_per_round']:.2f} a round over the {MAX_BATCH} "
+        f"slots); wrappers ran for {fwd} "
+        f"target and {dfwd} draft forwards: "
+        + ", ".join(f"{counts[k]} {k}" for k in counts if counts[k])
+        + f" (= {per_fwd} a target, {per_draft} a draft forward); vs the "
+        f"baseline {agree['same_before_parting']}/{agree['total']} tokens "
+        f"before the first partings, {len(agree['partings'])} partings"
+        + "".join(f" (request {p['request']} at {p['at']}: top-2 gap "
+                  f"{p['share']:.5f} of the range, gap to the spec token "
+                  f"{p['gap_to_spec_token']:.4e}, the verify row chose it)"
+                  for p in agree["partings"])
+        + f", verify and decode rows at {agree['delta_rows']} agreeing "
+        f"positions differ by at most {agree['delta']:.4e}"
+        + f"; a round ({MAX_BATCH} slots at 40) eager {rt['eager']:.2f} "
+        f"(one), graph {rt['graph']:.2f} ms, replayed logits bit-equal; "
+        "memory "
+        f"reserved {res['reserved_gib']:.2f} GiB")
+    return res
+
+
+def freed(tag: str) -> float:
+    """After the caller has dropped an engine (its loop states, graphs and
+    graph pool, and its lut tables, with it): the cache returned to the
+    card, and the GiB still reserved, logged."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    gib = torch.cuda.memory_reserved() / 2 ** 30
+    log(f"{tag}: freed; memory reserved {gib:.2f} GiB")
+    return gib
+
+
+def spec_path(dev, cfg, model, cp, prompts, main_stats
+              ) -> tuple[dict, dict]:
+    """The [spec] phase: first the reduced check (``spec_reduced``), then
+    phase 5's compressed qwen3-1.7b (28 layers, full width; the live
+    ``model`` and ``cp``) served with speculative rounds,
+    k = SPEC_K, MAX_BATCH slots, greedy: codebook target with the n-gram
+    draft (8 requests, 4 of them repetitive, 16 new tokens), codebook
+    target with a lut draft (the same index-form params through the lut
+    backend; 4 requests, 8 new tokens), lut target with the n-gram draft
+    (4, 8; the lut engines cut for time).  Each (``spec_turns``) against
+    a baseline engine of its backend (``baseline_rows``); every engine
+    freed before the next.
+    Returns (stats, launches)."""
+    import torch
+    from repro_torch.serving import ServeEngine, SpecConfig
+    spec_reduced(dev)
+    log(f"[spec] start: memory reserved "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+    reqs = spec_prompts(prompts, cfg.vocab)
+    kw = dict(max_len=128, max_batch=MAX_BATCH, device=dev)
+    n_l = cfg.n_layers
+    stats, launches = {}, {}
+    baselines = {}
+    for be, n, new in (("codebook", 8, 16), ("lut", 4, 8)):
+        b = ServeEngine(model, cp, backend=be, **kw)
+        baselines[be] = (*baseline_rows(b, reqs[:n], new), n, new)
+        log(f"[spec] baseline {be}, {n} requests, {new} new tokens: graph "
+            f"serve {baselines[be][2]:.1f} tok/s; memory reserved "
+            f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB")
+        del b
+        freed(f"[spec] baseline {be}")
+    cases = (("codebook", "ngram", 8, 16), ("codebook", "lut", 4, 8),
+             ("lut", "ngram", 4, 8))
+    for be, draft, n, new in cases:
+        tag = f"[spec] {be} target, {draft} draft"
+        sp = SpecConfig(draft="ngram", k=SPEC_K) if draft == "ngram" else \
+            SpecConfig(draft="model", k=SPEC_K, draft_params=cp,
+                       draft_backend=draft)
+        e = ServeEngine(model, cp, backend=be, spec=sp, **kw)
+        per_fwd = {f"{be}_matmul": 7 * n_l}
+        per_draft = {} if draft == "ngram" else {f"{draft}_matmul": 7 * n_l}
+        toks, rec, base_tok_s, base_n, base_new = baselines[be]
+        # a shorter run's baseline is the longer one's prefix (greedy)
+        want = [t[:len(p) + new] for t, p in zip(toks[:n], reqs)]
+        res = spec_turns(tag, e, reqs[:n], per_fwd, per_draft, (want, rec),
+                         max_new=new)
+        res["baseline_serve_tok_s"] = base_tok_s
+        res["decode_step_ms"] = main_stats[be]["decode_step_ms"]
+        log(f"{tag}: round {res['round_ms']['graph']:.2f} ms against the "
+            f"main path's decode step {res['decode_step_ms']:.2f} ms (graph "
+            f"route, 4 slots at 40); serve {res['serve_tok_s']['graph']:.1f} "
+            f"tok/s against the baseline's {base_tok_s:.1f} ({base_n} "
+            f"requests, {base_new} new tokens)")
+        for k, v in res["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        res.pop("tokens")
+        stats[f"{be}_{draft}"] = res
+        del e
+        res["reserved_after_free_gib"] = freed(tag)
+    return stats, launches
+
+
 def working_point(dev, prompts, chats, base, peaks) -> tuple:
     """Phase 7: the weights of phase 5 at the paper's working point,
     ``quantized(levels=32, n_weights=1000, method="kmeans")``, global.
@@ -1984,7 +2473,7 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
 KVQ_LAYERS = 4                   # codeqwen1.5-7b's 32 layers, cut for time
 
 
-def kv_quant_path(dev) -> tuple[dict, dict]:
+def kv_quant_path(dev) -> tuple[dict, dict, dict]:
     """The [kvq] phase: codeqwen1.5-7b at full width (d 4096, 32/32 heads,
     hd 128, d_ff 13440, vocab 92416, untied head, bf16), KVQ_LAYERS of its
     32 layers, compressed as ``launch/serve.py --compress`` does, served
@@ -1994,11 +2483,14 @@ def kv_quant_path(dev) -> tuple[dict, dict]:
     codebook_matmul a forward); the cache's bytes against a bf16 cache's;
     the decode step (4 slots at 40) with each cache on both routes; the
     gap between the two caches' decode logits over 8 eager forwards fed
-    the same tokens.  Returns (stats, launches)."""
+    the same tokens; then the [spec] phase's engine on this model: the
+    n-gram draft (k = SPEC_K) on the int8 cache, the spec phase's 8
+    requests (``spec_turns``) against the int8 engine's baseline.  Returns
+    (stats, launches, the spec engine's launches)."""
     import torch
     from repro_torch import configs
     from repro_torch.models.model_zoo import build
-    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import ServeEngine, SpecConfig
     full = configs.get("codeqwen1.5-7b")
     cfg = full.replace(n_layers=KVQ_LAYERS)
     model, cp = compressed_model(dev, cfg, "[kvq]")
@@ -2068,8 +2560,28 @@ def kv_quant_path(dev) -> tuple[dict, dict]:
         f"{scale:.4e}), argmax agree {agree}/{4 * len(gaps)}; peak memory "
         f"{stats['peak_mem_gib']:.2f} GiB")
     launches = {"codebook_matmul": res["launches"]["codebook_matmul"]}
-    del e8, e16, model, cp
-    return stats, launches
+    del e16
+    reqs = spec_prompts(prompts, cfg.vocab)
+    toks, rec, base_tok_s = baseline_rows(e8, reqs, 16)
+    del e8
+    freed("[kvq] baseline")
+    tag = "[spec] [kvq] codebook target, ngram draft, int8 cache"
+    es = ServeEngine(model, cp, spec=SpecConfig(draft="ngram", k=SPEC_K),
+                     **kw)
+    sres = spec_turns(tag, es, reqs, {"codebook_matmul": per_fwd}, {},
+                      (toks, rec))
+    sres.pop("tokens")
+    sres["baseline_serve_tok_s"] = base_tok_s
+    sres["decode_step_ms"] = stats["decode_step_ms_int8"]
+    log(f"{tag}: round {sres['round_ms']['graph']:.2f} ms against the "
+        f"decode step {sres['decode_step_ms']:.2f} ms (graph route, 4 slots "
+        f"at 40); serve {sres['serve_tok_s']['graph']:.1f} tok/s against "
+        f"the baseline's {sres['baseline_serve_tok_s']:.1f} on the same "
+        "requests")
+    stats["spec"] = sres
+    del es, model, cp
+    sres["reserved_after_free_gib"] = freed(tag)
+    return stats, launches, dict(sres["launches"])
 
 
 def unfused_step(dev, e, L) -> dict:
@@ -2560,7 +3072,8 @@ def main() -> int:
     from repro_torch import configs
     vocab = configs.get("qwen3-1.7b").vocab
     prompts, chats = prompts_for(8, vocab), chat_prompts(8, vocab)
-    rows = path_rows(prompts, chats, MAX_BATCH)
+    rows = path_rows(prompts + spec_prompts(prompts, vocab), chats,
+                     MAX_BATCH)
     worst, shares = parity(dev, sorted(set(rows) | {17}))
     worst["page_gather"] = gather_parity(dev)
     worst["act_quant"], _ = act_quant_parity(dev, rows)
@@ -2574,12 +3087,17 @@ def main() -> int:
     model, cp = compressed_model(dev, cfg, "[main]")
     stats, launches = main_path(dev, cfg, model, cp, prompts)
     p_stats, p_launches = paged_path(dev, cfg, model, cp, chats)
+    s_stats, s_launches = spec_path(dev, cfg, model, cp, prompts, stats)
     del model, cp
     torch.cuda.empty_cache()
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
                                                 peaks)
     torch.cuda.empty_cache()
-    q_stats, q_launches = kv_quant_path(dev)
+    q_stats, q_launches, qs_launches = kv_quant_path(dev)
+    torch.cuda.empty_cache()
+    s_stats["kvq_ngram"] = q_stats.pop("spec")
+    for k, v in qs_launches.items():
+        s_launches[k] = s_launches.get(k, 0) + v
     torch.cuda.empty_cache()
     times = kernel_times(dev, peaks, shares)
     g_times, g_many = gather_times(dev, peaks)
@@ -2589,7 +3107,8 @@ def main() -> int:
     by_path = {k: {"contiguous": launches.get(k, 0),
                    "paged": p_launches.get(k, 0),
                    "working_point": w_launches.get(k, 0),
-                   "kv_quant": q_launches.get(k, 0)}
+                   "kv_quant": q_launches.get(k, 0),
+                   "spec": s_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -2649,6 +3168,7 @@ def main() -> int:
     log("[done] paged path " + json.dumps(p_stats))
     log("[done] working point " + json.dumps(w_stats))
     log("[done] kv_quant path " + json.dumps(q_stats))
+    log("[done] spec path " + json.dumps(s_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))

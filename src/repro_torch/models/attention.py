@@ -1,7 +1,7 @@
 """Attention: GQA + RoPE + qk-norm, flash-chunked prefill softmax, the
-contiguous KV-cache decode step, and the paged KV cache's chunked prefill and
-decode step with int8 pages (the port's copy of the single-device parts of
-``repro/models/attention.py``).
+contiguous KV-cache decode step and speculative verify, and the paged KV
+cache's chunked prefill and decode step with int8 pages (the port's copy of
+the single-device parts of ``repro/models/attention.py``).
 
 Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
 caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
@@ -20,7 +20,8 @@ from repro_torch.kernels import dispatch, ops
 from repro_torch.models.layers import dense, rms_norm
 
 __all__ = ["AttnConfig", "rope", "decode_attention", "flash_attention",
-           "attn_apply", "attn_decode_cached", "chunk_attention",
+           "attn_apply", "attn_decode_cached", "attn_verify_cached",
+           "chunk_attention",
            "attn_decode_paged", "attn_prefill_chunk", "quantize_kv",
            "dequantize_kv", "KV_QMAX"]
 
@@ -212,6 +213,43 @@ def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
     k_l[rows, insert_at] = k_new.to(k_l.dtype)
     v_l[rows, insert_at] = v_new.to(v_l.dtype)
     return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+
+
+def attn_verify_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
+                       k_all, v_all, layer: int, scales=None,
+                       backend: dispatch.BackendSpec = dispatch.DENSE):
+    """Speculative verify of one layer against the stacked (L, B, S, KV,
+    hd) cache: per slot, the pending token and K draft proposals.
+
+    x: (B, K1, D); pos: (B, K1) RoPE positions; insert_at: (B,) first row
+    written (the K1 rows land at ``clip(insert_at, 0, S − K1)``, so retired
+    slots verify harmlessly into their own tail); valid_len: (B,) the
+    attendable cached prefix.  Attention is ``chunk_attention``'s: full to
+    the valid prefix (the layer dequantized first when ``scales`` (ks_all,
+    vs_all) are given), causal among the K1 fresh tokens, which enter
+    before they are written.  Then their K/V (quantized, with their scales)
+    are written in place.  Returns the attention output (B, K1, D).
+    """
+    B, K1, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    k_l, v_l = k_all[layer], v_all[layer]
+    if scales is not None:
+        k_att = dequantize_kv(k_l, scales[0][layer])
+        v_att = dequantize_kv(v_l, scales[1][layer])
+    else:
+        k_att, v_att = k_l, v_l
+    out = chunk_attention(q, k_att, v_att, valid_len, k, v)
+    S = k_l.shape[1]
+    cols = (torch.clamp(insert_at.long(), 0, S - K1)[:, None]
+            + torch.arange(K1, device=x.device)[None])             # (B, K1)
+    rows = torch.arange(B, device=x.device)[:, None]
+    if scales is not None:
+        (k, ksc), (v, vsc) = quantize_kv(k), quantize_kv(v)
+        scales[0][layer, rows, cols] = ksc.to(scales[0].dtype)
+        scales[1][layer, rows, cols] = vsc.to(scales[1].dtype)
+    k_l[rows, cols] = k.to(k_l.dtype)
+    v_l[rows, cols] = v.to(v_l.dtype)
+    return dense(p["wo"], out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
 
 
 # --- int8 KV pages ------------------------------------------------------------

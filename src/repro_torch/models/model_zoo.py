@@ -4,6 +4,7 @@
     model.init(gen, device)                      -> params
     model.prefill(params, batch, backend)        -> (logits, cache)
     model.decode(params, tokens, cache, backend) -> (logits, cache)
+    model.verify(params, tokens, cache, backend) -> (logits, cache)
     model.init_cache(batch, max_len, dtype, device) -> cache
     model.init_paged_cache(n_pages, page_size, dtype, device) -> page pool
     model.prefill_chunk(params, batch, pool, backend) -> (logits, pool)
@@ -37,6 +38,12 @@ class Model:
 
     def decode(self, params, tokens, cache, backend=dispatch.DENSE):
         return T.decode_step(params, self.cfg, tokens, cache, backend)
+
+    def verify(self, params, tokens, cache, backend=dispatch.DENSE):
+        """Score K1 tokens per slot in one forward (speculative verify):
+        logits at every position, K/V written at pos..pos+K1−1,
+        ``cache['pos']`` left for the caller to advance."""
+        return T.verify_step(params, self.cfg, tokens, cache, backend)
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):

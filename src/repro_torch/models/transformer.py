@@ -1,5 +1,6 @@
-"""Dense-family decoder LM: init, prefill, the contiguous decode step, and
-the paged KV cache's chunked prefill and decode step (the port's copy of the
+"""Dense-family decoder LM: init, prefill, the contiguous decode step and
+speculative verify step, and the paged KV cache's chunked prefill and
+decode step (the port's copy of the
 dense-family serving parts of ``repro/models/transformer.py``).
 
 Parameters are a nested dict in the JAX package's layout: per-layer tensors
@@ -22,8 +23,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
-__all__ = ["init_params", "prefill", "decode_step", "init_cache", "attn_cfg",
-           "init_paged_cache", "prefill_chunk"]
+__all__ = ["init_params", "prefill", "decode_step", "verify_step",
+           "init_cache", "attn_cfg", "init_paged_cache", "prefill_chunk"]
 
 _FAMILIES = ("dense",)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -271,3 +272,43 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
                          cfg.act_kind, cfg.act_levels, backend)
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}
+
+
+def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
+    """Speculative verify: score K1 tokens per slot in one forward.
+
+    tokens: (B, K1), per slot the pending token then K draft proposals.
+    Returns (logits (B, K1, V) at every position, the cache): ``logits[:,
+    i]`` is the target's distribution for the token after ``tokens[:, i]``.
+    K/V of all K1 tokens are written in place at rows pos..pos+K1−1 of each
+    slot (clamped to ``S − K1``; int8 with their scales under
+    ``cfg.kv_quant``); ``cache['pos']`` comes back unchanged: the caller
+    advances it by the accepted count, and the rejected rows above it are
+    fenced by every later step's valid length.  A cache with a
+    ``page_table`` raises: the paged verify is not ported yet.
+    """
+    if "page_table" in cache:
+        raise NotImplementedError(
+            "verify_step on the paged cache is not ported yet (the paged "
+            "speculative path comes in a later slice)")
+    dt = _dtype(cfg)
+    B, K1 = tokens.shape
+    pos_v = cache["pos"]
+    S = cache["kv"]["k"].shape[2]
+    ins = torch.clamp(pos_v, max=S - K1)
+    vlen = torch.clamp(pos_v, max=S)
+    ppos = pos_v[:, None] + torch.arange(K1, device=tokens.device)[None]
+    x = L.embed_lookup(params["embed"], tokens).to(dt)
+    acfg = attn_cfg(cfg)
+    kv = cache["kv"]
+    scales = (kv["k_scale"], kv["v_scale"]) if cfg.kv_quant else None
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["blocks"], i)
+        x = x + A.attn_verify_cached(
+            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=ppos,
+            insert_at=ins, valid_len=vlen, k_all=kv["k"], v_all=kv["v"],
+            layer=i, scales=scales, backend=backend)
+        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                         cfg.act_kind, cfg.act_levels, backend)
+    x = L.rms_norm(params["final_norm"], x)
+    return _logits(params, cfg, x, backend), cache

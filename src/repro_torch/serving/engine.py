@@ -22,6 +22,19 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
   slots.  Each request prefills alone and is spliced into a free slot at its
   own position offset; the loop exits when some request finishes, the slot
   is harvested, the next request admitted, and decoding resumes.
+* **Speculative** (``spec=SpecConfig(...)``, ``serve`` on the contiguous
+  cache): each loop iteration is a round — a draft (the n-gram
+  self-draft, or a second model under its own backend) proposes ``k``
+  tokens, the target scores all ``k + 1`` in one ``verify`` forward, and
+  ``spec_accept`` keeps the accepted prefix plus one token, the
+  counterpart of the reference's jitted ``_spec_loop_fn``.  The round's
+  carry extends the loop's static buffers (``_SpecSlots``: the token
+  history the n-gram draft reads, the draft's cache, the acceptance
+  counters).  At temperature 0 a round is one CUDA graph replay on the
+  card: proposal, verify, argmax acceptance, splices and counters.  Above
+  it the random parts stay outside graphs: each draft step replays a
+  captured draft forward and samples eagerly, and the verify replays a
+  captured forward, then ``spec_accept`` runs eagerly.
 * **Paged** (``paged=True``, ``serve`` only): requests are admitted when
   the page pool (``serving/kvcache.PagePool``) can supply their pages, not
   when a slot is free; prompts stream through page-sized prefill chunks,
@@ -32,8 +45,8 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Speculative decoding, tensor parallelism, probes, telemetry and the
-step-level scheduling API are not ported yet.
+Speculative decoding on the paged cache, tensor parallelism, probes,
+telemetry and the step-level scheduling API are not ported yet.
 """
 
 from __future__ import annotations
@@ -48,7 +61,9 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
 from repro_torch.models.model_zoo import Model
 from repro_torch.serving.kvcache import PagePool
-from repro_torch.serving.spec import filter_logits
+from repro_torch.serving.spec import (SpecConfig, SpecStats, filter_logits,
+                                      ngram_propose, spec_accept,
+                                      target_dist)
 
 __all__ = ["ServeEngine"]
 
@@ -60,6 +75,17 @@ def _bucket(n: int, lo: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _splice_rows(buf, toks, start, m):
+    """buf[b, start[b] + i] = toks[b, i] for i < m[b]: a per-row append of
+    variable length as a full-row select (a scatter at clipped columns
+    would collide at the buffer's edge).  Returns the new buffer."""
+    W = buf.shape[1]
+    rel = torch.arange(W, device=buf.device)[None] - start[:, None]
+    pick = (rel >= 0) & (rel < m[:, None])
+    vals = torch.gather(toks, 1, torch.clamp(rel, 0, toks.shape[1] - 1))
+    return torch.where(pick, vals, buf)
 
 
 def _index_form_stats(params):
@@ -99,8 +125,9 @@ class _Slots:
     the out column a step writes at most (the call's cap − 1, a tensor so
     that no cap captures anew).  ``report`` (3, B) is what a step reads
     back: the step's ids, the active flags and ``n_gen``; ``h_active``
-    and ``h_n_gen`` are its host copies.  ``graph`` is (CUDAGraph, its
-    logits) once captured; ``logits`` the last step's.
+    and ``h_n_gen`` are its host copies.  ``graphs`` maps what a graph
+    holds (``"step"``) to (CUDAGraph, its output) once captured;
+    ``logits`` are the last step's.
     """
 
     def __init__(self, cache: dict, width: int):
@@ -118,7 +145,7 @@ class _Slots:
         self.report = torch.zeros((3, B), **i64)
         self.h_active = np.zeros((B,), bool)
         self.h_n_gen = np.zeros((B,), np.int64)
-        self.graph = None
+        self.graphs: dict = {}
         self.logits = None
 
     def state(self) -> dict:
@@ -164,6 +191,48 @@ class _Slots:
         self.h_n_gen[b] = 1
 
 
+class _SpecSlots(_Slots):
+    """The speculative loop's carry (the state the reference's
+    ``_spec_loop_fn`` threads through its ``while_loop``) in static device
+    buffers: ``_Slots``' plus ``ctx`` (B, width) each slot's token history
+    (prompt, then emitted tokens) and ``ctx_len`` (B,) its length, which
+    the n-gram draft reads; ``dcache`` the model draft's cache with its
+    ``pos`` (None for the n-gram draft); ``stats`` (4,) the rounds,
+    proposed, accepted and emitted counters; ``vtokens`` (B, k + 1) the
+    verify forward's input and ``dlast`` (B,) a draft step's.  A round's
+    graphs are ``"round"`` (temperature 0) or ``"draft"`` and ``"verify"``
+    (the forwards alone, above it)."""
+
+    def __init__(self, cache: dict, width: int, k: int, dcache=None):
+        super().__init__(cache, width)
+        B, dev = self.last.shape[0], self.last.device
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.ctx = torch.zeros((B, width), **i64)
+        self.ctx_len = torch.zeros((B,), **i64)
+        self.dcache = dcache
+        self.stats = torch.zeros((4,), **i64)
+        self.vtokens = torch.zeros((B, k + 1), **i64)
+        self.dlast = torch.zeros((B,), **i64)
+
+    def state(self) -> dict:
+        s = {**super().state(), "ctx": self.ctx, "ctx_len": self.ctx_len,
+             "stats": self.stats, "vtokens": self.vtokens,
+             "dlast": self.dlast}
+        if self.dcache is not None:
+            s["dpos"] = self.dcache["pos"]
+        return s
+
+    def admit(self, b: int, first: int, stop: int, prompt) -> None:
+        """``_Slots.admit``, and the slot's history: ``prompt`` then
+        ``first``."""
+        super().admit(b, first, stop)
+        n = len(prompt)
+        self.ctx[b] = 0
+        self.ctx[b, :n] = torch.as_tensor(list(prompt), dtype=torch.int64)
+        self.ctx[b, n] = first
+        self.ctx_len[b] = n + 1
+
+
 @dataclasses.dataclass
 class ServeEngine:
     """Continuous-batching inference engine over one model + param set.
@@ -185,14 +254,20 @@ class ServeEngine:
                  page_size⌉ (the contiguous slab's capacity).
     device:      where the engine runs; None = the GPU (raises without one).
     seed:        seed of the sampling generator (temperature > 0).
+    spec:        speculative decoding (``SpecConfig``) for ``serve`` on the
+                 contiguous cache; ``paged=True`` with it raises.
 
     ``n_forwards`` counts model forwards run (prefill calls + decode
     steps, replayed or eager); ``n_captures`` the decode steps captured
     into a CUDA graph and ``n_replays`` the steps run by replay, so that
     the kernels' wrappers are called for ``n_forwards − n_replays +
-    n_captures`` forwards.  On the card decode takes the graph route; the
-    private ``_graphs`` switch turns it off (the eager route, for holding
-    one against the other).
+    n_captures`` forwards.  A speculative round counts its verify forward
+    there and its model draft's forwards (prefills, k + 1 decode steps a
+    round) in ``n_draft_forwards``, ``n_draft_captures`` and
+    ``n_draft_replays``; ``spec_stats`` accumulates the acceptance
+    counters.  On the card decode takes the graph route; the private
+    ``_graphs`` switch turns it off (the eager route, for holding one
+    against the other).
     """
 
     model: Model
@@ -212,6 +287,7 @@ class ServeEngine:
     top_p: float = 1.0
     device: object = None
     seed: int = 0
+    spec: SpecConfig | None = None
 
     def __post_init__(self):
         cfg = self.model.cfg
@@ -248,10 +324,54 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.seed)
         self.n_forwards = self.n_captures = self.n_replays = 0
+        self.n_draft_forwards = self.n_draft_captures = 0
+        self.n_draft_replays = 0
+        self.spec_stats = SpecStats()
+        self._draft_bk = None
+        if self.spec is not None:
+            self._init_spec()
         self._pool: PagePool | None = None
         self._slot_sets: dict = {}
         self._graphs = self.device.type == "cuda"
         self._graph_pool = None
+
+    def _init_spec(self):
+        """Validate ``spec``; for a model draft, its backend (a second
+        ``BackendSpec``: the lut grid from the draft params' own
+        codebooks and fan-in, the embedding's included, with its tables
+        attached to the draft params)."""
+        sp = self.spec
+        if self.paged:
+            raise NotImplementedError(
+                "speculative decoding on the paged cache is not ported yet: "
+                "it comes with the paged speculative slice; serve spec on "
+                "the contiguous cache (paged=False)")
+        if sp.draft not in ("ngram", "model"):
+            raise ValueError(f"spec.draft {sp.draft!r} not in "
+                             "('ngram', 'model')")
+        if sp.k < 1:
+            raise ValueError(f"spec.k must be >= 1, got {sp.k}")
+        if sp.draft != "model":
+            return
+        if sp.draft_params is None:
+            raise ValueError("spec.draft='model' needs spec.draft_params")
+        if sp.draft_backend not in dispatch.BACKENDS:
+            raise ValueError(f"draft backend {sp.draft_backend!r} not in "
+                             f"{dispatch.BACKENDS}")
+        dlut = None
+        if sp.draft_backend != "dense":
+            has_idx, fan_in, book = _index_form_stats(sp.draft_params)
+            if not has_idx:
+                raise ValueError(f"draft backend {sp.draft_backend!r} needs "
+                                 "codebook-index draft_params")
+            if sp.draft_backend == "lut":
+                dlut = dispatch.make_lut_spec(book, fan_in,
+                                              levels=sp.lut_levels,
+                                              a_range=sp.lut_range)
+                self.spec = dataclasses.replace(
+                    sp, draft_params=dispatch.attach_lut_tables(
+                        sp.draft_params, dlut))
+        self._draft_bk = dispatch.BackendSpec(sp.draft_backend, dlut)
 
     @property
     def lut_spec(self):
@@ -264,6 +384,13 @@ class ServeEngine:
         self.n_forwards += 1
         return self.model.prefill(self.params, {"tokens": tokens,
                                                 "lengths": lengths}, self.bk)
+
+    @torch.no_grad()
+    def _draft_prefill(self, tokens, lengths):
+        self.n_draft_forwards += 1
+        return self.model.prefill(self.spec.draft_params,
+                                  {"tokens": tokens, "lengths": lengths},
+                                  self._draft_bk)
 
     @torch.no_grad()
     def _decode(self, last, cache):
@@ -340,62 +467,223 @@ class ServeEngine:
             self._advance(st, self._sample(logits))
         return logits
 
-    def _capture(self, st: _Slots) -> torch.Tensor:
-        """The first step of ``st`` on the graph route: run eagerly on a
-        side stream (the warm-up: it builds and loads the kernels, opts
-        them into their shared memory, and makes the cached constants,
-        plans and scratch a capture must not make), then captured into
-        the engine's graph memory pool.  Returns the eager step's logits.
-        A capture that fails raises."""
+    def _capture(self, fn):
+        """The first run of ``fn`` on the graph route: eagerly on a side
+        stream (the warm-up: it builds and loads the kernels, opts them
+        into their shared memory, and makes the cached constants, plans
+        and scratch a capture must not make), then captured into the
+        engine's graph memory pool.  Returns (the eager run's output,
+        (CUDAGraph, the captured run's output)).  A capture that fails
+        raises."""
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            logits = self._forward(st)
+            out = fn()
         cur.wait_stream(side)
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._graph_pool):
-            st.graph = (graph, self._forward(st))
-        self.n_captures += 1
-        return logits
+            captured = fn()
+        return out, (graph, captured)
 
-    @torch.no_grad()
-    def _step(self, st: _Slots) -> None:
-        """One decode step for every slot of ``st``: one graph replay on
-        the card (``_capture`` the first time), the eager ``_forward``
-        where ``_graphs`` is off; then, at temperature > 0, the sample and
-        the bookkeeping; then the one read of the report, into
-        ``st.h_active`` and ``st.h_n_gen``."""
-        self.n_forwards += 1
+    def _graph_run(self, st: _Slots, key: str, fn, fwd: tuple = (1, 0)):
+        """``fn``, which runs ``fwd`` = (target, draft) forwards on the
+        static state ``st``: the replay of ``st.graphs[key]`` on the card
+        (``_capture`` the first time), eagerly where ``_graphs`` is off.
+        Counts the forwards, captures and replays.  Returns ``fn``'s
+        output (on a replay, the graph's)."""
+        t, d = fwd
+        self.n_forwards += t
+        self.n_draft_forwards += d
         if not self._graphs:
-            st.logits = self._forward(st)
-        elif st.graph is None:
-            st.logits = self._capture(st)
-        else:
-            st.graph[0].replay()
-            st.logits = st.graph[1]
-            self.n_replays += 1
-        if self.temperature > 0:
-            self._advance(st, self._sample(st.logits))
+            return fn()
+        g = st.graphs.get(key)
+        if g is None:
+            out, st.graphs[key] = self._capture(fn)
+            self.n_captures += t
+            self.n_draft_captures += d
+            return out
+        g[0].replay()
+        self.n_replays += t
+        self.n_draft_replays += d
+        return g[1]
+
+    @staticmethod
+    def _read_report(st: _Slots) -> None:
+        """The step's one read: the report into ``st.h_active`` and
+        ``st.h_n_gen``."""
         report = st.report.to("cpu", copy=True).numpy()
         st.h_active = report[1].astype(bool)
         st.h_n_gen = report[2]
 
-    def _decode_loop(self, st: _Slots, cap: int, *, stop_on_event: bool):
-        """One iteration == one token for every slot of ``st``.
+    @torch.no_grad()
+    def _step(self, st: _Slots) -> None:
+        """One decode step for every slot of ``st``: one graph replay on
+        the card, the eager ``_forward`` where ``_graphs`` is off
+        (``_graph_run``); then, at temperature > 0, the sample and the
+        bookkeeping; then the one read of the report."""
+        st.logits = self._graph_run(st, "step", lambda: self._forward(st))
+        if self.temperature > 0:
+            self._advance(st, self._sample(st.logits))
+        self._read_report(st)
 
-        Exits when every slot is retired, ``cap`` steps are done, or
+    # --- speculative rounds -----------------------------------------------
+
+    def _new_spec_slots(self, batch: int) -> _SpecSlots:
+        """A fresh speculative loop state for ``batch`` slots: zeroed
+        contiguous caches for the target and, for a model draft, the
+        draft."""
+        def cache():
+            return self.model.init_cache(batch, self.max_len,
+                                         dtype=self._cache_dtype,
+                                         device=self.device)
+        return _SpecSlots(cache(), self.max_len, self.spec.k,
+                          cache() if self.spec.draft == "model" else None)
+
+    def _spec_slots(self, batch: int) -> _SpecSlots:
+        """The engine's static speculative loop state for ``batch`` slots
+        (``_new_spec_slots``), made once."""
+        key = (batch, False, "spec")
+        st = self._slot_sets.get(key)
+        if st is None:
+            st = self._slot_sets[key] = self._new_spec_slots(batch)
+        return st
+
+    def _draft_forward(self, st: _SpecSlots) -> torch.Tensor:
+        """One draft decode step on ``st.dcache`` for tokens ``st.dlast``,
+        ``pos + 1`` copied back into its static ``pos``.  Returns
+        logits."""
+        logits, dc = self.model.decode(self.spec.draft_params,
+                                       st.dlast[:, None], st.dcache,
+                                       self._draft_bk)
+        st.dcache["pos"].copy_(dc["pos"])
+        return logits
+
+    def _verify_forward(self, st: _SpecSlots) -> torch.Tensor:
+        """The target's verify forward on ``st.vtokens``.  Returns logits
+        (B, k + 1, V)."""
+        return self.model.verify(self.params, st.vtokens, st.cache,
+                                 self.bk)[0]
+
+    def _propose(self, st: _SpecSlots):
+        """The draft's k proposals (B, k), also written into
+        ``st.vtokens`` behind each slot's last token, and, at temperature
+        > 0 for a model draft, its distributions (B, k, V) (else None).
+
+        A model draft runs k + 1 decode steps from each slot's last token:
+        the last writes the final proposal's K/V (its own token is
+        dropped), so after a round whose every proposal is accepted the
+        draft cache holds every emitted token but the pending one.  At
+        temperature 0 the steps are eager ops (inside the round's graph on
+        the card); above it each step replays the captured draft forward
+        and samples eagerly from the engine's generator."""
+        sp = self.spec
+        st.vtokens[:, 0].copy_(st.last)
+        if sp.draft == "ngram":
+            d_toks = ngram_propose(st.ctx, st.ctx_len, k=sp.k, n=sp.ngram)
+            st.vtokens[:, 1:].copy_(d_toks)
+            return d_toks, None
+        V = self.model.cfg.vocab
+        st.dlast.copy_(st.last)
+        toks, dists = [], []
+        for _ in range(sp.k + 1):
+            if self.temperature == 0:
+                lg = self._draft_forward(st)[:, -1, :V].to(torch.float32)
+                nxt = torch.argmax(lg, dim=-1)
+            else:
+                lg = self._graph_run(st, "draft",
+                                     lambda: self._draft_forward(st), (0, 1))
+                probs = target_dist(lg[:, -1, :V].to(torch.float32),
+                                    self.temperature, self.top_k, self.top_p)
+                nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+                dists.append(probs)
+            st.dlast.copy_(nxt)
+            toks.append(nxt)
+        d_toks = torch.stack(toks[:sp.k], dim=1)
+        st.vtokens[:, 1:].copy_(d_toks)
+        return d_toks, torch.stack(dists[:sp.k], dim=1) if dists else None
+
+    def _settle(self, st: _SpecSlots, n_acc, toks) -> None:
+        """The round after acceptance, on ``st`` in place (the body of the
+        reference's ``_spec_loop_fn``): each active slot emits ``m`` =
+        min(n_acc + 1, tokens left) tokens into the out buffer and its
+        history, its last token and positions advance by ``m`` (the
+        rejected rows above ``pos`` are fenced by the valid length), the
+        draft's ``pos`` rolls back to ``ctx_len − 1``, the counters grow,
+        slots at their stop retire, and the report is written."""
+        act = st.active
+        remaining = torch.clamp(st.stops - st.n_gen, min=0)
+        m = torch.where(act, torch.minimum(n_acc + 1, remaining),
+                        torch.zeros_like(remaining))
+        st.out.copy_(_splice_rows(st.out, toks, st.n_gen, m))
+        st.ctx.copy_(_splice_rows(st.ctx, toks, st.ctx_len, m))
+        emitted = toks[st.rows, torch.clamp(m - 1, min=0)]
+        st.last.copy_(torch.where(act, emitted, st.last))
+        st.cache["pos"] += m.to(st.cache["pos"].dtype)
+        st.ctx_len += m
+        st.n_gen += m
+        if st.dcache is not None:
+            st.dcache["pos"].copy_(torch.clamp(st.ctx_len - 1, min=0))
+        st.stats += torch.stack([act.any().to(torch.int64),
+                                 act.to(torch.int64).sum() * self.spec.k,
+                                 torch.minimum(n_acc, m).sum(), m.sum()])
+        st.active &= st.n_gen < st.stops
+        st.report[0].copy_(st.last)
+        st.report[1].copy_(st.active)
+        st.report[2].copy_(st.n_gen)
+
+    def _greedy_round(self, st: _SpecSlots) -> torch.Tensor:
+        """What the round's graph holds at temperature 0: proposal,
+        verify, argmax acceptance and ``_settle``.  Returns the verify
+        logits."""
+        d_toks, _ = self._propose(st)
+        logits = self._verify_forward(st)
+        lg = logits[..., :self.model.cfg.vocab].to(torch.float32)
+        n_acc, toks = spec_accept(lg, d_toks, None, temperature=0.0)
+        self._settle(st, n_acc, toks)
+        return logits
+
+    @torch.no_grad()
+    def _spec_step(self, st: _SpecSlots) -> None:
+        """One speculative round for every slot of ``st``, then the one
+        read of the report.  Temperature 0: the whole round one graph
+        replay (``_greedy_round``).  Above it: ``_propose``, the verify
+        forward as a replay, then ``spec_accept`` from the engine's
+        generator and ``_settle``, eagerly."""
+        if self.temperature == 0:
+            n_draft = self.spec.k + 1 if self.spec.draft == "model" else 0
+            st.logits = self._graph_run(st, "round",
+                                        lambda: self._greedy_round(st),
+                                        (1, n_draft))
+        else:
+            d_toks, q = self._propose(st)
+            st.logits = self._graph_run(st, "verify",
+                                        lambda: self._verify_forward(st))
+            lg = st.logits[..., :self.model.cfg.vocab].to(torch.float32)
+            n_acc, toks = spec_accept(
+                lg, d_toks, q, temperature=self.temperature,
+                top_k=self.top_k, top_p=self.top_p, generator=self._gen)
+            self._settle(st, n_acc, toks)
+        self._read_report(st)
+
+    def _decode_loop(self, st: _Slots, cap: int, *, stop_on_event: bool,
+                     step=None):
+        """One iteration == one ``step`` (``_step``, a token for every slot
+        of ``st``; or ``_spec_step``, a round).
+
+        Exits when every slot is retired, ``cap`` iterations are done, or
         (stop_on_event) some slot hits its stop length.  Writes at most
         column ``cap − 1`` of the out buffer, as the reference's buffer
         of width ``cap``.
         """
+        step = step or self._step
         st.cap.fill_(cap - 1)
         steps = 0
         while st.h_active.any() and steps < cap:
             before = st.h_active
-            self._step(st)
+            step(st)
             steps += 1
             if stop_on_event and (before & ~st.h_active).any():
                 break
@@ -567,7 +855,10 @@ class ServeEngine:
         ``max_new`` is an int or a per-request list.  Requests beyond
         ``max_batch`` wait; whenever one in flight finishes, its slot is
         harvested and the next queued request joins between decode steps.
-        Returns prompt + continuation per request, in submission order.
+        With ``spec`` set, decode runs in speculative rounds (k drafted
+        tokens verified a forward); at temperature 0 the output equals the
+        baseline serve's, token for token.  Returns prompt + continuation
+        per request, in submission order.
         """
         n = len(prompts)
         stops_req = ([max_new] * n if isinstance(max_new, int)
@@ -579,13 +870,21 @@ class ServeEngine:
                 raise ValueError("prompt + max_new exceeds max_len")
             if s < 1:
                 raise ValueError("max_new must be >= 1")
+            if self.spec is not None and len(p) + s + self.spec.k \
+                    > self.max_len:
+                raise ValueError(
+                    "prompt + max_new + spec.k exceeds max_len (the verify "
+                    "forward needs k rows of speculative headroom)")
         if self.paged:
             return self._serve_paged(prompts, stops_req)
         B, cap = self.max_batch, max(stops_req)
-        st = self._slots(B)
+        spec = self.spec is not None
+        st = self._spec_slots(B) if spec else self._slots(B)
         st.reset()
-        for plane in st.cache["kv"].values():     # a fresh cache, as the
-            plane.zero_()                          # reference's init_cache
+        caches = [st.cache] + ([st.dcache] if spec and st.dcache else [])
+        for c in caches:                        # a fresh cache, as the
+            for plane in c["kv"].values():      # reference's init_cache
+                plane.zero_()
 
         queue = deque(range(n))
         slot_rid: list[int | None] = [None] * B
@@ -599,13 +898,22 @@ class ServeEngine:
                 lg1, c1 = self._prefill(toks1, len1)
                 first = int(self._sample(lg1)[0])
                 self._splice(st.cache, c1, b)
-                st.admit(b, first, stops_req[rid])
+                if not spec:
+                    st.admit(b, first, stops_req[rid])
+                else:
+                    if st.dcache is not None:
+                        self._splice(st.dcache,
+                                     self._draft_prefill(toks1, len1)[1], b)
+                    st.admit(b, first, stops_req[rid], prompts[rid])
                 slot_rid[b] = rid
-            self._decode_loop(st, cap, stop_on_event=True)
+            self._decode_loop(st, cap, stop_on_event=True,
+                              step=self._spec_step if spec else self._step)
             for b in range(B):            # harvest retired slots
                 rid = slot_rid[b]
                 if rid is not None and not st.h_active[b]:
                     results[rid] = (list(prompts[rid])
                                     + st.out[b, :st.h_n_gen[b]].tolist())
                     slot_rid[b] = None
+        if spec:
+            self.spec_stats.add(*st.stats.tolist())
         return [results[i] for i in range(n)]
