@@ -83,6 +83,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    1 % of its logit range; memory reserved printed after each engine,
    every engine freed before the next; no profiler reading gates the
    phase (the [kvq] engine's spec serve is in [kvq]);
+   [paged-spec], on phase 5's model: speculative decoding on the paged
+   cache (``ServeEngine(paged=True, spec=...)``).  The reduced 2-layer
+   qwen3 (f32, k = 3, page 4) with the n-gram and a lut draft on f32 and
+   int8 pages: tokens and counters on the card equal the CPU's, no page
+   left reserved, and (f32 pages) tokens equal the paged baseline's.
+   Then phase 5's model, k = 4, 4 slots, page 16, the paged phase's chat
+   requests: codebook with int8 pages and the n-gram draft (4 × 16),
+   codebook with bf16 pages and a lut draft (4 × 8), lut with int8
+   pages and the n-gram draft (4 × 8), each in turns as in [spec] (the
+   pool clean and nothing reserved after every serve; page_gather one
+   launch a layer of every verify and prefill chunk), its round replayed
+   against eager bit for bit, the round beside [spec]'s contiguous round
+   and phase 6's paged decode step, and its tokens held by the parting
+   check against the paged baseline's and (bf16 pages; reported on int8
+   pages) the contiguous spec engine's; every engine freed;
+   [sched], on phase 5's model (codebook) at the contended engine shape
+   (``CONTENDED_ENGINE_KW``: max_len 48, 2 slots, page 8, 9 pages):
+   ``Server.replay(contended_trace(1, vocab))`` twice on fresh engines
+   with equal events, streams and reports, at least one preemption and
+   pages swapped out and in, launches per forward plus one page_gather a
+   swap-out, the pool clean, every stream equal to the uncontended
+   ``serve``'s of the same requests; then once with int8 pages; wall
+   seconds and device→host reads a round;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
@@ -92,7 +115,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    codebook and lut (contiguous) and codebook with int8 pages, each on
    the graph route against the eager route: codebook launches 5 × 28
    codebook_matmul, 28 codebook_swiglu and no act_quant a forward, lut
-   7 × 28 lut_matmul and 28 act_quant (with its multiplier); act_quant and
+   7 × 28 lut_matmul and 28 act_quant (with its multiplier); then a paged
+   spec serve (codebook, int8 pages, n-gram draft, 4 × 8) in turns, with
+   the gated launch in every verify; act_quant and
    the gated launch held against their plain versions on one layer's real
    FFN input; decode step and serve figures beside phase 5's, and the
    codebook step with the gated launch against the unfused chain it
@@ -1774,6 +1799,32 @@ def draft_forwards(e) -> int:
     return e.n_draft_forwards - e.n_draft_replays + e.n_draft_captures
 
 
+REDUCED_SPEC_PROMPTS = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11,
+                        [300, 2, 5, 7, 1, 8], [7, 8, 9] * 5,
+                        [1, 2, 3, 4, 5, 6, 7]]
+REDUCED_SPEC_STOPS = [8, 3, 12, 1, 10, 6]
+
+
+def reduced_spec_model(dev):
+    """The 2-layer qwen3 (f32, |W| = 256, clustered on the CPU) the reduced
+    spec checks serve: (model, {"cpu" | "card": {"dense" | "index":
+    params}})."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, init_state)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+    cfg = configs.get("qwen3-1.7b").reduced().replace(n_layers=2)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    wq = WeightQuantConfig(num_weights=256)
+    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
+    cp = to_codebook_params(pq, wq, st, min_size=1024)
+    return model, {"cpu": {"dense": params, "index": cp},
+                   "card": {"dense": _to(params, dev), "index": _to(cp, dev)}}
+
+
 def spec_reduced(dev):
     """The reduced check: the 2-layer qwen3 (f32, |W| = 256) of phase 4
     served with speculative rounds (k = 3) on the card and on the CPU:
@@ -1781,24 +1832,9 @@ def spec_reduced(dev):
     target, a dense draft for a dense target; greedy tokens and the four
     counters equal the CPU's, and on the card spec tokens equal the
     baseline serve's."""
-    import torch
-    from repro_torch import configs
-    from repro_torch.core.quantizer import (WeightQuantConfig,
-                                            cluster_params, init_state)
-    from repro_torch.models.model_zoo import build
-    from repro_torch.serving import ServeEngine, SpecConfig, \
-        to_codebook_params
-    cfg = configs.get("qwen3-1.7b").reduced().replace(n_layers=2)
-    model = build(cfg)
-    params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    wq = WeightQuantConfig(num_weights=256)
-    pq, st = cluster_params(params, wq, init_state(wq), wq.interval)
-    cp = to_codebook_params(pq, wq, st, min_size=1024)
-    trees = {"cpu": {"dense": params, "index": cp},
-             "card": {"dense": _to(params, dev), "index": _to(cp, dev)}}
-    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8],
-               [7, 8, 9] * 5, [1, 2, 3, 4, 5, 6, 7]]
-    stops = [8, 3, 12, 1, 10, 6]
+    from repro_torch.serving import ServeEngine, SpecConfig
+    model, trees = reduced_spec_model(dev)
+    prompts, stops = REDUCED_SPEC_PROMPTS, REDUCED_SPEC_STOPS
     cases = (("codebook", "ngram"), ("lut", "ngram"), ("codebook", "lut"),
              ("dense", "dense"))
     lines = []
@@ -1842,7 +1878,7 @@ def baseline_rows(e, reqs, max_new: int):
     request is the next in the queue."""
     import numpy as np
     V = e.model.cfg.vocab
-    st = e._slots(e.max_batch)
+    st = e._slots(e.max_batch, e.paged)
     nxt, slot_rid, rec = [0], {}, {}
     admit, step = st.admit, e._step
 
@@ -1873,18 +1909,24 @@ def baseline_rows(e, reqs, max_new: int):
 
 def spec_rows(e, reqs, max_new: int):
     """One spec serve of ``reqs`` by engine ``e`` on the route ``e`` is
-    set to, recording the verify logit row behind each emitted token:
-    row i of a round's verify scores the token at index n + i of a slot
-    that had n tokens, and the round emits rows 0 .. m − 1.  Returns
+    set to, recording the logit row behind each emitted token: the
+    prefill's row behind token 0 (a spec engine samples only there), and
+    row i of a round's verify behind the token at index n + i of a slot
+    that had n tokens (the round emits rows 0 .. m − 1).  Returns
     (tokens, {(request, token index): f32 logit row on the host})."""
     import numpy as np
     V = e.model.cfg.vocab
-    st = e._spec_slots(e.max_batch)
-    nxt, slot_rid, rec = [0], {}, {}
-    admit, step = st.admit, e._spec_step
+    st = e._spec_slots(e.max_batch, e.paged)
+    nxt, slot_rid, rec, last_row = [0], {}, {}, [None]
+    admit, step, sample = st.admit, e._spec_step, e._sample
+
+    def sample_rec(logits):
+        last_row[0] = logits[0, -1, :V].float().cpu()
+        return sample(logits)
 
     def admit_rec(b, first, stop, prompt):
         slot_rid[b] = nxt[0]
+        rec[nxt[0], 0] = last_row[0]
         nxt[0] += 1
         admit(b, first, stop, prompt)
 
@@ -1896,15 +1938,16 @@ def spec_rows(e, reqs, max_new: int):
             for i in range(int(s.h_n_gen[b] - n_before[b])):
                 rec[slot_rid[b], int(n_before[b]) + i] = lg[b, i]
 
-    st.admit, e._spec_step = admit_rec, step_rec
+    st.admit, e._spec_step, e._sample = admit_rec, step_rec, sample_rec
     try:
         toks = e.serve(reqs, max_new=max_new)
     finally:
-        del st.admit, e._spec_step
+        del st.admit, e._spec_step, e._sample
     return toks, rec
 
 
-def spec_agreement(tag: str, got, want, reqs, rec, srec) -> dict:
+def spec_agreement(tag: str, got, want, reqs, rec, srec,
+                   strict: bool = True) -> dict:
     """Spec tokens ``got`` against the baseline's ``want``, with the
     baseline decode rows ``rec`` and the spec verify rows ``srec`` behind
     them (``baseline_rows``, ``spec_rows``).  Up to each request's first
@@ -1919,7 +1962,10 @@ def spec_agreement(tag: str, got, want, reqs, rec, srec) -> dict:
     by that gap on the two logits, and rounding reaches 2·delta at
     positions that agree), and the
     baseline row's top-2 gap is at most 1 % of its logit range (a near
-    tie).  Anything else raises."""
+    tie).  Anything else raises; with ``strict`` off (two sides that are
+    not one function up to rounding, such as int8 pages against a bf16
+    cache) a parting outside these bounds is reported under ``outside``
+    instead."""
     same = total = 0
     partings, delta, rows = [], 0.0, 0
     for r, (g, w, p) in enumerate(zip(got, want, reqs)):
@@ -1938,6 +1984,10 @@ def spec_agreement(tag: str, got, want, reqs, rec, srec) -> dict:
     out = []
     for r, j, s_tok, a_tok in partings:
         if (r, j) not in rec or (r, j) not in srec:
+            if not strict:
+                out.append({"request": r, "at": j,
+                            "outside": "no row recorded on both sides"})
+                continue
             raise AssertionError(f"{tag}: request {r} parts from the "
                                  f"baseline at token {j}, which no decode "
                                  "step or no verify row made (the "
@@ -1968,23 +2018,42 @@ def spec_agreement(tag: str, got, want, reqs, rec, srec) -> dict:
             why = (f"the baseline row's top-2 gap {gap:.4e} is "
                    f"{gap / rng:.4f} of its range {rng:.4e}: more than a "
                    "near tie")
-        if why:
+        if why and not strict:
+            p["outside"] = why
+        elif why:
             raise AssertionError(f"{tag}: request {r} parts from the "
                                  f"baseline at token {j}: {why}")
-    if out and not rows:
+    if out and not rows and strict:
         raise AssertionError(f"{tag}: partings but no agreeing position "
                              "to measure the rows' difference on")
     return {"same_before_parting": same, "total": total,
             "partings": out, "delta": delta, "delta_rows": rows}
 
 
+def parting_text(p: dict) -> str:
+    """One parting of ``spec_agreement`` for the log."""
+    if "share" not in p:
+        return f" (request {p['request']} at {p['at']}: {p['outside']})"
+    return (f" (request {p['request']} at {p['at']}: top-2 gap "
+            f"{p['share']:.5f} of the range, gap to the spec token "
+            f"{p['gap_to_spec_token']:.4e}, "
+            + (f"outside the near-tie bounds: {p['outside']})"
+               if "outside" in p else "the verify row chose it)"))
+
+
 def spec_state(e, pos: int):
     """A speculative loop state of its own for engine ``e``
     (``ServeEngine._new_spec_slots``): MAX_BATCH live slots at ``pos`` on
-    zeroed caches, each with a history of pos + 1 tokens (a period-7
-    pattern, so that the n-gram draft finds matches)."""
+    zeroed caches (paged: on the pool as the serves left it, each slot
+    owning its own pages, so that no write lands on the shared trash
+    page), each with a history of pos + 1 tokens (a period-7 pattern, so
+    that the n-gram draft finds matches)."""
     import torch
-    st = e._new_spec_slots(MAX_BATCH)
+    st = e._new_spec_slots(MAX_BATCH, e.paged)
+    if e.paged:
+        pt = st.cache["page_table"]
+        pt.copy_(1 + torch.arange(pt.numel(), dtype=pt.dtype,
+                                  device=pt.device).reshape(pt.shape))
     for c in (st.cache, st.dcache):
         if c is not None:
             c["pos"].fill_(pos)
@@ -2034,14 +2103,17 @@ def round_check(tag: str, e, pos: int) -> dict:
 
 
 def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
-               baseline: tuple, max_new: int = 16) -> dict:
+               baseline, max_new: int = 16, others=None,
+               after_serve=None) -> dict:
     """A spec engine ``e`` (a fresh one) in one run: ``serve(reqs,
     max_new)`` in turns (eager, graph — its first, which captures —,
     graph, eager), tokens and the four counters equal in all four, the
-    second graph serve capturing nothing; launches ``per_fwd`` a target
-    forward and ``per_draft`` a draft forward whose wrappers ran; tok/s of
-    each route; the agreement with the baseline's tokens
-    (``spec_agreement``); a round on each route (``round_check``)."""
+    second graph serve capturing nothing, ``after_serve(i)`` after each;
+    launches ``per_fwd`` a target forward and ``per_draft`` a draft
+    forward whose wrappers ran; tok/s of each route; the agreement with
+    the baseline's tokens (``spec_agreement``; none when ``baseline`` is
+    None) and with each of ``others`` ({name: (tokens, rows, strict)}); a
+    round on each route (``round_check``)."""
     import torch
     from repro_torch.kernels import ops
     ops.reset_launch_counts()
@@ -2059,6 +2131,8 @@ def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
         secs[route].append(s)
         if i == 2 and e.n_captures + e.n_draft_captures != before:
             raise AssertionError(f"{tag}: the second graph serve captured")
+        if after_serve is not None:
+            after_serve(i)
         outs.append((toks, spec_counts(e.spec_stats)))
         if outs[-1] != outs[0]:
             raise AssertionError(f"{tag}: {route} serve {i} gave tokens or "
@@ -2075,8 +2149,12 @@ def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
         raise AssertionError(f"{tag}: launches {counts} over {fwd} target "
                              f"and {dfwd} draft forwards, want {want}")
     rounds, proposed, accepted, emitted = outs[0][1]
-    agree = spec_agreement(tag, outs[0][0], baseline[0], reqs, baseline[1],
-                           srec)
+    agree = (None if baseline is None else
+             spec_agreement(tag, outs[0][0], baseline[0], reqs, baseline[1],
+                            srec))
+    vs = {name: spec_agreement(f"{tag} vs {name}", outs[0][0], toks_, reqs,
+                               rows_, srec, strict_)
+          for name, (toks_, rows_, strict_) in (others or {}).items()}
     rt = round_check(tag, e, 40)
     res = {"tokens": outs[0][0], "rounds": rounds, "proposed": proposed,
            "accepted": accepted, "emitted": emitted,
@@ -2088,7 +2166,8 @@ def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
                            "graph": max_new * len(reqs)
                            / min(secs["graph"])},
            "launches": counts, "target_forwards": fwd,
-           "draft_forwards": dfwd, "agreement": agree, "round_ms": rt,
+           "draft_forwards": dfwd, "agreement": agree, "agreement_vs": vs,
+           "round_ms": rt,
            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
     log(f"{tag}: serve {max_new * len(reqs)} tokens in turns (eager, graph, "
         "graph, eager) " + ", ".join(f"{s:.3f}" for s in (
@@ -2101,15 +2180,15 @@ def spec_turns(tag: str, e, reqs, per_fwd: dict, per_draft: dict,
         f"slots); wrappers ran for {fwd} "
         f"target and {dfwd} draft forwards: "
         + ", ".join(f"{counts[k]} {k}" for k in counts if counts[k])
-        + f" (= {per_fwd} a target, {per_draft} a draft forward); vs the "
-        f"baseline {agree['same_before_parting']}/{agree['total']} tokens "
-        f"before the first partings, {len(agree['partings'])} partings"
-        + "".join(f" (request {p['request']} at {p['at']}: top-2 gap "
-                  f"{p['share']:.5f} of the range, gap to the spec token "
-                  f"{p['gap_to_spec_token']:.4e}, the verify row chose it)"
-                  for p in agree["partings"])
-        + f", verify and decode rows at {agree['delta_rows']} agreeing "
-        f"positions differ by at most {agree['delta']:.4e}"
+        + f" (= {per_fwd} a target, {per_draft} a draft forward)"
+        + "".join(f"; vs the {name} {a['same_before_parting']}/{a['total']} "
+                  f"tokens before the first partings, {len(a['partings'])} "
+                  "partings"
+                  + "".join(parting_text(p) for p in a["partings"])
+                  + f", rows at {a['delta_rows']} agreeing positions differ "
+                  f"by at most {a['delta']:.4e}"
+                  for name, a in ((("baseline", agree),) if agree else ())
+                  + tuple(vs.items()))
         + f"; a round ({MAX_BATCH} slots at 40) eager {rt['eager']:.2f} "
         f"(one), graph {rt['graph']:.2f} ms, replayed logits bit-equal; "
         "memory "
@@ -2192,6 +2271,251 @@ def spec_path(dev, cfg, model, cp, prompts, main_stats
     return stats, launches
 
 
+# --- [paged-spec]: speculative decoding on the paged cache --------------------
+
+def paged_spec_reduced(dev):
+    """The reduced check of the paged spec path: the 2-layer qwen3 of
+    ``spec_reduced`` (f32, k = 3), page 4, on the card and on the CPU:
+    n-gram and lut drafts (codebook target) on f32 and int8 pages; greedy
+    tokens and the four counters on the card equal the CPU's, the pool
+    holds no reservation after each serve, and on f32 pages spec tokens
+    equal the paged baseline serve's on the card."""
+    from repro_torch.serving import ServeEngine, SpecConfig
+    model, trees = reduced_spec_model(dev)
+    prompts, stops = REDUCED_SPEC_PROMPTS, REDUCED_SPEC_STOPS
+    kw = dict(max_len=64, max_batch=2, backend="codebook", paged=True,
+              page_size=4)
+    lines = []
+    for draft in ("ngram", "lut"):
+        for kv in ("bf16", "int8"):
+            out = {}
+            for where, d in (("cpu", "cpu"), ("card", dev)):
+                tp = trees[where]
+                sp = SpecConfig(draft="ngram", k=3) if draft == "ngram" else \
+                    SpecConfig(draft="model", k=3, draft_backend="lut",
+                               lut_levels=512, draft_params=tp["index"])
+                e = ServeEngine(model, tp["index"], kv_dtype=kv, device=d,
+                                spec=sp, **kw)
+                out[where] = (e.serve(prompts, max_new=stops),
+                              spec_counts(e.spec_stats))
+                if e.pool.reserved_extra or not _pool_clean(e.pool):
+                    raise AssertionError(f"[paged-spec] reduced {draft} "
+                                         f"{kv}: pool not clean on {where}")
+            if out["card"] != out["cpu"]:
+                raise AssertionError(
+                    f"[paged-spec] reduced {draft} draft, {kv} pages: card "
+                    f"{out['card']} against CPU {out['cpu']}")
+            if kv == "bf16":
+                base = ServeEngine(model, trees["card"]["index"], kv_dtype=kv,
+                                   device=dev, **kw).serve(prompts,
+                                                           max_new=stops)
+                if out["card"][0] != base:
+                    raise AssertionError(
+                        f"[paged-spec] reduced {draft} draft: spec tokens "
+                        f"{out['card'][0]} against the paged baseline's "
+                        f"{base} on the card")
+            lines.append(f"{draft} {kv} {out['card'][1]}")
+    log("[paged-spec] reduced 2-layer qwen3 (f32), k = 3, page 4, 6 "
+        "requests over 2 slots, codebook target: tokens and counters "
+        "(rounds, proposed, accepted, emitted) on the card equal the CPU's, "
+        "no reservation left, and on f32 pages spec tokens equal the paged "
+        "baseline's on the card: " + "; ".join(lines))
+
+
+def paged_spec_path(dev, cfg, model, cp, chats, s_stats, p_stats
+                    ) -> tuple[dict, dict]:
+    """The [paged-spec] phase: the reduced check (``paged_spec_reduced``),
+    then phase 5's compressed qwen3-1.7b (the live ``model`` and ``cp``)
+    served by ``ServeEngine(paged=True, spec=...)``, k = SPEC_K, page PAGE,
+    max_len PAGED_MAX_LEN, MAX_BATCH slots, greedy, on the paged phase's
+    chat requests: codebook with int8 pages and the n-gram draft (4
+    requests, 16 new tokens), codebook with bf16 pages and a lut draft
+    (4, 8), lut with int8 pages and the n-gram draft (4, 8).  Each
+    (``spec_turns``, the pool clean and no page reserved after each serve;
+    page_gather one launch a layer of every target forward: verifies and
+    prefill chunks) against the paged baseline of its backend and pages
+    (``baseline_rows``) by the parting check, and against the contiguous
+    spec engine of its backend and draft (``spec_rows``, prefill rows
+    included): by the parting check on bf16 pages, reported on int8
+    pages, whose quantized K/V are not the bf16 cache's values up to
+    rounding; the round beside the
+    contiguous round of [spec] and the paged decode step of phase 6.
+    Every engine freed before the next.  Returns (stats, launches)."""
+    import torch
+    from repro_torch.serving import ServeEngine, SpecConfig
+    paged_spec_reduced(dev)
+    n_l = cfg.n_layers
+    kw = dict(max_len=PAGED_MAX_LEN, max_batch=MAX_BATCH, device=dev)
+    pkw = dict(paged=True, page_size=PAGE, **kw)
+    stats, launches = {}, {}
+    # 4 requests at codebook + n-gram (not [spec]'s 8): cut to keep the new
+    # phases near 70 s
+    for be, kv, draft, n, new in (("codebook", "int8", "ngram", 4, 16),
+                                  ("codebook", "bf16", "lut", 4, 8),
+                                  ("lut", "int8", "ngram", 4, 8)):
+        tag = f"[paged-spec] {be} target, {kv} pages, {draft} draft"
+        reqs = chats[:n]
+        sp = SpecConfig(draft="ngram", k=SPEC_K) if draft == "ngram" else \
+            SpecConfig(draft="model", k=SPEC_K, draft_params=cp,
+                       draft_backend=draft)
+        b = ServeEngine(model, cp, backend=be, kv_dtype=kv, **pkw)
+        base = baseline_rows(b, reqs, new)
+        if not _pool_clean(b.pool):
+            raise AssertionError(f"{tag}: the baseline's pool is not clean")
+        del b
+        freed(f"{tag}: paged baseline ({base[2]:.1f} tok/s)")
+        c = ServeEngine(model, cp, backend=be, spec=sp, **kw)
+        c._graphs = True
+        contig = spec_rows(c, reqs, new)
+        del c
+        freed(f"{tag}: contiguous spec")
+        e = ServeEngine(model, cp, backend=be, kv_dtype=kv, spec=sp, **pkw)
+
+        def after_serve(i, pool=e.pool, tag=tag):
+            if pool.reserved_extra or not _pool_clean(pool):
+                raise AssertionError(f"{tag}: serve {i} left pages "
+                                     f"referenced or {pool.reserved_extra} "
+                                     "reserved")
+        per_fwd = {f"{be}_matmul": 7 * n_l, "page_gather": n_l}
+        per_draft = {} if draft == "ngram" else {f"{draft}_matmul": 7 * n_l}
+        # int8 pages quantize K/V that the contiguous cache keeps in bf16:
+        # the parting check gates that comparison only on bf16 pages, and
+        # reports it on int8 pages (the paged baseline gates those)
+        res = spec_turns(tag, e, reqs, per_fwd, per_draft, base[:2],
+                         max_new=new,
+                         others={"contiguous spec": (*contig, kv == "bf16")},
+                         after_serve=after_serve)
+        res["baseline_serve_tok_s"] = base[2]
+        res["contiguous_round_ms"] = s_stats[f"{be}_{draft}"]["round_ms"]
+        step = p_stats[f"{be}_{kv}"]["graph"]["step"]
+        res["paged_decode_step_ms"] = step["graph"]["mean_wall_ms"]
+        res["pool"] = {"truncated_pages": e.pool.stats.truncated_pages,
+                       "cow_copies": e.pool.stats.cow_copies,
+                       "peak_pages_in_use": e.pool.stats.peak_pages_in_use,
+                       "hit_pages": e.pool.stats.hit_pages}
+        log(f"{tag}: round {res['round_ms']['graph']:.2f} ms (eager "
+            f"{res['round_ms']['eager']:.2f}) against the contiguous round "
+            f"{res['contiguous_round_ms']['graph']:.2f} ms of [spec] and the "
+            f"paged {kv} decode step {res['paged_decode_step_ms']:.2f} ms of "
+            f"phase 6 (graph route, 4 slots at 40 / 120); serve "
+            f"{res['serve_tok_s']['graph']:.1f} tok/s against the paged "
+            f"baseline's {base[2]:.1f}; pool: {res['pool']}")
+        for k_, v in res["launches"].items():
+            launches[k_] = launches.get(k_, 0) + v
+        res.pop("tokens")
+        stats[f"{be}_{kv}_{draft}"] = res
+        del e, after_serve
+        res["reserved_after_free_gib"] = freed(tag)
+    return stats, launches
+
+
+# --- [sched]: the step-level API, the scheduler and the server ------------------
+
+def sched_replay(dev, model, cp, trace, kv: str, graphs: bool = True):
+    """One ``Server.replay`` of ``trace`` on a fresh codebook engine at
+    ``CONTENDED_ENGINE_KW`` with ``kv`` pages.  Returns (engine, events,
+    streams, report, wall seconds, ``serve_step`` calls that decoded,
+    decode steps)."""
+    from repro_torch.serving import CONTENDED_ENGINE_KW, Server, ServeEngine
+    e = ServeEngine(model, cp, backend="codebook", kv_dtype=kv, device=dev,
+                    **CONTENDED_ENGINE_KW)
+    e._graphs = graphs
+    calls = {"serve_step": 0, "step": 0}
+    serve_step, step = e.serve_step, e._step
+
+    def count_serve_step(*a, **k):
+        toks, done = serve_step(*a, **k)
+        calls["serve_step"] += bool(toks)      # a round that decoded
+        return toks, done
+
+    def count_step(st):
+        calls["step"] += 1
+        step(st)
+    e.serve_step, e._step = count_serve_step, count_step
+    srv = Server(e)
+    rep, secs = timed(lambda: srv.replay(trace))
+    del e.serve_step, e._step
+    streams = {h.rid: list(h.tokens) for h in srv.sched.handles.values()}
+    return (e, srv.sched.events, streams, rep, secs, calls["serve_step"],
+            calls["step"])
+
+
+def sched_path(dev, cfg, model, cp) -> tuple[dict, dict]:
+    """The [sched] phase: phase 5's compressed qwen3-1.7b (the live
+    ``model`` and ``cp``, codebook) at the contended engine shape
+    ``CONTENDED_ENGINE_KW`` (max_len 48, 2 slots, page 8, 9 pages) under
+    ``Server.replay(contended_trace(1, vocab))``: two replays on fresh
+    engines with equal events, streams and reports; at least one
+    preemption, pages swapped out and in; launches per forward whose
+    wrappers ran (7 × 28 codebook_matmul, 28 page_gather) plus one
+    page_gather a swap-out; the pool clean and nothing reserved after;
+    every stream equal to the same engine shape's uncontended ``serve`` of
+    the same requests (rows are independent of the batch: exact); then
+    one replay with int8 pages, held the same way.  Wall seconds a replay
+    and device→host reads a ``serve_step`` (one a decode step, one after
+    the round).  Returns (stats, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import contended_trace
+    n_l = cfg.n_layers
+    trace = contended_trace(1, cfg.vocab)
+    prompts = [r["prompt"] for r in trace]
+    stops = [r["max_new"] for r in trace]
+    stats, launches, first = {}, {}, None
+    for i, kv in enumerate(("bf16", "bf16", "int8")):
+        tag = f"[sched] {kv} pages, replay {i}"
+        ops.reset_launch_counts()
+        e, events, streams, rep, secs, n_ss, n_steps = sched_replay(
+            dev, model, cp, trace, kv)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        fwd = called_forwards(e)
+        want = {"codebook_matmul": 7 * n_l * fwd,
+                "page_gather": n_l * fwd + rep.preemptions}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts} over {fwd} "
+                                 f"forwards and {rep.preemptions} swap-outs, "
+                                 f"want {want}")
+        if rep.preemptions < 1 or not (rep.pages_swapped_out
+                                       and rep.pages_swapped_in):
+            raise AssertionError(f"{tag}: not contended: {rep}")
+        if e.pool.reserved_extra or not _pool_clean(e.pool):
+            raise AssertionError(f"{tag}: pool not clean after the replay")
+        if i == 1 and (events, streams, rep.to_json()) != first:
+            raise AssertionError(f"{tag}: the second replay differs from "
+                                 "the first")
+        if i != 1:
+            want_t = e.serve(prompts, max_new=stops)
+            bad = [rid for rid, p in enumerate(prompts)
+                   if p + streams[rid] != want_t[rid]]
+            if bad:
+                raise AssertionError(f"{tag}: streams of requests {bad} "
+                                     "differ from the uncontended serve's")
+        if i == 0:
+            first = (events, streams, rep.to_json())
+        for k_, v in counts.items():
+            launches[k_] = launches.get(k_, 0) + v
+        stats[f"{kv}_{i}"] = {
+            "report": rep.to_json(), "wall_s": secs, "serve_steps": n_ss,
+            "decode_steps": n_steps,
+            "reads_per_serve_step": (n_steps + n_ss) / n_ss,
+            "forwards": fwd, "launches": counts, "replays": e.n_replays,
+            "captures": e.n_captures, "swapped_out_pool_refs":
+            e.pool.stats.swapped_out_pages}
+        log(f"{tag}: {len(trace)} requests, {rep.n_tokens} tokens, "
+            f"{rep.preemptions} preemptions, pages swapped out/in "
+            f"{rep.pages_swapped_out}/{rep.pages_swapped_in}; admission "
+            f"order {rep.admission_order}; wall {secs:.3f} s over {n_ss} "
+            f"serve_step calls ({n_steps} decode steps, "
+            f"{stats[f'{kv}_{i}']['reads_per_serve_step']:.2f} device→host "
+            f"reads a serve_step); launches {counts} over {fwd} forwards "
+            f"whose wrappers ran + {rep.preemptions} swap-out gathers; pool "
+            f"clean"
+            + ("; streams equal the uncontended serve's" if i != 1 else
+               "; events, streams and report equal the first replay's"))
+        del e
+    freed("[sched]")
+    return stats, launches
+
+
 def working_point(dev, prompts, chats, base, peaks) -> tuple:
     """Phase 7: the weights of phase 5 at the paper's working point,
     ``quantized(levels=32, n_weights=1000, method="kmeans")``, global.
@@ -2214,7 +2538,8 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
     from repro_torch.kernels import ops
     from repro_torch.models import layers as L
     from repro_torch.models.model_zoo import build
-    from repro_torch.serving import ServeEngine, to_codebook_params
+    from repro_torch.serving import (ServeEngine, SpecConfig,
+                                     to_codebook_params)
 
     cfg = configs.get("qwen3-1.7b").quantized(
         levels=ACT_LEVELS, n_weights=N_BOOK, method="kmeans")
@@ -2342,6 +2667,31 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
         stats[f"{name}_serve_tok_s"] = res["serve_tok_s"]["graph"]
         stats[f"{name}_serve_tok_s_eager"] = res["serve_tok_s"]["eager"]
     launches["kmeans_assign"] = cl_counts["kmeans_assign"]
+    del eng["paged"]
+    freed("[point] paged")
+
+    # the paged spec path at the working point: the gated launch in every
+    # verify and prefill chunk
+    e = ServeEngine(model, cp, backend="codebook", paged=True,
+                    page_size=PAGE, kv_dtype="int8", max_len=PAGED_MAX_LEN,
+                    max_batch=MAX_BATCH, device=dev,
+                    spec=SpecConfig(draft="ngram", k=SPEC_K))
+
+    def after_serve(i, pool=e.pool):
+        if pool.reserved_extra or not _pool_clean(pool):
+            raise AssertionError(f"[point] paged spec: serve {i} left the "
+                                 "pool unclean")
+    res = spec_turns("[point] paged spec, codebook, int8 pages, ngram draft",
+                     e, chats[:4], {"codebook_matmul": 5 * n_l,
+                                    "codebook_swiglu": n_l,
+                                    "page_gather": n_l}, {}, None, max_new=8,
+                     after_serve=after_serve)
+    for k_, v in res["launches"].items():
+        launches[k_] = launches.get(k_, 0) + v
+    res.pop("tokens")
+    stats["paged_spec"] = res
+    del e, after_serve
+    freed("[point] paged spec")
 
     # prefill logits codebook vs dense, with every FFN input captured: in
     # bf16 as served, then with the same index-form weights in f32
@@ -3088,6 +3438,9 @@ def main() -> int:
     stats, launches = main_path(dev, cfg, model, cp, prompts)
     p_stats, p_launches = paged_path(dev, cfg, model, cp, chats)
     s_stats, s_launches = spec_path(dev, cfg, model, cp, prompts, stats)
+    ps_stats, ps_launches = paged_spec_path(dev, cfg, model, cp, chats,
+                                            s_stats, p_stats)
+    sc_stats, sc_launches = sched_path(dev, cfg, model, cp)
     del model, cp
     torch.cuda.empty_cache()
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
@@ -3108,7 +3461,9 @@ def main() -> int:
                    "paged": p_launches.get(k, 0),
                    "working_point": w_launches.get(k, 0),
                    "kv_quant": q_launches.get(k, 0),
-                   "spec": s_launches.get(k, 0)}
+                   "spec": s_launches.get(k, 0),
+                   "paged_spec": ps_launches.get(k, 0),
+                   "sched": sc_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -3169,6 +3524,8 @@ def main() -> int:
     log("[done] working point " + json.dumps(w_stats))
     log("[done] kv_quant path " + json.dumps(q_stats))
     log("[done] spec path " + json.dumps(s_stats))
+    log("[done] paged spec path " + json.dumps(ps_stats))
+    log("[done] sched path " + json.dumps(sc_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """Attention: GQA + RoPE + qk-norm, flash-chunked prefill softmax, the
 contiguous KV-cache decode step and speculative verify, and the paged KV
-cache's chunked prefill and decode step with int8 pages (the port's copy of
-the single-device parts of ``repro/models/attention.py``).
+cache's chunked prefill, decode step and speculative verify with int8
+pages (the port's copy of the single-device parts of
+``repro/models/attention.py``).
 
 Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
 caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
@@ -21,9 +22,8 @@ from repro_torch.models.layers import dense, rms_norm
 
 __all__ = ["AttnConfig", "rope", "decode_attention", "flash_attention",
            "attn_apply", "attn_decode_cached", "attn_verify_cached",
-           "chunk_attention",
-           "attn_decode_paged", "attn_prefill_chunk", "quantize_kv",
-           "dequantize_kv", "KV_QMAX"]
+           "chunk_attention", "attn_decode_paged", "attn_verify_paged",
+           "attn_prefill_chunk", "quantize_kv", "dequantize_kv", "KV_QMAX"]
 
 NEG_INF = -1e30
 KV_QMAX = 127.0
@@ -367,6 +367,31 @@ def attn_decode_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     _store_token(k[:, 0], v[:, 0], k_pool, v_pool, scales, layer,
                  write_pid.long(), write_off.long())
     return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+
+
+def attn_verify_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
+                      write_off, valid_len, k_pool, v_pool, layer: int,
+                      scales=None,
+                      backend: dispatch.BackendSpec = dispatch.DENSE):
+    """Speculative verify of one layer against the paged cache (the paged
+    twin of ``attn_verify_cached``): gather the slots' pages, attend as
+    ``chunk_attention`` does (full to the valid prefix ``valid_len`` (B,),
+    causal among the K1 fresh tokens), then write each fresh token's K/V
+    (quantized, with their scales, for int8 pages) in place.
+
+    x: (B, K1, D); pos: (B, K1) RoPE positions; write_pid/write_off:
+    (B, K1) page and in-page offset of each token (the K1 tokens may
+    straddle a page boundary; positions past a slot's pages and retired
+    slots route to the trash page 0).  Returns the attention output
+    (B, K1, D).
+    """
+    B, K1, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
+    out = chunk_attention(q, k_l, v_l, valid_len, k, v)
+    _store_token(k, v, k_pool, v_pool, scales, layer, write_pid.long(),
+                 write_off.long())
+    return dense(p["wo"], out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
 
 
 def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,

@@ -1,7 +1,7 @@
 """Dense-family decoder LM: init, prefill, the contiguous decode step and
-speculative verify step, and the paged KV cache's chunked prefill and
-decode step (the port's copy of the
-dense-family serving parts of ``repro/models/transformer.py``).
+speculative verify step, and the paged KV cache's chunked prefill, decode
+step and speculative verify step (the port's copy of the dense-family
+serving parts of ``repro/models/transformer.py``).
 
 Parameters are a nested dict in the JAX package's layout: per-layer tensors
 are stacked under ``params['blocks']`` with a leading layer dim, and the
@@ -274,6 +274,45 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}
 
 
+def _verify_step_paged(params, cfg, tokens, cache, backend):
+    """Paged speculative verify: K1 tokens a slot against gathered pages.
+
+    Logical position ``pos + i`` of slot b is written at page
+    ``page_table[b, (pos + i) // page]``, offset ``(pos + i) % page``;
+    positions past the slot's page span (speculative overshoot beyond the
+    admission reservation, which the engine clamps away) and retired
+    slots (all-zero rows) route to the trash page 0.  The attendable
+    prefix is ``min(pos, P·page)``.
+    """
+    dt = _dtype(cfg)
+    pos = cache["pos"]
+    pt = cache["page_table"]
+    B, K1 = tokens.shape
+    page = cache["k"].shape[2]
+    P = pt.shape[1]
+    ppos = pos[:, None].long() + torch.arange(K1, device=tokens.device)[None]
+    pidx = ppos // page
+    rows = torch.arange(B, device=pt.device)[:, None]
+    write_pid = torch.where(pidx < P, pt[rows, torch.clamp(pidx, max=P - 1)],
+                            torch.zeros((), dtype=pt.dtype, device=pt.device))
+    write_off = ppos % page
+    vlen = torch.clamp(pos, max=P * page)
+    x = L.embed_lookup(params["embed"], tokens).to(dt)
+    acfg = attn_cfg(cfg)
+    scales = _paged_scales(cache)
+    for i in range(cfg.n_layers):
+        p_l = _layer(params["blocks"], i)
+        x = x + A.attn_verify_paged(
+            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=ppos,
+            page_table=pt, write_pid=write_pid, write_off=write_off,
+            valid_len=vlen, k_pool=cache["k"], v_pool=cache["v"], layer=i,
+            scales=scales, backend=backend)
+        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                         cfg.act_kind, cfg.act_levels, backend)
+    x = L.rms_norm(params["final_norm"], x)
+    return _logits(params, cfg, x, backend), cache
+
+
 def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     """Speculative verify: score K1 tokens per slot in one forward.
 
@@ -281,16 +320,15 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     Returns (logits (B, K1, V) at every position, the cache): ``logits[:,
     i]`` is the target's distribution for the token after ``tokens[:, i]``.
     K/V of all K1 tokens are written in place at rows pos..pos+K1−1 of each
-    slot (clamped to ``S − K1``; int8 with their scales under
-    ``cfg.kv_quant``); ``cache['pos']`` comes back unchanged: the caller
-    advances it by the accepted count, and the rejected rows above it are
-    fenced by every later step's valid length.  A cache with a
-    ``page_table`` raises: the paged verify is not ported yet.
+    slot (contiguous: clamped to ``S − K1``, int8 with their scales under
+    ``cfg.kv_quant``; a cache with a ``page_table`` is a page pool and
+    takes the paged verify, ``_verify_step_paged``); ``cache['pos']``
+    comes back unchanged: the caller advances it by the accepted count,
+    and the rejected rows above it are fenced by every later step's valid
+    length.
     """
     if "page_table" in cache:
-        raise NotImplementedError(
-            "verify_step on the paged cache is not ported yet (the paged "
-            "speculative path comes in a later slice)")
+        return _verify_step_paged(params, cfg, tokens, cache, backend)
     dt = _dtype(cfg)
     B, K1 = tokens.shape
     pos_v = cache["pos"]

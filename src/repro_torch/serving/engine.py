@@ -1,5 +1,6 @@
-"""Batched serving engine over the contiguous KV cache (the port's copy of
-the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
+"""Batched serving engine over the contiguous or the paged KV cache (the
+port's copy of the single-device ``ServeEngine`` of
+``repro/serving/engine.py``).
 
 * **Prefill** runs the whole right-padded prompt batch in one forward;
   prompt lengths are bucketed to powers of two (at least 8), logits come
@@ -22,31 +23,44 @@ the contiguous ``ServeEngine`` of ``repro/serving/engine.py``).
   slots.  Each request prefills alone and is spliced into a free slot at its
   own position offset; the loop exits when some request finishes, the slot
   is harvested, the next request admitted, and decoding resumes.
-* **Speculative** (``spec=SpecConfig(...)``, ``serve`` on the contiguous
-  cache): each loop iteration is a round — a draft (the n-gram
-  self-draft, or a second model under its own backend) proposes ``k``
-  tokens, the target scores all ``k + 1`` in one ``verify`` forward, and
-  ``spec_accept`` keeps the accepted prefix plus one token, the
-  counterpart of the reference's jitted ``_spec_loop_fn``.  The round's
-  carry extends the loop's static buffers (``_SpecSlots``: the token
-  history the n-gram draft reads, the draft's cache, the acceptance
-  counters).  At temperature 0 a round is one CUDA graph replay on the
-  card: proposal, verify, argmax acceptance, splices and counters.  Above
-  it the random parts stay outside graphs: each draft step replays a
-  captured draft forward and samples eagerly, and the verify replays a
-  captured forward, then ``spec_accept`` runs eagerly.
-* **Paged** (``paged=True``, ``serve`` only): requests are admitted when
-  the page pool (``serving/kvcache.PagePool``) can supply their pages, not
-  when a slot is free; prompts stream through page-sized prefill chunks,
-  shared prompt pages come from the prefix cache, and decode gathers each
-  slot's pages through ``kernels.ops.gather_pages_many``.  ``generate``
-  stays on the contiguous cache.
+* **Speculative** (``spec=SpecConfig(...)``, ``serve``): each loop
+  iteration is a round — a draft (the n-gram self-draft, or a second
+  model under its own backend) proposes ``k`` tokens, the target scores
+  all ``k + 1`` in one ``verify`` forward, and ``spec_accept`` keeps the
+  accepted prefix plus one token, the counterpart of the reference's
+  jitted ``_spec_loop_fn``.  The round's carry extends the loop's static
+  buffers (``_SpecSlots``: the token history the n-gram draft reads, the
+  draft's cache, the acceptance counters).  At temperature 0 a round is
+  one CUDA graph replay on the card: proposal, verify, argmax acceptance,
+  splices and counters.  Above it the random parts stay outside graphs:
+  each draft step replays a captured draft forward and samples eagerly,
+  and the verify replays a captured forward, then ``spec_accept`` runs
+  eagerly.
+* **Paged** (``paged=True``: ``serve`` and the step API): requests are
+  admitted when the page pool (``serving/kvcache.PagePool``) can supply
+  their pages, not when a slot is free; prompts stream through
+  page-sized prefill chunks, shared prompt pages come from the prefix
+  cache, and decode gathers each slot's pages through
+  ``kernels.ops.gather_pages_many``.  With ``spec`` the rounds run on the
+  pool (the model draft keeps a contiguous cache): before each the host
+  ``extend``s every active slot's pages over the span the verify writes,
+  after it ``truncate``s them back to the tokens kept, each edit an
+  in-place write into the static page table a captured round reads.  ``generate`` stays on the contiguous cache.
+* **Step-level scheduling** (``sched_*``, ``serve_step``): the control
+  flow ``serve`` owns is handed to an external scheduler
+  (``serving/scheduler.AsyncScheduler``): ``sched_state`` opens a session
+  on the same static state ``serve`` runs, ``sched_admit`` prefills one
+  request into one slot, ``serve_step`` decodes a bounded quantum of
+  tokens a slot through the same decode loop, and
+  ``sched_swap_out``/``sched_swap_in`` move a preempted request's K/V
+  (its pages, gathered by one ``page_gather`` launch, or its slot's rows)
+  to a host ``SwapBlob`` and back, bit-exact.  The engine reads no clock.
 
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Speculative decoding on the paged cache, tensor parallelism, probes,
-telemetry and the step-level scheduling API are not ported yet.
+Tensor parallelism, probes and the telemetry registry are not ported yet
+(``telemetry`` takes the null registry only).
 """
 
 from __future__ import annotations
@@ -58,14 +72,15 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, ops
 from repro_torch.models.model_zoo import Model
 from repro_torch.serving.kvcache import PagePool
 from repro_torch.serving.spec import (SpecConfig, SpecStats, filter_logits,
                                       ngram_propose, spec_accept,
                                       target_dist)
+from repro_torch.serving.telemetry import NULL_TELEMETRY
 
-__all__ = ["ServeEngine"]
+__all__ = ["ServeEngine", "SchedState", "SwapBlob"]
 
 _ENGINE_FAMILIES = ("dense",)
 
@@ -234,6 +249,52 @@ class _SpecSlots(_Slots):
 
 
 @dataclasses.dataclass
+class SchedState:
+    """One scheduler session's slot-pool state for the step-level API
+    (``sched_*``, ``serve_step``); callers treat it as opaque.
+
+    The per-slot vectors are host numpy mirrors of the decode loop's
+    carry: admissions, releases and swaps edit one slot at a time there,
+    ``serve_step`` copies them into the engine's static loop state
+    ``loop`` (the ``_Slots`` that ``serve`` runs) before a round and reads
+    them back after it.  ``pos`` are the slots' positions; a paged
+    engine also keeps the page-table mirror ``pt_np`` and each slot's
+    ``Admission`` (the pool lives on the engine)."""
+
+    live: np.ndarray                 # (B,) bool: slot occupied
+    last: np.ndarray                 # (B,) last sampled token
+    n_gen: np.ndarray                # (B,) tokens emitted
+    stops: np.ndarray                # (B,) stop lengths
+    out: np.ndarray                  # (B, max_len) the emitted tokens
+    pos: np.ndarray                  # (B,) positions
+    loop: _Slots                     # the static loop state
+    pt_np: np.ndarray | None = None  # paged: (B, P) page-table mirror
+    adm: list | None = None          # paged: each slot's Admission
+
+
+@dataclasses.dataclass
+class SwapBlob:
+    """Host image of one preempted request's serving state: what
+    ``sched_swap_out`` copies out and ``sched_swap_in`` writes back
+    verbatim (no recompute, no requantization).
+
+    ``data`` maps cache plane names to host tensors: the request's pages
+    with data (L, n_pages, page, ...) when paged, its slot's cache rows
+    (L, pos, ...) when contiguous.  ``reserve`` is the page reservation
+    ``swap_in`` claims again."""
+
+    paged: bool
+    pos: int                         # tokens whose K/V are written
+    stop: int                        # the request's stop length
+    n_gen: int                       # tokens emitted so far
+    last: int                        # last sampled token
+    reserve: int                     # paged: pages to claim again
+    n_pages: int                     # pages of data (the swap-cost unit)
+    out_row: np.ndarray              # the emitted tokens
+    data: dict                       # plane name -> host tensor
+
+
+@dataclasses.dataclass
 class ServeEngine:
     """Continuous-batching inference engine over one model + param set.
 
@@ -254,8 +315,10 @@ class ServeEngine:
                  page_size⌉ (the contiguous slab's capacity).
     device:      where the engine runs; None = the GPU (raises without one).
     seed:        seed of the sampling generator (temperature > 0).
-    spec:        speculative decoding (``SpecConfig``) for ``serve`` on the
-                 contiguous cache; ``paged=True`` with it raises.
+    telemetry:   the telemetry registry; None = the null registry (the
+                 only one ported).
+    spec:        speculative decoding (``SpecConfig``) for ``serve``, on the
+                 contiguous cache or (``paged=True``) the page pool.
 
     ``n_forwards`` counts model forwards run (prefill calls + decode
     steps, replayed or eager); ``n_captures`` the decode steps captured
@@ -288,8 +351,15 @@ class ServeEngine:
     device: object = None
     seed: int = 0
     spec: SpecConfig | None = None
+    telemetry: object = None
 
     def __post_init__(self):
+        if self.telemetry is None:
+            self.telemetry = NULL_TELEMETRY
+        elif self.telemetry is not NULL_TELEMETRY:
+            raise NotImplementedError(
+                "the telemetry registry is not ported yet (it comes with the "
+                "port's telemetry, router and fleet); pass telemetry=None")
         cfg = self.model.cfg
         if cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(
@@ -341,11 +411,6 @@ class ServeEngine:
         codebooks and fan-in, the embedding's included, with its tables
         attached to the draft params)."""
         sp = self.spec
-        if self.paged:
-            raise NotImplementedError(
-                "speculative decoding on the paged cache is not ported yet: "
-                "it comes with the paged speculative slice; serve spec on "
-                "the contiguous cache (paged=False)")
         if sp.draft not in ("ngram", "model"):
             raise ValueError(f"spec.draft {sp.draft!r} not in "
                              "('ngram', 'model')")
@@ -427,20 +492,26 @@ class ServeEngine:
         key = (batch, paged)
         st = self._slot_sets.get(key)
         if st is None:
-            if paged:
-                pool = self.pool
-                cache = {**pool.cache,
-                         "page_table": torch.zeros(
-                             (batch, pool.pages_per_slot), dtype=torch.int32,
-                             device=self.device),
-                         "pos": torch.zeros((batch,), dtype=torch.int32,
-                                            device=self.device)}
-            else:
-                cache = self.model.init_cache(batch, self.max_len,
-                                              dtype=self._cache_dtype,
-                                              device=self.device)
+            cache = (self._paged_slot_cache(batch) if paged
+                     else self._contiguous_cache(batch))
             st = self._slot_sets[key] = _Slots(cache, self.max_len)
         return st
+
+    def _contiguous_cache(self, batch: int) -> dict:
+        return self.model.init_cache(batch, self.max_len,
+                                     dtype=self._cache_dtype,
+                                     device=self.device)
+
+    def _paged_slot_cache(self, batch: int) -> dict:
+        """The pool's planes with a static all-trash ``page_table`` (batch,
+        pages a slot) and zero ``pos`` (batch,) of their own."""
+        pool = self.pool
+        return {**pool.cache,
+                "page_table": torch.zeros((batch, pool.pages_per_slot),
+                                          dtype=torch.int32,
+                                          device=self.device),
+                "pos": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
 
     def _advance(self, st: _Slots, nxt: torch.Tensor) -> None:
         """The body of ``_loop_fn`` after the forward, on ``st`` in place:
@@ -531,24 +602,25 @@ class ServeEngine:
 
     # --- speculative rounds -----------------------------------------------
 
-    def _new_spec_slots(self, batch: int) -> _SpecSlots:
-        """A fresh speculative loop state for ``batch`` slots: zeroed
-        contiguous caches for the target and, for a model draft, the
-        draft."""
-        def cache():
-            return self.model.init_cache(batch, self.max_len,
-                                         dtype=self._cache_dtype,
-                                         device=self.device)
-        return _SpecSlots(cache(), self.max_len, self.spec.k,
-                          cache() if self.spec.draft == "model" else None)
+    def _new_spec_slots(self, batch: int, paged: bool = False) -> _SpecSlots:
+        """A fresh speculative loop state for ``batch`` slots: the
+        target's zeroed contiguous cache or, paged, the pool with a page
+        table of its own (``_paged_slot_cache``); for a model draft, the
+        draft's zeroed contiguous cache (on either target cache)."""
+        target = (self._paged_slot_cache(batch) if paged
+                  else self._contiguous_cache(batch))
+        draft = (self._contiguous_cache(batch)
+                 if self.spec.draft == "model" else None)
+        return _SpecSlots(target, self.max_len, self.spec.k, draft)
 
-    def _spec_slots(self, batch: int) -> _SpecSlots:
+    def _spec_slots(self, batch: int, paged: bool = False) -> _SpecSlots:
         """The engine's static speculative loop state for ``batch`` slots
-        (``_new_spec_slots``), made once."""
-        key = (batch, False, "spec")
+        on the contiguous cache or the pool (``_new_spec_slots``), made
+        once."""
+        key = (batch, paged, "spec")
         st = self._slot_sets.get(key)
         if st is None:
-            st = self._slot_sets[key] = self._new_spec_slots(batch)
+            st = self._slot_sets[key] = self._new_spec_slots(batch, paged)
         return st
 
     def _draft_forward(self, st: _SpecSlots) -> torch.Tensor:
@@ -782,13 +854,27 @@ class ServeEngine:
         pool.cow(adm)     # shared tail page → private before decode writes
         return adm, int(self._sample(logits)[0])
 
-    def _serve_paged(self, prompts, stops_req):
+    def _check_fits(self, prompts, stops_req) -> None:
+        """Raise for a request whose pages can never fit the pool."""
         pool = self.pool
         for p, s in zip(prompts, stops_req):
             if pool.pages_needed(len(p), s) > pool.usable_pages:
                 raise ValueError(
                     f"request (prompt {len(p)} + {s} new) can never fit the "
                     f"{pool.usable_pages}-page pool")
+
+    @staticmethod
+    def _set_row(pt, b: int, adm) -> None:
+        """Row ``b`` of the static page table ``pt`` := ``adm``'s pages
+        (trash beyond them; all trash for None), written in place."""
+        row = [0] * pt.shape[1]
+        if adm is not None:
+            row[:len(adm.pids)] = adm.pids
+        pt[b] = torch.tensor(row, dtype=torch.int32)
+
+    def _serve_paged(self, prompts, stops_req):
+        pool = self.pool
+        self._check_fits(prompts, stops_req)
         n = len(prompts)
         B, cap = self.max_batch, max(stops_req)
         st = self._slots(B, paged=True)
@@ -810,8 +896,7 @@ class ServeEngine:
                 if adm is None:
                     break
                 queue.popleft()
-                pt[b, :len(adm.pids)] = torch.tensor(adm.pids,
-                                                     dtype=torch.int32)
+                self._set_row(pt, b, adm)
                 pos[b] = len(prompts[rid])
                 st.admit(b, first, stops_req[rid])
                 slot_rid[b], slot_adm[b] = rid, adm
@@ -830,6 +915,322 @@ class ServeEngine:
                     pos[b] = 0
                     slot_rid[b], slot_adm[b] = None, None
         return [results[i] for i in range(n)]
+
+    def _serve_paged_spec(self, prompts, stops_req):
+        """Paged continuous batching with speculative rounds (the
+        counterpart of the reference's ``_serve_paged_spec``), on the
+        static state ``_spec_slots(B, paged=True)``.  Admission releases
+        the worst-case tail (``truncate`` to the prompt); before each round
+        every active slot ``extend``s its live pages over the span the
+        verify writes (pos + k + 1), and after it ``truncate`` returns the
+        emptied tail pages (kept reserved for the request, so the next
+        extend cannot deadlock).  Each page-table edit is an in-place write
+        into the static table a captured round reads.  A slot's position
+        is known on the host: prompt length + tokens generated − 1.  The
+        round itself is ``_spec_step``: at temperature 0 one replay of
+        proposal, paged verify, acceptance and bookkeeping.  The model
+        draft keeps its contiguous cache."""
+        pool = self.pool
+        self._check_fits(prompts, stops_req)
+        n = len(prompts)
+        B, K1 = self.max_batch, self.spec.k + 1
+        st = self._spec_slots(B, paged=True)
+        st.reset()                          # all-trash page-table rows
+        if st.dcache is not None:
+            for plane in st.dcache["kv"].values():
+                plane.zero_()
+        pt, pos = st.cache["page_table"], st.cache["pos"]
+
+        queue = deque(range(n))
+        slot_rid: list[int | None] = [None] * B
+        slot_adm: list = [None] * B
+        rows: list = [None] * B             # each slot's row as last written
+        results: dict[int, list[int]] = {}
+
+        def set_row(b):
+            adm = slot_adm[b]
+            row = None if adm is None else tuple(adm.pids)
+            if row != rows[b]:
+                self._set_row(pt, b, adm)
+                rows[b] = row
+
+        def at(b):                          # the slot's position
+            return len(prompts[slot_rid[b]]) + int(st.h_n_gen[b]) - 1
+
+        while queue or any(r is not None for r in slot_rid):
+            for b in [b for b in range(B) if slot_rid[b] is None]:
+                if not queue:
+                    break
+                rid = queue[0]
+                adm, first = self._paged_admit(prompts[rid], stops_req[rid])
+                if adm is None:
+                    break
+                queue.popleft()
+                plen = len(prompts[rid])
+                slot_rid[b], slot_adm[b] = rid, adm
+                # release the worst-case tail: rounds extend it back page
+                # by page as speculation needs it
+                pool.truncate(adm, plen)
+                set_row(b)
+                pos[b] = plen
+                st.admit(b, first, stops_req[rid], prompts[rid])
+                if st.dcache is not None:
+                    toks1, len1 = self._pad_prompts([prompts[rid]])
+                    self._splice(st.dcache,
+                                 self._draft_prefill(toks1, len1)[1], b)
+            if queue and all(r is None for r in slot_rid):
+                raise RuntimeError(
+                    "paged admission deadlock: no request in flight and the "
+                    "pool cannot admit the next one")
+            act = [b for b in range(B)
+                   if slot_rid[b] is not None and st.h_active[b]]
+            if act:
+                for b in act:
+                    pool.extend(slot_adm[b], at(b) + K1)
+                    set_row(b)
+                self._spec_step(st)
+                for b in act:               # rollback: emptied tail pages
+                    pool.truncate(slot_adm[b], at(b))
+                    set_row(b)
+            for b in range(B):              # harvest retired slots
+                rid = slot_rid[b]
+                if rid is not None and not st.h_active[b]:
+                    results[rid] = (list(prompts[rid])
+                                    + st.out[b, :st.h_n_gen[b]].tolist())
+                    pool.retire(slot_adm[b])
+                    slot_rid[b], slot_adm[b] = None, None
+                    set_row(b)              # retired → trash page
+                    pos[b] = 0
+        self.spec_stats.add(*st.stats.tolist())
+        return [results[i] for i in range(n)]
+
+    # --- step-level scheduling API ------------------------------------------
+
+    def sched_check(self, prompt, stop: int) -> None:
+        """Raise for a request this engine could never admit (a scheduler
+        calls this at submission, so that it fails there and not in the
+        queue)."""
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        if stop < 1:
+            raise ValueError("max_new must be >= 1")
+        if len(prompt) + stop > self.max_len:
+            raise ValueError("prompt + max_new exceeds max_len")
+        if self.paged:
+            pool = self.pool
+            needed = pool.pages_needed(len(prompt), stop)
+            if needed > min(pool.pages_per_slot, pool.usable_pages):
+                raise ValueError(
+                    f"request needs {needed} pages but the slot holds "
+                    f"{pool.pages_per_slot} and the pool "
+                    f"{pool.usable_pages}")
+
+    def sched_state(self) -> SchedState:
+        """A scheduler session's state on the engine's static loop state
+        ``_slots(max_batch, paged)``, reset (and, contiguous, its cache
+        zeroed, as ``serve`` does): a ``serve`` call and a session may
+        follow each other on one engine.  The pool lives on the engine, so
+        its prefix cache persists across sessions as across serves."""
+        if self.spec is not None:
+            raise NotImplementedError(
+                "the step-level API drives plain decode rounds; speculative "
+                "serve() remains a batch mode")
+        B = self.max_batch
+        loop = self._slots(B, self.paged)
+        loop.reset()
+        if not self.paged:
+            for plane in loop.cache["kv"].values():
+                plane.zero_()
+        st = SchedState(
+            live=np.zeros((B,), bool), last=np.zeros((B,), np.int64),
+            n_gen=np.zeros((B,), np.int64), stops=np.ones((B,), np.int64),
+            out=np.zeros((B, self.max_len), np.int64),
+            pos=np.zeros((B,), np.int64), loop=loop)
+        if self.paged:
+            st.pt_np = np.zeros((B, self.pool.pages_per_slot), np.int32)
+            st.adm = [None] * B
+        return st
+
+    @staticmethod
+    def _start_slot(st: SchedState, slot: int, pos: int, stop: int,
+                    out_row) -> None:
+        """Slot ``slot``'s mirrors: a request at ``pos`` with stop length
+        ``stop`` that has emitted ``out_row``; then it is live."""
+        st.pos[slot] = pos
+        st.stops[slot] = stop
+        st.n_gen[slot] = len(out_row)
+        st.last[slot] = out_row[-1]
+        st.out[slot] = 0
+        st.out[slot, :len(out_row)] = out_row
+        st.live[slot] = True
+
+    def sched_admit(self, st: SchedState, slot: int, prompt,
+                    stop: int) -> int | None:
+        """Prefill one request into free slot ``slot``.  Returns its first
+        sampled token, or None when the pool cannot supply its page
+        reservation yet (nothing is allocated then)."""
+        prompt = list(prompt)
+        if self.paged:
+            adm, first = self._paged_admit(prompt, stop)
+            if adm is None:
+                self.telemetry.count("engine.admit_blocked")
+                return None
+            st.adm[slot] = adm
+            st.pt_np[slot] = 0
+            st.pt_np[slot, :len(adm.pids)] = adm.pids
+        else:
+            toks1, len1 = self._pad_prompts([prompt])
+            lg1, c1 = self._prefill(toks1, len1)
+            first = int(self._sample(lg1)[0])
+            self._splice(st.loop.cache, c1, slot)
+        self._start_slot(st, slot, len(prompt), stop, [first])
+        return first
+
+    def _load(self, st: SchedState, active, stops) -> None:
+        """The mirrors into the static loop state, before a round: every
+        buffer a step reads, so that nothing of an earlier round or
+        ``serve`` survives into the replay."""
+        loop = st.loop
+        for dst, src in ((loop.last, st.last), (loop.n_gen, st.n_gen),
+                         (loop.stops, stops), (loop.out, st.out),
+                         (loop.active, active), (loop.cache["pos"], st.pos)):
+            dst.copy_(torch.from_numpy(src))
+        if self.paged:
+            loop.cache["page_table"].copy_(torch.from_numpy(st.pt_np))
+        loop.h_active = active.copy()
+        loop.h_n_gen = st.n_gen.copy()
+
+    def serve_step(self, st: SchedState, quantum: int = 1):
+        """One bounded decode round: every live, unfinished slot emits up
+        to ``quantum`` tokens in lockstep (``serve``'s decode loop on the
+        same static state, with per-round stop lengths; one CUDA graph
+        replay a step on the card), then one read brings the round's
+        tokens, counts and positions back to the mirrors.
+
+        Returns ``(tokens, finished)``: the new tokens per slot, and the
+        slots whose requests reached their stop (the caller harvests and
+        ``sched_release``s them)."""
+        act = st.live & (st.n_gen < st.stops)
+        if not act.any():
+            return {}, []
+        prev = st.n_gen.copy()
+        self._load(st, act, np.minimum(st.stops, st.n_gen + quantum))
+        loop = st.loop
+        self._decode_loop(loop, self.max_len, stop_on_event=False)
+        B = len(act)
+        back = torch.cat([loop.last, loop.n_gen,
+                          loop.cache["pos"].to(torch.int64),
+                          loop.out.reshape(-1)]).to("cpu").numpy()
+        st.last, st.n_gen = back[:B].copy(), back[B:2 * B].copy()
+        st.pos, st.out = back[2 * B:3 * B].copy(), \
+            back[3 * B:].reshape(B, -1).copy()
+        toks, done = {}, []
+        for b in range(B):
+            if not st.live[b]:
+                continue
+            if st.n_gen[b] > prev[b]:
+                toks[b] = st.out[b, prev[b]:st.n_gen[b]].tolist()
+            if st.n_gen[b] >= st.stops[b]:
+                done.append(b)
+        tel = self.telemetry
+        if tel.enabled and toks:
+            tel.count("engine.steps")
+            tel.count("engine.tokens", sum(len(t) for t in toks.values()))
+            tel.observe("engine.batch_occupancy", len(toks))
+            tel.count("engine.stops_finished", len(done))
+            tel.count("engine.stops_quantum", len(toks) - len(done))
+        return toks, done
+
+    def sched_release(self, st: SchedState, slot: int) -> None:
+        """Retire a finished slot.  Paged: the request's pages go back to
+        the pool (its prefix registration included, as in ``serve``);
+        contiguous: the next admission's splice overwrites its rows."""
+        if self.paged:
+            self.pool.retire(st.adm[slot])
+            st.adm[slot] = None
+            st.pt_np[slot] = 0
+        st.pos[slot] = 0
+        st.live[slot] = False
+
+    def _gather_pages(self, pids) -> dict:
+        """Every plane's pages ``pids`` of every layer, on the host: one
+        ``ops.gather_pages_many`` launch for the whole request, each
+        (L, n_pages, page, ...) plane viewed as an (L·n_pages, page, ...)
+        pool and gathered with an (L, len(pids)) table of ``pid + l ·
+        n_pages``.  The copy to the host is a blocking one: it has
+        completed when this returns."""
+        cache = self.pool.cache
+        planes = list(cache.values())
+        L, n_pages = planes[0].shape[:2]
+        table = (torch.as_tensor(pids, dtype=torch.int32)[None]
+                 + n_pages * torch.arange(L, dtype=torch.int32)[:, None])
+        got = ops.gather_pages_many(
+            [p.reshape((L * n_pages,) + tuple(p.shape[2:])) for p in planes],
+            table.to(self.device))
+        return {k: g.to("cpu") for k, g in zip(cache, got)}
+
+    def sched_swap_out(self, st: SchedState, slot: int) -> SwapBlob:
+        """Preempt slot ``slot``: copy its K/V to a host blob, then release
+        its device resources (paged: page references drop, prefix-cache
+        entries survive: ``PagePool.swap_out``).  The copy completes
+        before the release, since a released page can be allocated and
+        written by the next admission at once."""
+        gen, stop = int(st.n_gen[slot]), int(st.stops[slot])
+        last, pos = int(st.last[slot]), int(st.pos[slot])
+        out_row = st.out[slot, :gen].copy()
+        n_data = -(-pos // self.page_size)
+        if self.paged:
+            adm = st.adm[slot]
+            reserve = adm.reserve
+            data = self._gather_pages(adm.pids[:n_data])
+            self.pool.swap_out(adm)
+            st.adm[slot] = None
+            st.pt_np[slot] = 0
+        else:
+            reserve = 0
+            data = {k: v[:, slot, :pos].to("cpu", copy=True)
+                    for k, v in st.loop.cache["kv"].items()}
+        st.pos[slot] = 0
+        st.live[slot] = False
+        return SwapBlob(paged=self.paged, pos=pos, stop=stop, n_gen=gen,
+                        last=last, reserve=reserve, n_pages=n_data,
+                        out_row=out_row, data=data)
+
+    def sched_swap_in(self, st: SchedState, slot: int,
+                      blob: SwapBlob) -> bool:
+        """Restore a swapped-out request into free slot ``slot``, bit-exact
+        (its pages or rows written back verbatim, in place), so that its
+        continuation equals a run that was never preempted.  Returns False
+        when the pool cannot supply its reservation yet.  The blob may come
+        from another engine of the same cache layout; a plane whose layout
+        does not match raises."""
+        if self.paged:
+            pool = self.pool
+            for k, v in pool.cache.items():
+                d = blob.data.get(k)
+                if d is None or tuple(d.shape[2:]) != tuple(v.shape[2:]) \
+                        or d.shape[0] != v.shape[0]:
+                    raise ValueError(
+                        f"swap-in blob plane {k!r} does not match this "
+                        "engine's cache layout: migration needs identically "
+                        "shaped replicas")
+            adm = pool.swap_in(blob.reserve)
+            if adm is None:
+                self.telemetry.count("engine.swap_in_blocked")
+                return False
+            pids = torch.as_tensor(adm.pids[:blob.n_pages],
+                                   device=self.device)
+            for k, v in pool.cache.items():
+                v[:, pids] = blob.data[k].to(self.device, v.dtype)
+            st.adm[slot] = adm
+            st.pt_np[slot] = 0
+            st.pt_np[slot, :len(adm.pids)] = adm.pids
+        else:
+            for k, v in st.loop.cache["kv"].items():
+                v[:, slot] = 0
+                v[:, slot, :blob.pos] = blob.data[k].to(self.device, v.dtype)
+        self._start_slot(st, slot, blob.pos, blob.stop, blob.out_row)
+        return True
 
     # --- public API --------------------------------------------------------
 
@@ -876,6 +1277,8 @@ class ServeEngine:
                     "prompt + max_new + spec.k exceeds max_len (the verify "
                     "forward needs k rows of speculative headroom)")
         if self.paged:
+            if self.spec is not None:
+                return self._serve_paged_spec(prompts, stops_req)
             return self._serve_paged(prompts, stops_req)
         B, cap = self.max_batch, max(stops_req)
         spec = self.spec is not None

@@ -28,7 +28,8 @@ does).  Params cross through the bridge; inputs are seeded through numpy.
   ``spec_accept``'s first emitted token follows the target's distribution
   (a chi-square test over 20,000 draws at a fixed seed, point-mass and
   model drafts alike);
-* validation, and ``paged=True`` with ``spec`` refused.
+* validation, and ``paged=True`` with ``spec`` accepted (held against
+  the reference in ``test_torch_paged_spec.py``).
 
 The ``cuda`` tests need the card (``pytest -m cuda``): the graph route
 against the eager route on qwen3-1.7b at full width (2 layers) and
@@ -660,16 +661,26 @@ def test_spec_config_validation(qwen):
         e.serve([[1, 2, 3, 4]], max_new=10)       # 4 + 10 + 4 > 16
 
 
-def test_paged_spec_is_refused(qwen):
-    """The paged speculative path is the next slice: an explicit refusal,
-    not a fallback; ``verify_step`` refuses a paged cache too."""
-    with pytest.raises(NotImplementedError, match="paged"):
-        TEngine(qwen.tmodel, qwen.tparams["dense"], paged=True,
-                device="cpu", spec=TSpec(draft="ngram"))
-    cache = {"k": torch.zeros(1), "page_table": torch.zeros((1, 1)),
-             "pos": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="paged"):
-        TT.verify_step({}, qwen.tmodel.cfg, torch.zeros((1, 2)), cache)
+def test_paged_spec_is_accepted(qwen):
+    """``paged=True`` with ``spec`` serves (``tests/test_torch_paged_spec.py``
+    holds it against the reference), and ``verify_step`` takes a page pool:
+    logits for every token, ``pos`` unchanged, the K1 tokens written into
+    the slot's page."""
+    e = TEngine(qwen.tmodel, qwen.tparams["dense"], paged=True, page_size=4,
+                max_len=32, max_batch=2, device="cpu",
+                spec=TSpec(draft="ngram", k=3))
+    assert e.serve(PROMPTS[:2], max_new=4) == TEngine(
+        qwen.tmodel, qwen.tparams["dense"], max_len=32, max_batch=2,
+        device="cpu").serve(PROMPTS[:2], max_new=4)
+    cache = {**qwen.tmodel.init_paged_cache(4, 4, torch.float32, "cpu"),
+             "page_table": torch.tensor([[1, 2]], dtype=torch.int32),
+             "pos": torch.tensor([2], dtype=torch.int32)}
+    logits, out = TT.verify_step(qwen.tparams["dense"], qwen.tmodel.cfg,
+                                 torch.tensor([[5, 6, 7, 8]]), cache)
+    assert logits.shape[:2] == (1, 4) and out["pos"].tolist() == [2]
+    written = cache["k"].abs().sum(dim=(0, 3, 4))       # (page, offset)
+    assert (written[1, 2:] > 0).all() and (written[2, :2] > 0).all()
+    assert written[1, :2].sum() == 0 and written[3].sum() == 0
 
 
 # --- on the card -------------------------------------------------------------------
