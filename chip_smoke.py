@@ -106,6 +106,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    swap-out, the pool clean, every stream equal to the uncontended
    ``serve``'s of the same requests; then once with int8 pages; wall
    seconds and device→host reads a round;
+   [fleet], the telemetry registry, the router and the multi-replica
+   fleet (``Fleet``): the reduced 2-layer qwen3 on 2 replicas with one
+   ``Telemetry`` replaying the contended trace on the card and on the CPU
+   (event digest, streams, report, snapshot, event log and Perfetto JSON
+   equal, the kernels section aside); then on phase 5's model (codebook,
+   bf16 pages) at the contended shape: drain migration on 2 replicas in
+   both replica orders and once with a ``Telemetry`` (equal digests,
+   streams equal to one ``Server.replay``'s, requests and pages migrated,
+   equal device→host reads a ``serve_step``, the registry's counters
+   against the report), and the shared prefix tier against no tier
+   (equal tokens, tier hits, fewer pages materialized, the tier's capture
+   timed); launches per forward plus one page_gather a swap-out, every
+   pool clean;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
@@ -2411,17 +2424,14 @@ def paged_spec_path(dev, cfg, model, cp, chats, s_stats, p_stats
 
 # --- [sched]: the step-level API, the scheduler and the server ------------------
 
-def sched_replay(dev, model, cp, trace, kv: str, graphs: bool = True):
-    """One ``Server.replay`` of ``trace`` on a fresh codebook engine at
-    ``CONTENDED_ENGINE_KW`` with ``kv`` pages.  Returns (engine, events,
-    streams, report, wall seconds, ``serve_step`` calls that decoded,
-    decode steps)."""
-    from repro_torch.serving import CONTENDED_ENGINE_KW, Server, ServeEngine
-    e = ServeEngine(model, cp, backend="codebook", kv_dtype=kv, device=dev,
-                    **CONTENDED_ENGINE_KW)
-    e._graphs = graphs
-    calls = {"serve_step": 0, "step": 0}
-    serve_step, step = e.serve_step, e._step
+def count_calls(e, calls: dict | None = None) -> dict:
+    """Count, on engine ``e`` into ``calls``, the ``serve_step`` calls that
+    decoded, the decode steps run (one device→host read each, and one
+    after each such ``serve_step``) and the swap-outs (one page_gather
+    launch each).  ``uncount`` takes the counters off."""
+    calls = {"serve_step": 0, "step": 0, "swap_out": 0} if calls is None \
+        else calls
+    serve_step, step, swap_out = e.serve_step, e._step, e.sched_swap_out
 
     def count_serve_step(*a, **k):
         toks, done = serve_step(*a, **k)
@@ -2431,10 +2441,32 @@ def sched_replay(dev, model, cp, trace, kv: str, graphs: bool = True):
     def count_step(st):
         calls["step"] += 1
         step(st)
-    e.serve_step, e._step = count_serve_step, count_step
+
+    def count_swap_out(*a):
+        calls["swap_out"] += 1
+        return swap_out(*a)
+    e.serve_step, e._step, e.sched_swap_out = (count_serve_step, count_step,
+                                               count_swap_out)
+    return calls
+
+
+def uncount(e) -> None:
+    del e.serve_step, e._step, e.sched_swap_out
+
+
+def sched_replay(dev, model, cp, trace, kv: str, graphs: bool = True):
+    """One ``Server.replay`` of ``trace`` on a fresh codebook engine at
+    ``CONTENDED_ENGINE_KW`` with ``kv`` pages.  Returns (engine, events,
+    streams, report, wall seconds, ``serve_step`` calls that decoded,
+    decode steps)."""
+    from repro_torch.serving import CONTENDED_ENGINE_KW, Server, ServeEngine
+    e = ServeEngine(model, cp, backend="codebook", kv_dtype=kv, device=dev,
+                    **CONTENDED_ENGINE_KW)
+    e._graphs = graphs
+    calls = count_calls(e)
     srv = Server(e)
     rep, secs = timed(lambda: srv.replay(trace))
-    del e.serve_step, e._step
+    uncount(e)
     streams = {h.rid: list(h.tokens) for h in srv.sched.handles.values()}
     return (e, srv.sched.events, streams, rep, secs, calls["serve_step"],
             calls["step"])
@@ -2514,6 +2546,298 @@ def sched_path(dev, cfg, model, cp) -> tuple[dict, dict]:
         del e
     freed("[sched]")
     return stats, launches
+
+
+# --- [fleet]: the telemetry registry, the router and the fleet ---------------
+
+def fleet_run(engines: dict, trace, tel=None, drain_at=(), **kw):
+    """One ``Fleet.replay`` of ``trace`` over ``engines`` (id → engine),
+    with registry ``tel`` (None = the null one) and ``Fleet`` keywords
+    ``kw``.  Returns (fleet, record, wall s, calls summed over the
+    replicas, as ``count_calls``), where the record is (event digest,
+    merged events, streams by fleet request id, report JSON)."""
+    from repro_torch.serving import Fleet
+    calls = None
+    for e in engines.values():
+        calls = count_calls(e, calls)
+    f = Fleet(engines, telemetry=tel, **kw)
+    rep, secs = timed(lambda: f.replay(trace, drain_at=drain_at))
+    for e in engines.values():
+        uncount(e)
+    rec = (f.event_digest(), list(f.events),
+           {frid: list(h.tokens) for frid, h in f.handles.items()},
+           rep.to_json())
+    return f, rec, secs, calls
+
+
+def telemetry_record(tel) -> tuple:
+    """(snapshot JSON without its kernels section, event log JSON,
+    Perfetto JSON, the kernels section)."""
+    snap = json.loads(tel.snapshot_json())
+    kern = snap.pop("kernels")
+    return (json.dumps(snap, sort_keys=True, separators=(",", ":")),
+            tel.event_log_json(), json.dumps(tel.to_perfetto(),
+                                             sort_keys=True), kern)
+
+
+def fleet_reduced(dev) -> dict:
+    """[fleet] (a): the reduced 2-layer qwen3 of ``reduced_spec_model``
+    (f32, |W| = 256, codebook), 2 replicas at ``CONTENDED_ENGINE_KW`` with
+    one ``Telemetry``, replaying ``contended_trace(1, vocab)`` on the card
+    and on the CPU: event digest, events, streams, report, snapshot, event
+    log and Perfetto JSON equal; the kernels section (on the card the
+    launches since attach, on the CPU none) equal to the launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (CONTENDED_ENGINE_KW, ServeEngine,
+                                     Telemetry, contended_trace)
+    model, params = reduced_spec_model(dev)
+    trace = contended_trace(1, model.cfg.vocab)
+    got, out = {}, {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        ops.reset_launch_counts()
+        tel = Telemetry()
+        f, rec, secs, calls = fleet_run(
+            {r: ServeEngine(model, params[where]["index"], backend="codebook",
+                            device=device, **CONTENDED_ENGINE_KW)
+             for r in ("r0", "r1")}, trace, tel)
+        *trec, kern = telemetry_record(tel)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        if kern != {f"launch.{k}": v for k, v in counts.items()}:
+            raise AssertionError(f"[fleet] reduced, {where}: kernels section "
+                                 f"{kern} != launches {counts}")
+        fwd = sum(called_forwards(s.engine) for s in f.replicas.values())
+        want = ({"codebook_matmul": 7 * model.cfg.n_layers * fwd,
+                 "page_gather": model.cfg.n_layers * fwd + calls["swap_out"]}
+                if where == "card" else {})
+        if counts != want:
+            raise AssertionError(f"[fleet] reduced, {where}: launches "
+                                 f"{counts}, want {want}")
+        got[where] = (rec, trec)
+        out[where] = {"wall_s": secs, "launches": counts,
+                      "preemptions": rec[3]["preemptions"]}
+        del f, tel                # the registry's providers hold the pools
+    if got["card"] != got["cpu"]:
+        parts = ("digest", "events", "streams", "report")
+        bad = [n for n, a, b in zip(parts, got["card"][0], got["cpu"][0])
+               if a != b] + [n for n, a, b in zip(
+                   ("snapshot", "event log", "perfetto"), got["card"][1],
+                   got["cpu"][1]) if a != b]
+        raise AssertionError(f"[fleet] reduced: card and CPU differ in {bad}")
+    log(f"[fleet] reduced 2-layer qwen3 (f32, codebook), 2 replicas at the "
+        f"contended shape, contended_trace(1): event digest "
+        f"{got['card'][0][0][:16]}…, events, streams, report, snapshot, "
+        f"event log and Perfetto JSON (kernels section aside) on the card "
+        f"equal the CPU's; {got['card'][0][3]['preemptions']} preemptions; "
+        f"card launches {out['card']['launches']} = the kernels section; "
+        f"wall card {out['card']['wall_s']:.3f} s, CPU "
+        f"{out['cpu']['wall_s']:.3f} s")
+    freed("[fleet] reduced")
+    return out
+
+
+def fleet_path(dev, cfg, model, cp) -> tuple[dict, dict]:
+    """The [fleet] phase.  (a) ``fleet_reduced``.  (b) Phase 5's compressed
+    qwen3-1.7b (the live ``model`` and ``cp``, codebook, bf16 pages) at
+    ``CONTENDED_ENGINE_KW``, each fleet built fresh and freed before the
+    next:
+
+    * drain migration: ``poisson_trace(7, 10, rate 80)`` on 2 replicas with
+      ``migrate_on_drain`` and r0 drained at 0.08 s, run as r0, r1 and as
+      r1, r0 (null registry), then r0, r1 with a ``Telemetry``: equal
+      digests, events, streams and reports, at least one request and one
+      page migrated, every stream equal to one ``Server.replay``'s of the
+      trace, equal ``serve_step`` calls, decode steps and swap-outs (so
+      equal device→host reads a ``serve_step``: the registry adds no
+      device read); the registry's ``rN.sched.*`` and ``fleet.*`` counters
+      against the report, its kernels section against the launches, and
+      its summary logged;
+    * the shared tier: two requests sharing a two-page system prompt,
+      round robin, without and with ``shared_prefix_tier``: equal tokens,
+      at least 2 tier hits, fewer pages materialized with the tier; the
+      tier's capture (``register_prefill``, one blocking copy a page a
+      plane) timed between synchronizations.
+
+    Every fleet: launches summed over the replicas = 7 × L codebook_matmul
+    and L page_gather a forward whose wrappers ran, plus one page_gather a
+    swap-out (preemptions, and migrations of running requests); every
+    pool clean and nothing reserved.  Returns (stats, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (CONTENDED_ENGINE_KW, Server,
+                                     ServeEngine, Telemetry, poisson_trace)
+    n_l = cfg.n_layers
+    stats, launches = {"reduced": fleet_reduced(dev)}, {}
+
+    def engines(order):
+        return {r: ServeEngine(model, cp, backend="codebook", device=dev,
+                               **CONTENDED_ENGINE_KW) for r in order}
+
+    def checked(tag, f, calls) -> tuple[dict, int]:
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        fwd = sum(called_forwards(s.engine) for s in f.replicas.values())
+        want = {"codebook_matmul": 7 * n_l * fwd,
+                "page_gather": n_l * fwd + calls["swap_out"]}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts} over {fwd} "
+                                 f"forwards and {calls['swap_out']} "
+                                 f"swap-outs, want {want}")
+        pre = f.report().preemptions
+        if not pre <= calls["swap_out"] <= pre + f.n_migrated:
+            raise AssertionError(f"{tag}: {calls['swap_out']} swap-outs for "
+                                 f"{pre} preemptions and {f.n_migrated} "
+                                 "migrations")
+        for r, s in f.replicas.items():
+            if s.engine.pool.reserved_extra or not _pool_clean(s.engine.pool):
+                raise AssertionError(f"{tag}: {r}'s pool not clean")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return counts, fwd
+
+    # drain migration, against one server's replay
+    trace = poisson_trace(7, 10, rate=80.0, vocab=cfg.vocab, plen=(2, 9),
+                          max_new=(6, 10))
+    srv = Server(ServeEngine(model, cp, backend="codebook", device=dev,
+                             **CONTENDED_ENGINE_KW))
+    _, secs = timed(lambda: srv.replay(trace))
+    want = {rid: list(h.tokens) for rid, h in srv.sched.handles.items()}
+    stats["server_wall_s"] = secs
+    del srv
+    freed("[fleet] server")
+    first = None
+    for i, (order, on) in enumerate(((["r0", "r1"], False),
+                                     (["r1", "r0"], False),
+                                     (["r0", "r1"], True))):
+        tag = (f"[fleet] migration {','.join(order)}, "
+               + ("telemetry" if on else "null registry"))
+        ops.reset_launch_counts()
+        tel = Telemetry() if on else None
+        f, rec, secs, calls = fleet_run(engines(order), trace, tel,
+                                        migrate_on_drain=True,
+                                        drain_at=[(0.08, "r0")])
+        counts, fwd = checked(tag, f, calls)
+        if f.n_migrated < 1 or f.n_migrated_pages < 1:
+            raise AssertionError(f"{tag}: nothing migrated ({f.n_migrated} "
+                                 f"requests, {f.n_migrated_pages} pages)")
+        if rec[2] != want:
+            bad = [k for k in want if rec[2].get(k) != want[k]]
+            raise AssertionError(f"{tag}: streams of requests {bad} differ "
+                                 "from the server's replay")
+        if first is None:
+            first = (rec, calls)
+        elif (rec, calls) != first:
+            bad = [n for n, a, b in zip(("digest", "events", "streams",
+                                         "report"), rec, first[0]) if a != b]
+            raise AssertionError(f"{tag}: differs from the first run in "
+                                 f"{bad}, calls {calls} vs {first[1]}")
+        rep = f.report()
+        res = {"wall_s": secs, "launches": counts, "forwards": fwd,
+               "calls": calls, "migrated": f.n_migrated,
+               "migrated_pages": f.n_migrated_pages,
+               "reads_per_serve_step": (calls["step"] + calls["serve_step"])
+               / calls["serve_step"], "report": rep.to_json()}
+        if tel is not None:
+            *_, kern = telemetry_record(tel)
+            if kern != {f"launch.{k}": v for k, v in counts.items()}:
+                raise AssertionError(f"{tag}: kernels section {kern} != "
+                                     f"launches {counts}")
+            c = tel.snapshot()["counters"]
+            sums = {k: sum(c.get(f"{r}.sched.{k}", 0) for r in f.replicas)
+                    for k in ("preemptions", "pages_swapped_out",
+                              "pages_swapped_in", "finished")}
+            have = {"preemptions": rep.preemptions,
+                    "pages_swapped_out": rep.pages_swapped_out,
+                    "pages_swapped_in": rep.pages_swapped_in,
+                    "finished": rep.n_requests}
+            if sums != have or c.get("fleet.migrated") != f.n_migrated \
+                    or c.get("fleet.routed") != len(trace) + f.n_migrated:
+                raise AssertionError(f"{tag}: counters {c} disagree with "
+                                     f"the report {have}")
+            for line in tel.summary().splitlines():
+                log(f"{tag}: {line}")
+            log(f"{tag}: [telemetry] " + ", ".join(
+                f"{k}={v}" for k, v in sorted(c.items())
+                if k.startswith("fleet.") or ".sched." in k))
+        stats[f"migration_{i}"] = res
+        log(f"{tag}: {len(trace)} requests, {rep.n_tokens} tokens, "
+            f"{f.n_migrated} migrated ({f.n_migrated_pages} pages), "
+            f"{rep.preemptions} preemptions, {calls['swap_out']} swap-outs; "
+            f"digest {rec[0][:16]}…; wall {secs:.3f} s; "
+            f"{calls['serve_step']} serve_step calls, {calls['step']} decode "
+            f"steps ({res['reads_per_serve_step']:.2f} device→host reads a "
+            f"serve_step); launches {counts} over {fwd} forwards whose "
+            f"wrappers ran; pools clean; streams equal the server's"
+            + ("" if i == 0 else "; digest, events, streams, report and "
+               "calls equal the first run's"))
+        del f, tel                # the registry's providers hold the pools
+        freed(tag)
+
+    # the shared prefix tier
+    page = CONTENDED_ENGINE_KW["page_size"]
+    sys_prompt = list(range(1, 2 * page + 1))
+    ttrace = [{"arrival": 0.0, "prompt": sys_prompt + [5, 6], "max_new": 4},
+              {"arrival": 0.4, "prompt": sys_prompt + [9], "max_new": 4}]
+    tier_runs = {}
+    for tier in (False, True):
+        tag = f"[fleet] shared tier {'on' if tier else 'off'}"
+        ops.reset_launch_counts()
+        eng = engines(["r0", "r1"])
+        capture = {"s": 0.0, "calls": 0}
+        for r in eng:
+            time_register(eng[r].pool, capture)
+        f, rec, secs, calls = fleet_run(eng, ttrace, policy="round_robin",
+                                        shared_prefix_tier=tier)
+        counts, fwd = checked(tag, f, calls)
+        ts = f.shared_tier_stats()
+        res = {"wall_s": secs, "launches": counts, "forwards": fwd,
+               "materialized_pages": f.materialized_pages(),
+               "tier": ts, "register_prefill_s": capture["s"],
+               "register_prefill_calls": capture["calls"]}
+        if tier:
+            planes = len(eng["r0"].pool.cache)
+            res["capture_ms_per_page_plane"] = (
+                1e3 * capture["s"] / (ts["puts"] * planes))
+        tier_runs[tier] = (rec, res)
+        stats[f"tier_{'on' if tier else 'off'}"] = res
+        log(f"{tag}: wall {secs:.3f} s; materialized pages "
+            f"{res['materialized_pages']}; tier {ts}; register_prefill "
+            f"{capture['calls']} calls, {1e3 * capture['s']:.3f} ms in all"
+            + (f" ({res['capture_ms_per_page_plane']:.3f} ms a page a "
+               f"plane over {ts['puts']} pages × {planes} planes)"
+               if tier else "") + f"; launches {counts} over {fwd} forwards "
+            "whose wrappers ran; pools clean")
+        del f, eng
+        freed(tag)
+    (off, r_off), (on, r_on) = tier_runs[False], tier_runs[True]
+    if on[2] != off[2]:
+        raise AssertionError(f"[fleet] shared tier: tokens {on[2]} != "
+                             f"{off[2]} without the tier")
+    if r_on["tier"]["hits"] < 2 or not (r_on["materialized_pages"]
+                                        < r_off["materialized_pages"]):
+        raise AssertionError(f"[fleet] shared tier: {r_on['tier']} hits, "
+                             f"{r_on['materialized_pages']} pages "
+                             f"materialized against {r_off['materialized_pages']}")
+    log(f"[fleet] shared tier: tokens equal with and without it, "
+        f"{r_on['tier']['hits']} tier hits, {r_on['materialized_pages']} "
+        f"pages materialized against {r_off['materialized_pages']}")
+    stats["reserved_after_gib"] = freed("[fleet]")
+    return stats, launches
+
+
+def time_register(pool, capture: dict) -> None:
+    """Time ``pool.register_prefill`` (with a shared tier, the capture of
+    its pages: one blocking copy a page a plane) into ``capture``, between
+    synchronizations, so that the prefill's kernels before it are not
+    counted."""
+    import torch
+    register = pool.register_prefill
+
+    def timed_register(adm):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        register(adm)
+        capture["s"] += time.perf_counter() - t
+        capture["calls"] += 1
+    pool.register_prefill = timed_register
 
 
 def working_point(dev, prompts, chats, base, peaks) -> tuple:
@@ -3441,6 +3765,7 @@ def main() -> int:
     ps_stats, ps_launches = paged_spec_path(dev, cfg, model, cp, chats,
                                             s_stats, p_stats)
     sc_stats, sc_launches = sched_path(dev, cfg, model, cp)
+    f_stats, f_launches = fleet_path(dev, cfg, model, cp)
     del model, cp
     torch.cuda.empty_cache()
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
@@ -3463,7 +3788,8 @@ def main() -> int:
                    "kv_quant": q_launches.get(k, 0),
                    "spec": s_launches.get(k, 0),
                    "paged_spec": ps_launches.get(k, 0),
-                   "sched": sc_launches.get(k, 0)}
+                   "sched": sc_launches.get(k, 0),
+                   "fleet": f_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -3526,6 +3852,7 @@ def main() -> int:
     log("[done] spec path " + json.dumps(s_stats))
     log("[done] paged spec path " + json.dumps(ps_stats))
     log("[done] sched path " + json.dumps(sc_stats))
+    log("[done] fleet path " + json.dumps(f_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))

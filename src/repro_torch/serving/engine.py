@@ -59,8 +59,9 @@ port's copy of the single-device ``ServeEngine`` of
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Tensor parallelism, probes and the telemetry registry are not ported yet
-(``telemetry`` takes the null registry only).
+Tensor parallelism and the numerics probes are not ported yet.
+``telemetry`` takes a registry of ``serving/telemetry.py``: the engine
+counts its decode rounds, tokens and blocked admissions there.
 """
 
 from __future__ import annotations
@@ -315,8 +316,8 @@ class ServeEngine:
                  page_size⌉ (the contiguous slab's capacity).
     device:      where the engine runs; None = the GPU (raises without one).
     seed:        seed of the sampling generator (temperature > 0).
-    telemetry:   the telemetry registry; None = the null registry (the
-                 only one ported).
+    telemetry:   the telemetry registry (``serving/telemetry.py``); None
+                 = the null registry.  A scheduler attaches its own.
     spec:        speculative decoding (``SpecConfig``) for ``serve``, on the
                  contiguous cache or (``paged=True``) the page pool.
 
@@ -356,10 +357,6 @@ class ServeEngine:
     def __post_init__(self):
         if self.telemetry is None:
             self.telemetry = NULL_TELEMETRY
-        elif self.telemetry is not NULL_TELEMETRY:
-            raise NotImplementedError(
-                "the telemetry registry is not ported yet (it comes with the "
-                "port's telemetry, router and fleet); pass telemetry=None")
         cfg = self.model.cfg
         if cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(

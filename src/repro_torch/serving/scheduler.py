@@ -32,9 +32,9 @@ Policy, deterministic by construction:
   model after every prefill, round and swap.
 
 Sampling draws from the engine's own generator (``ServeEngine.seed``),
-so the scheduler takes no random key.  Telemetry is the null registry
-(``serving/telemetry.py``): the registry itself is not ported yet, and a
-``telemetry`` other than None is refused.
+so the scheduler takes no random key.  ``telemetry`` takes a registry of
+``serving/telemetry.py`` (None = the null registry): the scheduler owns
+the clock, so it binds the registry to it and attaches the engine.
 """
 
 from __future__ import annotations
@@ -182,10 +182,6 @@ class AsyncScheduler:
 
     def __init__(self, engine, *, clock=None, costs=None, quantum: int = 1,
                  preempt: bool = True, telemetry=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "the telemetry registry is not ported yet (it comes with the "
-                "port's telemetry, router and fleet); pass telemetry=None")
         if engine.spec is not None:
             raise NotImplementedError(
                 "the scheduler drives plain decode rounds; speculative "
@@ -209,9 +205,10 @@ class AsyncScheduler:
         self.n_pages_swapped_in = 0          # data pages restore moved back
         self._seq = 0
         self._admits = 0
-        # the null registry; the engine's counters point at this
-        # session's registry, as the reference wires them
-        self.telemetry = NULL_TELEMETRY
+        # the telemetry registry; None = the null registry.  The engine's
+        # counters always point at THIS session's registry (or the null
+        # one), so a re-used engine never reports into an old session's
+        self.telemetry = NULL_TELEMETRY if telemetry is None else telemetry
         engine.telemetry = self.telemetry
         if self.telemetry.enabled:
             self.telemetry.bind_clock(self.clock)
@@ -227,9 +224,9 @@ class AsyncScheduler:
         arrival is held back until the clock reaches it.  Raises
         immediately for a request that could never fit the engine.
 
-        ``allow_past_arrival`` is the fleet-router path (the reference's
-        serving/fleet.py): a router that routes a request the moment the
-        clock reaches its arrival may hand it over slightly AFTER that
+        ``allow_past_arrival`` is the fleet-router path
+        (``serving/fleet.py``): a router that routes a request the moment
+        the clock reaches its arrival may hand it over slightly AFTER that
         instant (a replica's decode round advanced the shared clock
         first), and the handle must keep the ORIGINAL arrival so TTFT
         spans the routing delay.  A past
@@ -517,9 +514,9 @@ class AsyncScheduler:
         finishers.  Returns False once fully idle (nothing pending,
         queued, or in flight).
 
-        ``more_arrivals``: the caller (a fleet, the reference's
-        serving/fleet.py) still has traffic or clock advances to inject
-        from OUTSIDE this scheduler.  A round that makes no progress with a non-empty
+        ``more_arrivals``: the caller (a fleet, ``serving/fleet.py``) still
+        has traffic or clock advances to inject from OUTSIDE this
+        scheduler.  A round that makes no progress with a non-empty
         queue then returns False instead of raising — a higher-priority
         arrival may yet become the head and unblock placement — and the
         caller owns starvation detection once its traffic runs out."""

@@ -16,8 +16,9 @@ Model: qwen3-1.7b reduced to 2 layers in f32 (k-means |W| = 256), as
   reference's, with at least one preemption; twice on the port alike;
 * ``expel``/``adopt`` move requests between two schedulers, a running one
   through its swap blob; streaming callbacks and metrics; trace save/load;
-  ``submit`` refuses impossible requests; the telemetry registry and spec
-  sessions are refused; no wall clock under ``repro_torch/serving``.
+  ``submit`` refuses impossible requests; a telemetry registry is accepted
+  and spec sessions are refused; no wall clock under
+  ``repro_torch/serving``.
 
 The ``cuda`` test needs the card (``pytest -m cuda``): a contended replay's
 streams on the graph route equal the eager route's.  JAX is imported only
@@ -36,9 +37,9 @@ from repro_torch import configs as TCfg  # noqa: E402
 from repro_torch.models.model_zoo import build as tbuild  # noqa: E402
 from repro_torch.serving import (CONTENDED_ENGINE_KW,  # noqa: E402
                                  NULL_TELEMETRY, AsyncScheduler, Server,
-                                 ServerReport, SpecConfig, VirtualClock,
-                                 contended_trace, iter_trace, load_trace,
-                                 poisson_trace, save_trace)
+                                 ServerReport, SpecConfig, Telemetry,
+                                 VirtualClock, contended_trace, iter_trace,
+                                 load_trace, poisson_trace, save_trace)
 from repro_torch.serving import ServeEngine as TEngine  # noqa: E402
 from repro_torch.serving.scheduler import (FINISHED, QUEUED,  # noqa: E402
                                            RUNNING, SWAPPED)
@@ -343,19 +344,26 @@ def test_submit_rejects_impossible_requests(qwen):
         Server(tp).submit(list(range(1, 20)), 10)
 
 
-def test_unported_parts_are_refused(qwen):
-    """Telemetry other than None, and a speculative engine, raise
-    ``NotImplementedError``: no silent stand-in."""
+def test_telemetry_accepted_spec_refused(qwen):
+    """A registry is accepted by ``Server`` and ``ServeEngine``; the
+    scheduler binds it to its clock and attaches the engine, which then
+    holds the scheduler's registry.  A speculative engine is still
+    refused by ``AsyncScheduler`` and ``sched_state``, as the reference
+    refuses it."""
     _, te = _engines(qwen)
-    for tel in (object(), NULL_TELEMETRY):
-        with pytest.raises(NotImplementedError, match="telemetry"):
-            Server(te, telemetry=tel)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        TEngine(qwen.tmodel, qwen.tparams["dense"], device="cpu",
-                telemetry=object())
     assert te.telemetry is NULL_TELEMETRY and not te.telemetry.enabled
+    tel = Telemetry()
+    srv = Server(te, telemetry=tel)
+    assert srv.telemetry is tel and te.telemetry is tel
+    assert tel.clock is srv.clock
+    own = Telemetry()
+    e2 = TEngine(qwen.tmodel, qwen.tparams["dense"], device="cpu",
+                 telemetry=own)
+    assert e2.telemetry is own
+    Server(e2)
+    assert e2.telemetry is NULL_TELEMETRY       # the session's registry
     se = TEngine(qwen.tmodel, qwen.tparams["dense"], device="cpu",
-                 spec=SpecConfig(draft="ngram", k=2))
+                 spec=SpecConfig(draft="ngram", k=2), telemetry=Telemetry())
     with pytest.raises(NotImplementedError, match="speculative"):
         AsyncScheduler(se)
     with pytest.raises(NotImplementedError, match="speculative"):
@@ -364,8 +372,8 @@ def test_unported_parts_are_refused(qwen):
 
 def test_no_wall_clock_in_serving():
     """Nothing under the port's ``serving/`` reads the wall clock: time is
-    injected.  The scheduler, the server and the telemetry hook must be
-    among the files scanned."""
+    injected.  The scheduler, the server, the telemetry registry, the
+    router and the fleet must be among the files scanned."""
     import repro_torch.serving as S
     forbidden = ("import time", "time.time", "from time ", "datetime",
                  "perf_counter", "monotonic(")
@@ -378,7 +386,8 @@ def test_no_wall_clock_in_serving():
                 src = f.read()
             for pat in forbidden:
                 assert pat not in src, f"serving/{fn} reads the wall ({pat!r})"
-    for must in ("scheduler.py", "server.py", "telemetry.py", "engine.py"):
+    for must in ("scheduler.py", "server.py", "telemetry.py", "engine.py",
+                 "fleet.py", "router.py"):
         assert must in scanned
 
 
