@@ -119,6 +119,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    (equal tokens, tier hits, fewer pages materialized, the tier's capture
    timed); launches per forward plus one page_gather a swap-out, every
    pool clean;
+   [probes], the numerics probes (``ServeEngine(probes=True)``): a reduced
+   2-layer qwen3 (f32, k-means |W| 256, int8 ids) through the 6 golden
+   scenarios of ``serving/probes.py`` on the card (graph route) and on the
+   CPU: tokens equal with probes on and off and on both, the structural
+   counters equal, the card within the sentinel slack of the CPU, lut
+   headroom > 0 bits; then at ``act_levels`` 32 (codebook, lut): relu6
+   saturation counted, the codebook FFN on the unfused launches while
+   probes are on.  Then phase 5's model, lut on int8 pages and codebook on
+   the contiguous cache, an engine with and one without probes: equal
+   tokens, launches a forward and synchronizing operations a decode step;
+   ``numerics()`` byte-equal after a graph serve, an eager serve and a
+   graph serve after ``reset_probes()`` (buffers unmoved); lut headroom
+   > 0 bits in all 28 layers, no page or weight id out of range, an int8
+   KV error in every layer; the replayed decode step with and without
+   probes, in turns;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
@@ -2823,6 +2838,374 @@ def fleet_path(dev, cfg, model, cp) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [probes]: the numerics probes -----------------------------------------------
+
+PROBE_REPLAYS = 20               # replayed decode steps a timing turn
+
+
+def probes_model():
+    """``tests/test_probes.py``'s reduced qwen3 built by the port: 2 layers,
+    f32, k-means |W| = 256 (int8 ids, every matrix of 256 values or more
+    in index form), clustered on the CPU.  Returns (model, the same at
+    ``act_levels`` 32, {"dense" | "index": params on the CPU})."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, init_state)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+    cfg = configs.get("qwen3-1.7b").reduced().replace(n_layers=2)
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    wq = WeightQuantConfig(num_weights=256, method="kmeans")
+    pq, st = cluster_params(params, wq, init_state(wq), 200)
+    cp = to_codebook_params(pq, wq, st, min_size=256)
+    return (model, build(cfg.replace(act_levels=32)),
+            {"dense": params, "index": cp})
+
+
+def probes_reduced(dev) -> dict:
+    """[probes] (a): the reduced model of ``probes_model`` on the card (the
+    graph route) and on the CPU, in this process.  ``run_golden_scenarios``
+    (6 scenarios: dense, codebook, lut × contiguous, int8 pages) with
+    probes on and off: tokens equal on and off, and on the card and the
+    CPU; ``tokens``, ``matmul_calls``, ``act_total``, ``page_oob`` and the
+    ``widx_*`` counts equal on both; the card within the reference's
+    sentinel slack of the CPU (``sentinel_check(card,
+    golden_entry(cpu))``); lut headroom > 0 bits in every layer.  Then at
+    ``act_levels`` 32 on codebook and lut (contiguous): ``act_sat`` > 0,
+    the card within the slack of the CPU, tokens equal probes off, and the
+    launches a forward whose wrappers ran: with probes the codebook FFN
+    takes the unfused chain (7 × L codebook_matmul and L act_quant), without
+    them the gated launch (5 × L and L codebook_swiglu).  Returns (the
+    figures, the launches on the card)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import probes as nprobes
+    model, model32, cpu = probes_model()
+    card = _to(cpu, dev)
+    L_ = model.cfg.n_layers
+    exact = ("tokens", "matmul_calls", "act_total", "page_oob", "widx_neg",
+             "widx_oob", "widx_total")
+    toks, nums, secs, launches = {}, {}, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    ops.reset_launch_counts()
+    for where, device, p in (("card", dev, card), ("cpu", "cpu", cpu)):
+        on, off = {}, {}
+        nums[where], secs[where] = timed(
+            lambda: nprobes.run_golden_scenarios(
+                model, p["dense"], p["index"], device=device, tokens=on))
+        nprobes.run_golden_scenarios(model, p["dense"], p["index"],
+                                     device=device, probes=False, tokens=off)
+        if on != off:
+            raise AssertionError(f"[probes] reduced, {where}: probes changed "
+                                 "the tokens of "
+                                 f"{[n for n in on if on[n] != off[n]]}")
+        toks[where] = on
+    add(ops.launch_counts())
+    if toks["card"] != toks["cpu"]:
+        raise AssertionError("[probes] reduced: card tokens differ from the "
+                             "CPU's in " + str([n for n in toks["cpu"] if
+                                                toks["card"][n]
+                                                != toks["cpu"][n]]))
+    for name in nprobes.GOLDEN_SCENARIOS:
+        c, h = nums["card"][name], nums["cpu"][name]
+        bad = [k for k in exact if c[k] != h[k]]
+        fails = nprobes.sentinel_check(c, nprobes.golden_entry(h))
+        if bad or fails:
+            raise AssertionError(f"[probes] reduced {name}: card differs "
+                                 f"from the CPU in {bad}; sentinels {fails}")
+        if name.startswith("lut") and not min(c["headroom_bits"]) > 0.0:
+            raise AssertionError(f"[probes] reduced {name}: headroom "
+                                 f"{c['headroom_bits']}")
+    out = {"scenarios_s": secs, "audit": {k: nums["card"]["lut/paged"][k]
+                                          for k in exact[-3:]}}
+    for name in ("lut/contig", "lut/paged", "codebook/paged"):
+        n = nums["card"][name]
+        out[name] = {"headroom_bits_min": min(n["headroom_bits"]),
+                     "kv_err_max": max(n["kv_err_max"]),
+                     "acc_max": n["acc_max"]}
+    log(f"[probes] reduced 2-layer qwen3 (f32, k-means |W| 256, int8 ids), "
+        f"the 6 golden scenarios on the card (graph route, "
+        f"{secs['card']:.2f} s) and the CPU ({secs['cpu']:.2f} s): tokens "
+        "equal with probes on and off and on both; tokens, matmul_calls, "
+        "act_total, page_oob, widx_* equal; the card within the sentinel "
+        "slack of the CPU; audit " + json.dumps(out["audit"]) + "; lut "
+        "headroom min contiguous "
+        f"{out['lut/contig']['headroom_bits_min']:.2f} / int8 pages "
+        f"{out['lut/paged']['headroom_bits_min']:.2f} bits (card), kv_err_max "
+        f"{out['lut/paged']['kv_err_max']:.4e} (lut) "
+        f"{out['codebook/paged']['kv_err_max']:.4e} (codebook)")
+
+    kw = dict(max_len=48, max_batch=2)
+    prompts, max_new = nprobes.GOLDEN_PROMPTS, nprobes.GOLDEN_MAX_NEW
+    for be in ("codebook", "lut"):
+        got = {}
+        for probes in (False, True):
+            ops.reset_launch_counts()
+            e = ServeEngine(model32, card["index"], backend=be, device=dev,
+                            probes=probes, **kw)
+            t_ = e.serve(prompts, max_new=max_new)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+            if be == "lut":
+                per_fwd = {"lut_matmul": 7 * L_, "act_quant": L_}
+            elif probes:                     # the unfused chain
+                per_fwd = {"codebook_matmul": 7 * L_, "act_quant": L_}
+            else:                            # the gated launch
+                per_fwd = {"codebook_matmul": 5 * L_, "codebook_swiglu": L_}
+            check_launches(f"[probes] reduced act_levels 32, {be}, probes "
+                           f"{'on' if probes else 'off'}", counts, per_fwd,
+                           called_forwards(e))
+            add(counts)
+            got[probes] = (t_, e.numerics(), counts)
+        num = got[True][1]
+        h = ServeEngine(model32, cpu["index"], backend=be, device="cpu",
+                        probes=True, **kw)
+        if h.serve(prompts, max_new=max_new) != got[True][0] \
+                or got[True][0] != got[False][0]:
+            raise AssertionError(f"[probes] reduced act_levels 32, {be}: "
+                                 "tokens differ (on, off, CPU)")
+        hn = h.numerics()
+        fails = nprobes.sentinel_check(num, nprobes.golden_entry(hn))
+        bad = [k for k in exact if num[k] != hn[k]]
+        if not min(num["act_sat"]) > 0.0 or fails or bad:
+            raise AssertionError(f"[probes] reduced act_levels 32, {be}: "
+                                 f"act_sat {num['act_sat']}, sentinels "
+                                 f"{fails}, differs from the CPU in {bad}")
+        out[f"act32_{be}"] = {"sat_rate": num["sat_rate"],
+                              "cpu_sat_rate": hn["sat_rate"],
+                              "launches": {str(k): v[2]
+                                           for k, v in got.items()}}
+        log(f"[probes] reduced at act_levels 32, {be}: sat_rate "
+            f"{[round(s, 4) for s in num['sat_rate']]} (CPU "
+            f"{[round(s, 4) for s in hn['sat_rate']]}); tokens equal probes "
+            f"off and the CPU's; launches with probes {got[True][2]}, "
+            f"without {got[False][2]}")
+    freed("[probes] reduced")
+    return out, launches
+
+
+def count_syncs(e) -> dict:
+    """Count, on engine ``e``, the decode steps and the synchronizing CUDA
+    operations inside them (``torch.cuda.set_sync_debug_mode("warn")``
+    warns at each: a device→host read, a blocking copy), by the line that
+    made them.  Returns the counters; ``del e._step`` takes the counting
+    off."""
+    import warnings
+    import torch
+    calls = {"step": 0, "syncs": 0, "sites": {}}
+    step = e._step
+
+    def counted(st):
+        calls["step"] += 1
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                step(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        for w in caught:     # (the mode's first switch also warns, once)
+            if "called a synchronizing CUDA operation" in str(w.message):
+                calls["syncs"] += 1
+                site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+                calls["sites"][site] = calls["sites"].get(site, 0) + 1
+    e._step = counted
+    return calls
+
+
+def replay_ms(graph, n: int = PROBE_REPLAYS) -> float:
+    """Median device ms of ``n`` replays of ``graph``, each between two
+    CUDA events."""
+    import torch
+    ms = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return sorted(ms)[n // 2]
+
+
+def probes_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
+    """The [probes] phase.  (a) ``probes_reduced``.  (b) Phase 5's
+    compressed qwen3-1.7b (the live ``model`` and ``cp``: 28 layers, d
+    2048, vocab 151936, bf16, tied, |W| 1000, int16 ids) in two
+    configurations, lut on int8 pages (page 16, no prefix cache, so that
+    every serve of the same requests computes the same prefill) and
+    codebook on the contiguous bf16 cache, each with an engine without and
+    one with probes, MAX_BATCH slots, 4 requests × 16 new tokens:
+
+    * tokens of both engines' graph-route serves equal;
+    * the probes engine served again on the eager route after
+      ``reset_probes()``: tokens equal, ``numerics()`` JSON byte-equal to
+      the graph serve's; then reset and served on the graph route again:
+      byte-equal once more, every probe buffer at its first address;
+    * launches a forward whose wrappers ran equal with probes on and off
+      (7 × 28 lut_matmul + 28 page_gather, or 7 × 28 codebook_matmul), and
+      the synchronizing operations a decode step on the eager route
+      (``count_syncs``) equal, one a step (the step's read);
+    * lut: headroom > 0 bits in all 28 layers (the run-time check of
+      ``make_lut_spec``'s no-overflow scale at full width); page_oob 0,
+      widx_oob 0, and on int8 pages kv_err_max > 0 in every layer;
+    * the replayed decode step with and without probes (``replay_ms``, in
+      turns), and the worst-layer summary (``Telemetry.summary()``'s
+      numerics line).
+
+    Both engines of a configuration are dropped before the next is built.
+    Returns (stats, launches)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine, Telemetry
+    t0 = time.time()
+    stats, launches = {}, {}
+    stats["reduced"], red = probes_reduced(dev)
+    n_l = cfg.n_layers
+    reqs = prompts[:4]
+    for key, be, kw, per_fwd in (
+            ("lut_int8_pages", "lut",
+             dict(paged=True, kv_dtype="int8", page_size=PAGE,
+                  prefix_cache=False),
+             {"lut_matmul": 7 * n_l, "page_gather": n_l}),
+            ("codebook_contiguous", "codebook", {},
+             {"codebook_matmul": 7 * n_l})):
+        tag = f"[probes] {be}, " + ("int8 pages" if kw else
+                                    "contiguous bf16 cache")
+        ops.reset_launch_counts()
+
+        def serve(e, route: str):
+            """``e.serve(reqs)`` on ``route``, timed; its launches held to
+            ``per_fwd`` a forward whose wrappers ran.  Returns (tokens,
+            seconds, launches)."""
+            c0, f0 = ops.launch_counts(), called_forwards(e)
+            e._graphs = route == "graph"
+            toks, secs = timed(lambda: e.serve(reqs, max_new=16))
+            e._graphs = True
+            counts = {k: v - c0[k] for k, v in ops.launch_counts().items()
+                      if v - c0[k]}
+            check_launches(f"{tag}, probes {'on' if e.probes else 'off'}, "
+                           f"{route}", counts, per_fwd,
+                           called_forwards(e) - f0)
+            return toks, secs, counts
+
+        eng, res = {}, {}
+        for probes in (False, True):
+            e = eng[probes] = ServeEngine(
+                model, cp, backend=be, max_len=128, max_batch=MAX_BATCH,
+                device=dev, probes=probes, **kw)
+            toks, secs, counts = serve(e, "graph")
+            res[probes] = {"tokens": toks, "graph_serve_s": secs,
+                           "launches": counts,
+                           "forwards": called_forwards(e)}
+        on, off = eng[True], eng[False]
+        first = json.dumps(on.numerics(), sort_keys=True)
+        if res[True]["tokens"] != res[False]["tokens"]:
+            raise AssertionError(f"{tag}: tokens differ with probes on")
+        ptrs = {k: v.data_ptr() for k, v in on._ps.items()}
+        reads = {}
+        for probes, e in ((True, on), (False, off)):
+            e.reset_probes()
+            calls = count_syncs(e)
+            toks, secs, _ = serve(e, "eager")
+            del e._step
+            reads[probes] = calls["syncs"] / calls["step"]
+            res[probes].update(eager_serve_s=secs, eager_steps=calls["step"],
+                               syncs_per_step=reads[probes],
+                               sync_sites=calls["sites"])
+            if toks != res[probes]["tokens"]:
+                raise AssertionError(f"{tag}: eager tokens differ from the "
+                                     "graph route's")
+        eager = json.dumps(on.numerics(), sort_keys=True)
+        if eager != first:
+            raise AssertionError(f"{tag}: eager numerics {eager} != graph "
+                                 f"numerics {first}")
+        if reads[True] != reads[False] or not reads[True] >= 1.0:
+            raise AssertionError(f"{tag}: synchronizing operations a step "
+                                 f"{reads} (probes on, off), by site "
+                                 f"{res[True]['sync_sites']}, "
+                                 f"{res[False]['sync_sites']}")
+        on.reset_probes()
+        toks, _, _ = serve(on, "graph")
+        if toks != res[True]["tokens"] or json.dumps(
+                on.numerics(), sort_keys=True) != first:
+            raise AssertionError(f"{tag}: after reset_probes the graph "
+                                 "serve differs from the first")
+        if {k: v.data_ptr() for k, v in on._ps.items()} != ptrs:
+            raise AssertionError(f"{tag}: a probe buffer moved")
+        num = json.loads(first)
+        if num["page_oob"] != 0.0 or num["widx_oob"] != 0:
+            raise AssertionError(f"{tag}: page_oob {num['page_oob']}, "
+                                 f"widx_oob {num['widx_oob']}")
+        if be == "lut" and not (len(num["headroom_bits"]) == n_l
+                                and min(num["headroom_bits"]) > 0.0):
+            raise AssertionError(f"{tag}: headroom {num['headroom_bits']}")
+        if kw and not min(num["kv_err_max"]) > 0.0:
+            raise AssertionError(f"{tag}: kv_err_max {num['kv_err_max']}")
+        for k, v in ops.launch_counts().items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+        # the replayed step: each engine's serve graph, in turns
+        graphs = {p: next(iter(e._slot_sets.values())).graphs["step"][0]
+                  for p, e in eng.items()}
+        turns = {False: [], True: []}
+        for p in (False, True, True, False):
+            turns[p].append(replay_ms(graphs[p]))
+        step = {("on" if p else "off"): sum(v) / len(v)
+                for p, v in turns.items()}
+        tel = Telemetry()
+        tel.add_provider("numerics", lambda: num)
+        line = next(ln for ln in tel.summary().splitlines()
+                    if "numerics" in ln)
+        stats[key] = {
+            "step_ms": step, "step_ms_turns": {("on" if p else "off"): v
+                                               for p, v in turns.items()},
+            "syncs_per_step": reads[True],
+            "launches": {("on" if p else "off"): v["launches"]
+                         for p, v in res.items()},
+            "forwards": {("on" if p else "off"): v["forwards"]
+                         for p, v in res.items()},
+            "serve_s": {("on" if p else "off"): (v["graph_serve_s"],
+                                                 v["eager_serve_s"])
+                        for p, v in res.items()},
+            "headroom_bits": num["headroom_bits"],
+            "headroom_bits_min": min(num["headroom_bits"]),
+            "sat_rate_max": max(num["sat_rate"]),
+            "kv_err_max": max(num["kv_err_max"]),
+            "acc_max_max": max(num["acc_max"]), "tokens": num["tokens"],
+            "matmul_calls": num["matmul_calls"],
+            "widx": {k: num[k] for k in ("widx_neg", "widx_oob",
+                                         "widx_total")}}
+        log(f"{tag}: 4 requests × 16 tokens, tokens equal with probes on "
+            f"and off and on each route; numerics of the graph serve = the "
+            f"eager serve's = after reset_probes, byte for byte, buffers "
+            f"unmoved; launches a forward whose wrappers ran {per_fwd} with "
+            f"and without probes (graph serves: {res[True]['launches']} over "
+            f"{res[True]['forwards']} forwards, {res[False]['launches']} over "
+            f"{res[False]['forwards']}); {reads[True]:.2f} synchronizing "
+            f"operations an eager decode step either way; replayed decode "
+            f"step (median of {PROBE_REPLAYS}, turns off, on, on, off) off "
+            f"{step['off']:.3f} ms, on {step['on']:.3f} ms "
+            f"({100 * (step['on'] / step['off'] - 1):+.1f} %); headroom min "
+            f"{min(num['headroom_bits']):.2f} bits, acc_max max "
+            f"{max(num['acc_max']):.0f}, matmul_calls a layer "
+            f"{num['matmul_calls'][0]:.0f}; sat_rate max "
+            f"{max(num['sat_rate']):.3e}")
+        log(f"{tag}: {line}")
+        del eng, on, off, e, graphs, tel, serve
+        freed(tag)
+    for k, v in red.items():
+        launches[k] = launches.get(k, 0) + v
+    stats["phase_s"] = time.time() - t0
+    log(f"[probes] phase {stats['phase_s']:.1f} s")
+    return stats, launches
+
+
 def time_register(pool, capture: dict) -> None:
     """Time ``pool.register_prefill`` (with a shared tier, the capture of
     its pages: one blocking copy a page a plane) into ``capture``, between
@@ -3766,6 +4149,7 @@ def main() -> int:
                                             s_stats, p_stats)
     sc_stats, sc_launches = sched_path(dev, cfg, model, cp)
     f_stats, f_launches = fleet_path(dev, cfg, model, cp)
+    pr_stats, pr_launches = probes_path(dev, cfg, model, cp, prompts)
     del model, cp
     torch.cuda.empty_cache()
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
@@ -3789,7 +4173,8 @@ def main() -> int:
                    "spec": s_launches.get(k, 0),
                    "paged_spec": ps_launches.get(k, 0),
                    "sched": sc_launches.get(k, 0),
-                   "fleet": f_launches.get(k, 0)}
+                   "fleet": f_launches.get(k, 0),
+                   "probes": pr_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -3853,6 +4238,7 @@ def main() -> int:
     log("[done] paged spec path " + json.dumps(ps_stats))
     log("[done] sched path " + json.dumps(sc_stats))
     log("[done] fleet path " + json.dumps(f_stats))
+    log("[done] probes path " + json.dumps(pr_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,7 @@ import functools
 import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, probes
 
 __all__ = ["BACKENDS", "LutSpec", "BackendSpec", "make_lut_spec",
            "build_lut_table", "attach_lut_tables", "backend_matmul",
@@ -133,7 +133,8 @@ def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
 
     x: (..., K) float; w_idx: (K, N) ids; codebook: (|W|,); table: the
     precomputed (|A|, |W|) lut table (rebuilt from the codebook when None).
-    Returns (..., N) in x.dtype.
+    Returns (..., N) in x.dtype.  Under an open probes frame the call is
+    counted (``probes.tap_matmul``).
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
@@ -145,6 +146,9 @@ def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
         y = acc.to(torch.float32) * (spec.da / (2.0 ** spec.s))
     else:
         raise ValueError(f"backend_matmul called with {backend.name!r}")
+    # the numerics taps: the full activations and the f32 output, before
+    # the cast (a no-op unless a probes frame is open)
+    probes.tap_matmul(x2, y, backend.name, backend.lut_spec)
     return y.reshape(*lead, -1).to(x.dtype)
 
 

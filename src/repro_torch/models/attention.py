@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import dispatch, ops, probes
 from repro_torch.models.layers import dense, rms_norm
 
 __all__ = ["AttnConfig", "rope", "decode_attention", "flash_attention",
@@ -264,7 +264,11 @@ def quantize_kv(t):
     amax = torch.amax(tf.abs(), dim=-1, keepdim=True)
     scale = torch.clamp(amax, min=1e-6) / KV_QMAX
     q = torch.clamp(torch.round(tf / scale), -KV_QMAX, KV_QMAX)
-    return q.to(torch.int8), scale[..., 0].to(torch.bfloat16)
+    qi, sc = q.to(torch.int8), scale[..., 0].to(torch.bfloat16)
+    # the round-trip error against the stored (int8, bf16 scale) pair: a
+    # no-op unless a probes frame is open
+    probes.tap_kv(t, qi, sc)
+    return qi, sc
 
 
 def dequantize_kv(q, scale):

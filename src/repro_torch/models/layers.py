@@ -7,7 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.activations import ActQuantConfig, act_apply
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import dispatch, ops, probes
 from repro_torch.kernels._common import canonical_idx
 
 __all__ = ["dense_init", "dense", "dequantize", "rms_norm_init", "rms_norm",
@@ -98,11 +98,17 @@ def ffn_act(x: torch.Tensor, kind: str, levels: int,
     levels == 0: the continuous nonlinearity (baseline).
     levels  > 0: ``act_apply`` of ``_bounded(kind)`` (the ``act_quant``
                  kernel on the card), times ``mul`` in the same launch when
-                 it is given.  The reference's saturation probe
-                 (``probes.tap_act``) comes with the probes.
+                 it is given.  For relu6 the inputs outside its rails,
+                 which the quantized function pins to an end level, are
+                 counted first (``probes.tap_act``, a no-op unless a
+                 probes frame is open; tanh and sigmoid saturate with no
+                 clip).
     """
     if levels > 0:
-        return act_apply(ActQuantConfig(_bounded(kind), levels), x, mul)
+        bounded = _bounded(kind)
+        if bounded == "relu6":
+            probes.tap_act(x, 0.0, 6.0)
+        return act_apply(ActQuantConfig(bounded, levels), x, mul)
     if kind == "silu":
         return F.silu(x)
     if kind == "gelu":
@@ -137,8 +143,16 @@ def swiglu(p, x: torch.Tensor, act_kind: str = "silu", act_levels: int = 0,
     """w2 · (act(x · w1) * (x · w3)).  At ``act_levels > 0`` the product
     runs in the activation's launch (``ffn_act(..., mul=)``), and on the
     codebook backend both matmuls run in it too (``ops.codebook_swiglu``,
-    the unfused chain's bits in one launch)."""
-    if act_levels > 0 and _gated_codebook(p, backend):
+    the unfused chain's bits in one launch).
+
+    While a probes frame is open the codebook FFN takes the unfused chain
+    instead (two ``codebook_matmul`` launches, then ``act_quant`` with its
+    multiplier): the gated launch never writes the gate's pre-activation,
+    whose saturation ``ffn_act`` counts, and the reference counts two
+    routed matmuls there.  The chain gives the gated launch's bits, so the
+    tokens do not change."""
+    if act_levels > 0 and _gated_codebook(p, backend) \
+            and not probes.active():
         w1, w3 = p["w1"], p["w3"]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
         h = ops.codebook_swiglu(x2, w1["w_idx"], w1["codebook"], w3["w_idx"],

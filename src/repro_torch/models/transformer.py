@@ -12,6 +12,13 @@ B, S, KV)} when ``cfg.kv_quant`` is set; the paged pool is {'k', 'v': (L,
 n_pages, page, KV, hd)} plus {'k_scale', 'v_scale': (L, n_pages, page, KV)} for int8 pages, and a
 paged decode cache adds 'page_table' (B, P) and 'pos' (B,).  Both write the
 new tokens' K/V in place.
+
+Numerics probes (``kernels/probes.py``): a prefill's ``batch`` or a decode
+or chunk cache may carry ``'probes'``, the engine's probe state.  Each
+layer's body (attention, FFN and, where the cache is int8, the quantization
+of its K/V) then runs under ``probes.layer(ps, i)``, and the forward adds
+its token count (and, paged, the page-table ids outside the pool) in
+place.  The tied logits stay outside every frame, as in the reference.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, probes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 
@@ -110,7 +117,8 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 def prefill(params, cfg, batch, backend=dispatch.DENSE):
     """Forward over the right-padded prompt batch.
 
-    batch: {'tokens': (B, S) int, 'lengths': (B,) int (optional)}.
+    batch: {'tokens': (B, S) int, 'lengths': (B,) int (optional),
+    'probes': the probe state (optional)}.
     Returns (logits (B, 1, V) at each row's last real position, cache with
     K/V planes (L, B, S, KV, hd), int8 with their scales (L, B, S, KV) when
     ``cfg.kv_quant`` is set, and ``pos`` = lengths).
@@ -124,20 +132,25 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
         lengths = torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
+    ps = batch.get("probes") or {}
     planes = []
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
-        a, kv = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
-                             backend)
-        x = x + a
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
-        if cfg.kv_quant:
-            (kq, ksc), (vq, vsc) = (A.quantize_kv(kv["k"]),
-                                    A.quantize_kv(kv["v"]))
-            planes.append({"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc})
-        else:
-            planes.append({"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)})
+        with probes.layer(ps, i):
+            a, kv = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x),
+                                 acfg, backend)
+            x = x + a
+            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                             cfg.act_kind, cfg.act_levels, backend)
+            if cfg.kv_quant:
+                (kq, ksc), (vq, vsc) = (A.quantize_kv(kv["k"]),
+                                        A.quantize_kv(kv["v"]))
+                planes.append({"k": kq, "v": vq, "k_scale": ksc,
+                               "v_scale": vsc})
+            else:
+                planes.append({"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)})
+    if ps:
+        probes.bump(ps, "tokens", lengths.sum())
     cache = {"kv": {name: torch.stack([p[name] for p in planes])
                     for name in planes[0]},
              "pos": lengths.to(torch.int32)}
@@ -174,6 +187,15 @@ def _paged_scales(cache):
     return None
 
 
+def _page_oob(ps: dict, page_table, cache) -> None:
+    """Count the ids of ``page_table`` outside the pool's [0, n_pages),
+    which the gather clamps (a device sum; no-op without probes)."""
+    if ps:
+        n_pages = cache["k"].shape[1]
+        probes.bump(ps, "page_oob",
+                    ((page_table < 0) | (page_table >= n_pages)).sum())
+
+
 def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
     """Chunked prefill: one page-sized chunk of ONE request's prompt.
 
@@ -182,8 +204,8 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
     page-aligned; ``length`` (int) real tokens in the chunk; ``page_row``
     (P,) int32 the slot's page table; ``write_pid`` (int) page receiving the
     chunk's K/V (0 = trash).  ``cache`` is the pool (``init_paged_cache``),
-    written in place.  Returns (logits (1, 1, V) at the chunk's last real
-    position, the same pool).
+    written in place, and may carry ``'probes'``.  Returns (logits (1, 1,
+    V) at the chunk's last real position, the same pool).
     """
     dt = _dtype(cfg)
     tokens = batch["tokens"]
@@ -195,15 +217,19 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
     scales = _paged_scales(cache)
+    ps = cache.get("probes") or {}
+    _page_oob(ps, page_table, cache)
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
-        x = x + A.attn_prefill_chunk(
-            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=pos,
-            page_table=page_table, write_pid=write_pid, past_len=start,
-            k_pool=cache["k"], v_pool=cache["v"], layer=i, scales=scales,
-            backend=backend)
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
+        with probes.layer(ps, i):    # the int8 page store's tap falls here
+            x = x + A.attn_prefill_chunk(
+                p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=pos,
+                page_table=page_table, write_pid=write_pid, past_len=start,
+                k_pool=cache["k"], v_pool=cache["v"], layer=i,
+                scales=scales, backend=backend)
+            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                             cfg.act_kind, cfg.act_levels, backend)
+    probes.bump(ps, "tokens", length)
     x_last = L.rms_norm(params["final_norm"], x[:, length - 1:length])
     return _logits(params, cfg, x_last, backend), cache
 
@@ -229,15 +255,19 @@ def _decode_step_paged(params, cfg, tokens, cache, backend):
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
     scales = _paged_scales(cache)
+    ps = cache.get("probes") or {}
+    _page_oob(ps, pt, cache)
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
-        x = x + A.attn_decode_paged(
-            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
-            pos=pos[:, None], page_table=pt, write_pid=write_pid,
-            write_off=write_off, valid_len=vlen, k_pool=cache["k"],
-            v_pool=cache["v"], layer=i, scales=scales, backend=backend)
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
+        with probes.layer(ps, i):
+            x = x + A.attn_decode_paged(
+                p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+                pos=pos[:, None], page_table=pt, write_pid=write_pid,
+                write_off=write_off, valid_len=vlen, k_pool=cache["k"],
+                v_pool=cache["v"], layer=i, scales=scales, backend=backend)
+            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                             cfg.act_kind, cfg.act_levels, backend)
+    probes.bump(ps, "tokens", B)
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), {**cache, "pos": pos + 1}
 
@@ -248,7 +278,8 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     ``page_table`` is a page pool and takes the paged step.
 
     Retired slots keep decoding into ``min(pos, S-1)`` until the engine
-    reuses them.  The cache's K/V planes (and, for ``cfg.kv_quant``, their
+    reuses them, and count as tokens for the probes, as the reference's
+    do.  The cache's K/V planes (and, for ``cfg.kv_quant``, their
     scales) are updated in place; the returned cache carries ``pos + 1``.
     """
     if "page_table" in cache:
@@ -262,14 +293,18 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     acfg = attn_cfg(cfg)
     kv = cache["kv"]
     scales = (kv["k_scale"], kv["v_scale"]) if cfg.kv_quant else None
+    ps = cache.get("probes") or {}
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
-        x = x + A.attn_decode_cached(
-            p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=pos_v[:, None],
-            insert_at=ins, valid_len=vlen, k_all=kv["k"], v_all=kv["v"],
-            layer=i, scales=scales, backend=backend)
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
+        with probes.layer(ps, i):
+            x = x + A.attn_decode_cached(
+                p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+                pos=pos_v[:, None], insert_at=ins, valid_len=vlen,
+                k_all=kv["k"], v_all=kv["v"], layer=i, scales=scales,
+                backend=backend)
+            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
+                             cfg.act_kind, cfg.act_levels, backend)
+    probes.bump(ps, "tokens", tokens.shape[0])
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}
 
@@ -282,7 +317,8 @@ def _verify_step_paged(params, cfg, tokens, cache, backend):
     positions past the slot's page span (speculative overshoot beyond the
     admission reservation, which the engine clamps away) and retired
     slots (all-zero rows) route to the trash page 0.  The attendable
-    prefix is ``min(pos, P·page)``.
+    prefix is ``min(pos, P·page)``.  Not instrumented: see
+    ``verify_step``.
     """
     dt = _dtype(cfg)
     pos = cache["pos"]
@@ -326,6 +362,10 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     comes back unchanged: the caller advances it by the accepted count,
     and the rejected rows above it are fenced by every later step's valid
     length.
+
+    No probes frame is opened here: the engine refuses probes with
+    ``spec``, as the reference's does, so a verify never carries a probe
+    state.
     """
     if "page_table" in cache:
         return _verify_step_paged(params, cfg, tokens, cache, backend)

@@ -59,7 +59,19 @@ port's copy of the single-device ``ServeEngine`` of
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Tensor parallelism and the numerics probes are not ported yet.
+Tensor parallelism is not ported yet.
+
+* **Numerics probes** (``probes=True``): the engine owns one probe state
+  (``kernels/probes.init_state``), static f32 device buffers made before
+  any capture.  Each instrumented forward (the contiguous prefills of
+  ``generate``, ``serve`` and ``sched_admit``, every chunked prefill, and
+  the decode forward a step's graph holds) gets it injected for the call
+  as ``{**cache, "probes": state}`` and adds into it in place; a replay
+  adds again, with no host read.  No cache the engine keeps (the pool,
+  a ``_Slots`` cache, a ``SwapBlob``) ever holds the key.  ``numerics()``
+  reads the state in one copy; ``reset_probes()`` zeroes the buffers in
+  place.  Probes are refused with ``spec``, as in the reference.
+
 ``telemetry`` takes a registry of ``serving/telemetry.py``: the engine
 counts its decode rounds, tokens and blocked admissions there.
 """
@@ -75,6 +87,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch, ops
 from repro_torch.models.model_zoo import Model
+from repro_torch.serving import probes as nprobes
 from repro_torch.serving.kvcache import PagePool
 from repro_torch.serving.spec import (SpecConfig, SpecStats, filter_logits,
                                       ngram_propose, spec_accept,
@@ -320,6 +333,8 @@ class ServeEngine:
                  = the null registry.  A scheduler attaches its own.
     spec:        speculative decoding (``SpecConfig``) for ``serve``, on the
                  contiguous cache or (``paged=True``) the page pool.
+    probes:      in-graph numerics probes: per-layer discretization
+                 counters, collected in prefill and decode (``numerics()``).
 
     ``n_forwards`` counts model forwards run (prefill calls + decode
     steps, replayed or eager); ``n_captures`` the decode steps captured
@@ -353,6 +368,7 @@ class ServeEngine:
     seed: int = 0
     spec: SpecConfig | None = None
     telemetry: object = None
+    probes: bool = False
 
     def __post_init__(self):
         if self.telemetry is None:
@@ -397,6 +413,17 @@ class ServeEngine:
         self._draft_bk = None
         if self.spec is not None:
             self._init_spec()
+        self._ps = {}
+        self._probe_audit = {}
+        if self.probes:
+            if self.spec is not None:
+                raise NotImplementedError(
+                    "numerics probes instrument the plain decode loops; "
+                    "speculative serve() is not instrumented — build the "
+                    "engine with probes=False or spec=None")
+            self._ps = nprobes.init_state(cfg.n_layers, self.device)
+            # w_idx never changes at run time: audited once, here
+            self._probe_audit = nprobes.static_index_audit(self.params)
         self._pool: PagePool | None = None
         self._slot_sets: dict = {}
         self._graphs = self.device.type == "cuda"
@@ -439,13 +466,38 @@ class ServeEngine:
     def lut_spec(self):
         return self.bk.lut_spec
 
+    # --- numerics probes ---------------------------------------------------
+
+    def _with_probes(self, cache: dict) -> dict:
+        """``cache`` with the probe state injected for one forward (the
+        same static buffers every call, so a captured forward adds into
+        them on every replay); ``cache`` itself when probes are off."""
+        return {**cache, "probes": self._ps} if self.probes else cache
+
+    def numerics(self) -> dict:
+        """The canonical numerics snapshot: per-layer saturation,
+        headroom and KV error, and the static index audit (empty when
+        probes are off); one read of the state.  The telemetry
+        ``numerics`` provider."""
+        if not self.probes:
+            return {}
+        return nprobes.summarize(self._ps, audit=self._probe_audit,
+                                 backend=self.backend)
+
+    def reset_probes(self) -> None:
+        """Zero the counters (a fresh measurement window), in place: the
+        captured graphs keep writing into the same buffers."""
+        for t in self._ps.values():
+            t.zero_()
+
     # --- forwards --------------------------------------------------------
 
     @torch.no_grad()
     def _prefill(self, tokens, lengths):
         self.n_forwards += 1
-        return self.model.prefill(self.params, {"tokens": tokens,
-                                                "lengths": lengths}, self.bk)
+        return self.model.prefill(
+            self.params, self._with_probes({"tokens": tokens,
+                                            "lengths": lengths}), self.bk)
 
     @torch.no_grad()
     def _draft_prefill(self, tokens, lengths):
@@ -469,7 +521,7 @@ class ServeEngine:
         logits, _ = self.model.prefill_chunk(
             self.params, {"tokens": tokens, "start": start, "length": length,
                           "page_row": page_row, "write_pid": write_pid},
-            self.pool.cache, self.bk)
+            self._with_probes(self.pool.cache), self.bk)
         return logits
 
     def _sample(self, logits) -> torch.Tensor:
@@ -528,8 +580,9 @@ class ServeEngine:
     def _forward(self, st: _Slots) -> torch.Tensor:
         """What a graph of ``st`` holds: the decode forward on the static
         cache, ``pos + 1`` copied back into the static ``pos``, and at
-        temperature 0 the argmax and the bookkeeping.  Returns logits."""
-        logits, cache = self._decode(st.last, st.cache)
+        temperature 0 the argmax and the bookkeeping.  With probes on, the
+        forward adds into the engine's probe buffers.  Returns logits."""
+        logits, cache = self._decode(st.last, self._with_probes(st.cache))
         st.cache["pos"].copy_(cache["pos"])
         if self.temperature == 0:
             self._advance(st, self._sample(logits))
