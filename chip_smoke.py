@@ -134,6 +134,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    > 0 bits in all 28 layers, no page or weight id out of range, an int8
    KV error in every layer; the replayed decode step with and without
    probes, in turns;
+   [launch], the serving launcher (``repro_torch.launch.serve.main`` in
+   this process, its stdout parsed), once phase 5's model is freed:
+   qwen3-1.7b at full width, ``--compress --backend codebook``, 8 requests
+   (the ``[memory]`` row against a reckoning from the served tree, packed
+   under a third of fp32; the ``sample:`` row equal to phase 5's codebook
+   engine on the same requests; 7 × 28 codebook_matmul a forward; wall
+   tok/s, ms/request, peak memory); the same model as a server on int8
+   pages draining a 16-request Poisson trace (every request finished, the
+   pool clean, launches a forward plus one page_gather a swap-out, wall
+   drain seconds and tok/s); the reduced qwen3 through four argv on the
+   card and with ``--device cpu``, equal lines with the wall figures
+   masked (the numerics and metrics files held too); and
+   ``python -m repro_torch.launch.serve`` as a process of its own;
 7. working point: the same qwen3-1.7b weights at ``quantized(levels=32,
    n_weights=1000, method="kmeans")``: ``cluster_params`` on the card
    (exactly 2 × 25 kmeans_assign launches, the sums-only form), k-means
@@ -3206,6 +3219,381 @@ def probes_path(dev, cfg, model, cp, prompts) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [launch]: the serving launcher ------------------------------------------
+
+LAUNCH_N, LAUNCH_PLEN, LAUNCH_NEW = 8, 8, 16     # (a)'s requests
+LAUNCH_BATCH = ("--arch qwen3-1.7b --compress --backend codebook "
+                f"--requests {LAUNCH_N} --max-batch {MAX_BATCH} "
+                f"--max-new {LAUNCH_NEW}")
+LAUNCH_SERVER = ("--arch qwen3-1.7b --compress --backend codebook --server "
+                 "--paged --kv-dtype int8 --traffic poisson --rate 40 "
+                 f"--requests 16 --max-batch {MAX_BATCH} --priority-levels 2")
+# (c): the reduced qwen3, card against CPU; {dir} is a scratch directory
+LAUNCH_REDUCED = {
+    "lut_int8_probes": "--compress --backend lut --paged --kv-dtype int8 "
+                       "--probes --numerics-out {dir}/numerics.json "
+                       "--requests 4 --max-new 8",
+    "spec_ngram": "--spec-draft ngram --requests 4 --max-new 12",
+    "uniform": "--uniform --requests 4 --max-new 8",
+    "fleet": "--server --paged --replicas 3 --drain-at 0.3:r0 "
+             "--migrate-on-drain --shared-prefix-tier --shed-policy slo "
+             "--metrics-out {dir}/metrics.json --requests 12 --rate 120",
+}
+LAUNCH_WALL = r"in \d+\.\d+s|\d+\.\d+ tok/s|\d+\.\d+ ms/request"
+
+
+def launch_prompts(vocab: int) -> list:
+    """The batch launcher's requests at ``--seed 0``, drawn as it draws
+    them."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(0, vocab, LAUNCH_PLEN)]
+            for _ in range(LAUNCH_N)]
+
+
+def launch_reference(dev, cfg, model, cp) -> list:
+    """Phase 5's codebook engine, shaped as the batch launcher shapes its
+    own (max_len prompt + max_new + 8), serving the launcher's requests
+    as it does: a first serve (captures), then the serve it reports.
+    Returns the reported serve's rows, which the first must equal."""
+    from repro_torch.serving import ServeEngine
+    e = ServeEngine(model, cp, max_len=LAUNCH_PLEN + LAUNCH_NEW + 8,
+                    backend="codebook", max_batch=MAX_BATCH, device=dev)
+    prompts = launch_prompts(cfg.vocab)
+    first = e.serve(prompts, max_new=LAUNCH_NEW)
+    outs = e.serve(prompts, max_new=LAUNCH_NEW)
+    if outs != first:
+        raise AssertionError("[launch] phase 5's codebook engine served the "
+                             "launcher's requests differently twice")
+    del e
+    freed("[launch] phase 5's codebook engine on the launcher's requests")
+    return outs
+
+
+def run_launcher(argv: list, init=None) -> tuple:
+    """``repro_torch.launch.serve.main(argv)`` in this process, its stdout
+    captured (and logged line by line), with ``init`` in place of its
+    ``init_params`` when given.  Returns (stdout lines, the engines and
+    the servers it built).  A ``SystemExit`` fails the run."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as TS
+    from repro_torch.serving import server as srv_mod
+
+    engines, servers = [], []
+    orig = (TS.ServeEngine, srv_mod.Server, TS.init_params)
+
+    def engine(*a, **k):
+        engines.append(orig[0](*a, **k))
+        return engines[-1]
+
+    class Server(orig[1]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            servers.append(self)
+
+    TS.ServeEngine, srv_mod.Server = engine, Server
+    if init is not None:
+        TS.init_params = init
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            TS.main(list(argv))
+    except SystemExit as ex:
+        raise AssertionError(f"[launch] {' '.join(argv)}: exited "
+                             f"{ex.code!r}") from ex
+    finally:
+        TS.ServeEngine, srv_mod.Server, TS.init_params = orig
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"[launch]   | {ln}")
+    return lines, engines, servers
+
+
+def launch_line(lines: list, tag: str) -> str:
+    found = [ln for ln in lines if ln.startswith(tag + " ")]
+    if not found:
+        raise AssertionError(f"[launch] no {tag} line in {lines}")
+    return found[0]
+
+
+def launch_sample(lines: list) -> tuple:
+    """(prompt, tokens) of the ``sample:`` line."""
+    import ast
+    p, t = launch_line(lines, "sample:")[len("sample: "):].split(" -> ")
+    return ast.literal_eval(p), ast.literal_eval(t)
+
+
+def launch_memory(lines: list, cp_tree, cfg) -> dict:
+    """The ``[memory]`` row against a reckoning from the index-form tree
+    the launcher served (every clustered leaf: the ids of the matrices,
+    the dense leaves the norms keep): params, fp32 and packed megabytes,
+    the KV slab and int8 pages; packed under one third of fp32."""
+    import re
+    from repro_torch.core.export import kv_cache_bytes
+    row = launch_line(lines, "[memory]")
+    n = sum(int(t.numel()) for path, t in _paths(cp_tree)
+            if path[-1] not in ("codebook", "lut_table"))
+    table = (32 + 1) * (N_BOOK + 1) * 4 + 4 * 32 * 4 + N_BOOK * 4
+    packed = (n * 10 + 7) // 8 + table
+    kv_fp = kv_cache_bytes(cfg.n_layers, cfg.n_kv, cfg.hd,
+                           MAX_BATCH * (LAUNCH_PLEN + LAUNCH_NEW + 8),
+                           dtype_bytes=4 if cfg.dtype == "float32" else 2)
+    kv_pk = min(LAUNCH_N, MAX_BATCH) * kv_cache_bytes(
+        cfg.n_layers, cfg.n_kv, cfg.hd, LAUNCH_PLEN + LAUNCH_NEW, quant=True,
+        page_size=PAGE)
+    want = (f"params={n} |W|={N_BOOK} |A|=32 fp32={4 * n / 1e6:.2f}MB "
+            f"packed={packed / 1e6:.2f}MB ({100 * (1 - packed / (4 * n)):.1f}"
+            "% saved)")
+    if not row.startswith(f"[memory] {want}"):
+        raise AssertionError(f"[launch] {row!r}: want {want!r} first")
+    dep = (f"deployed(w+kv)={(4 * n + kv_fp) / 1e6:.2f}MB->"
+           f"{(packed + kv_pk) / 1e6:.2f}MB")
+    if dep not in row:
+        raise AssertionError(f"[launch] {row!r}: want {dep!r}")
+    fp32_mb, packed_mb = (float(x) for x in re.findall(
+        r"fp32=([\d.]+)MB packed=([\d.]+)MB", row)[0])
+    if not packed_mb < fp32_mb / 3:
+        raise AssertionError(f"[launch] packed {packed_mb} MB is not under "
+                             f"a third of fp32 {fp32_mb} MB")
+    return {"row": row, "n_params": n, "packed_bytes": packed,
+            "fp32_bytes": 4 * n, "kv_fp_bytes": kv_fp,
+            "kv_packed_bytes": kv_pk, "packed_share": packed / (4 * n)}
+
+
+def _paths(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def launch_wall(line: str) -> dict:
+    """The wall figures of a ``[serve]`` or ``[server]`` line."""
+    import re
+    out = {"s": float(re.search(r"in (\d+\.\d+)s", line).group(1)),
+           "tok_s": float(re.search(r"(\d+\.\d+) tok/s", line).group(1))}
+    ms = re.search(r"(\d+\.\d+) ms/request", line)
+    if ms:
+        out["ms_request"] = float(ms.group(1))
+    return out
+
+
+def launch_masked(lines: list, out_dir: str) -> list:
+    """Lines with the wall-clock figures, the device word, the KV errors
+    and the output directory masked; the kernels summary line dropped
+    (the card counts launches, the CPU's plain versions none), and with
+    it the line a registry prints when that was all it had."""
+    import re
+    out = []
+    for ln in lines:
+        if ln.startswith(("[telemetry] kernels:",
+                          "[telemetry] nothing recorded")):
+            continue
+        ln = re.sub(r"tok/s on (cpu|cuda),", "tok/s on <dev>,",
+                    ln.replace(out_dir, "<dir>"))
+        ln = re.sub(LAUNCH_WALL, "<wall>", ln)
+        out.append(re.sub(r"kv err max \S+|kv round-trip err \S+", "<kv>",
+                          ln))
+    return out
+
+
+def _read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def launch_reduced() -> tuple:
+    """(c): the reduced qwen3 (2 layers, f32) through the launcher on the
+    card and with ``--device cpu``, with CPU-drawn weights on both: the
+    lines equal once the wall figures are masked; the numerics JSON's
+    structural fields equal and its KV errors within the sentinel slack;
+    the fleet's metrics snapshot equal without its kernels section.
+    Returns ({case: seconds on the card}, launches on the card)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+
+    def init(model, device):
+        return _to(model.init(torch.Generator().manual_seed(0), "cpu"),
+                   device)
+
+    secs, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="launch_") as tmp:
+        for case, flags in LAUNCH_REDUCED.items():
+            outs = {}
+            for side in ("cuda", "cpu"):
+                d = os.path.join(tmp, f"{case}_{side}")
+                os.mkdir(d)
+                argv = (["--arch", "qwen3-1.7b", "--reduced"]
+                        + flags.format(dir=d).split()
+                        + (["--device", "cpu"] if side == "cpu" else []))
+                ops.reset_launch_counts()
+                t = time.time()
+                lines, _, _ = run_launcher(argv, init)
+                if side == "cuda":
+                    secs[case] = time.time() - t
+                    for k, v in ops.launch_counts().items():
+                        launches[k] = launches.get(k, 0) + v
+                outs[side] = (d, lines)
+            launch_against_cpu(case, flags, outs["cuda"], outs["cpu"])
+            log(f"[launch] (c) reduced {case}: card = CPU, "
+                f"{len(outs['cuda'][1])} lines (wall figures masked), "
+                f"{secs[case]:.2f} s on the card")
+    return secs, launches
+
+
+def launch_against_cpu(case: str, flags: str, card, cpu) -> None:
+    """One (c) case: the card's (directory, lines) against the CPU's."""
+    from repro_torch.serving.probes import golden_entry, sentinel_check
+    (dg, got), (dw, want) = card, cpu
+    if launch_masked(got, dg) != launch_masked(want, dw):
+        raise AssertionError(f"[launch] reduced {case}: the card's lines "
+                             f"{got} differ from the CPU's {want}")
+    if "--probes" in flags:
+        num = [_read_json(f"{d}/numerics.json") for d in (dg, dw)]
+        for k, v in num[1].items():
+            if not k.startswith("kv_err") and num[0][k] != v:
+                raise AssertionError(f"[launch] reduced {case}: numerics "
+                                     f"{k} {num[0][k]} != {v}")
+        fails = (sentinel_check(num[0], golden_entry(num[1]))
+                 + sentinel_check(num[1], golden_entry(num[0])))
+        if fails:
+            raise AssertionError(f"[launch] reduced {case}: {fails}")
+    if "--metrics-out" in flags:
+        snaps = [_read_json(f"{d}/metrics.json") for d in (dg, dw)]
+        for s in snaps:
+            s.pop("kernels", None)
+        if snaps[0] != snaps[1]:
+            raise AssertionError(f"[launch] reduced {case}: metrics "
+                                 "snapshots differ")
+
+
+def launch_path(cfg, want_rows) -> tuple[dict, dict]:
+    """The [launch] phase, after phase 5's model is freed:
+    ``repro_torch.launch.serve.main`` in this process.  (a) qwen3-1.7b at
+    full width, ``--compress --backend codebook``, 8 requests: the
+    ``[memory]`` row against a reckoning from the served tree, packed
+    under a third of fp32; the ``sample:`` row equal to phase 5's codebook
+    engine's (``want_rows``); 7 × 28 codebook_matmul a forward whose
+    wrappers ran; wall tok/s, ms/request and peak memory.  (b) The same
+    model as a server: paged int8 pages, a 16-request Poisson trace,
+    every request finished, the pool clean, launches per forward plus one
+    page_gather a swap-out; wall drain seconds and tok/s.  (c)
+    ``launch_reduced``.  (d) ``python -m repro_torch.launch.serve`` as a
+    subprocess on the card.  Returns (stats, launches)."""
+    import gc
+    import re
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving.scheduler import FINISHED
+
+    t0 = time.time()
+    n_l, stats, launches = cfg.n_layers, {}, {}
+
+    def add(counts):
+        for k, v in counts.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    # (a) batch
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.time()
+    lines, engines, _ = run_launcher(LAUNCH_BATCH.split())
+    secs = time.time() - t
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    (e,) = engines
+    fwd = called_forwards(e)
+    check_launches("[launch] (a)", counts, {"codebook_matmul": 7 * n_l}, fwd)
+    add(counts)
+    mem = launch_memory(lines, e.params, cfg)
+    prompt, toks = launch_sample(lines)
+    if prompt + toks != want_rows[0]:
+        raise AssertionError(f"[launch] (a) sample {prompt} -> {toks}, "
+                             f"phase 5's engine {want_rows[0]}")
+    wall = launch_wall(launch_line(lines, "[serve]"))
+    peak = torch.cuda.max_memory_reserved() / 2 ** 30
+    stats["batch"] = {"memory": mem, "wall": wall, "peak_gib": peak,
+                      "seconds": secs, "forwards": fwd, "launches": counts,
+                      "captures": e.n_captures, "replays": e.n_replays}
+    log(f"[launch] (a) {LAUNCH_BATCH}: {mem['row']}; packed "
+        f"{100 * mem['packed_share']:.2f} % of fp32 (under a third); sample "
+        f"= phase 5's codebook engine; {wall['tok_s']} tok/s, "
+        f"{wall['ms_request']} ms/request (wall); launches {counts} over "
+        f"{fwd} forwards whose wrappers ran; peak reserved {peak:.2f} GiB; "
+        f"{secs:.2f} s in all")
+    del e, engines
+    gc.collect()
+    freed("[launch] (a)")
+
+    # (b) server
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t = time.time()
+    lines, engines, servers = run_launcher(LAUNCH_SERVER.split())
+    secs = time.time() - t
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    (e,), (srv,) = engines, servers
+    launch_memory(lines, e.params, cfg)
+    handles = list(srv.sched.handles.values())
+    if len(handles) != 16 or any(h.state != FINISHED for h in handles):
+        raise AssertionError(f"[launch] (b): {len(handles)} requests, "
+                             f"states {[h.state for h in handles]}")
+    if e.pool.reserved_extra or not _pool_clean(e.pool):
+        raise AssertionError("[launch] (b): pool not clean after the drain")
+    fwd = called_forwards(e)
+    n_pre = int(re.search(r"\[server\] (\d+) preemptions",
+                          "\n".join(lines)).group(1))
+    want = {"codebook_matmul": 7 * n_l * fwd,
+            "page_gather": n_l * fwd + n_pre}
+    if counts != want:
+        raise AssertionError(f"[launch] (b): launches {counts} over {fwd} "
+                             f"forwards and {n_pre} swap-outs, want {want}")
+    add(counts)
+    wall = launch_wall(launch_line(lines, "[server]"))
+    peak = torch.cuda.max_memory_reserved() / 2 ** 30
+    stats["server"] = {"wall": wall, "peak_gib": peak, "seconds": secs,
+                       "forwards": fwd, "launches": counts,
+                       "preemptions": n_pre,
+                       "report": [ln for ln in lines
+                                  if ln.startswith("[server]")]}
+    log(f"[launch] (b) {LAUNCH_SERVER}: 16 requests finished, pool clean; "
+        f"drain {wall['s']} s wall, {wall['tok_s']} tok/s; {n_pre} "
+        f"preemptions; launches {counts} over {fwd} forwards whose wrappers "
+        f"ran + {n_pre} swap-out gathers; peak reserved {peak:.2f} GiB; "
+        f"{secs:.2f} s in all")
+    del e, engines, srv, servers, handles
+    gc.collect()
+    freed("[launch] (b)")
+
+    # (c) reduced, card against CPU
+    secs_c, counts = launch_reduced()
+    add(counts)
+    stats["reduced_s"] = secs_c
+    freed("[launch] (c)")
+
+    # (d) a fresh process
+    t = time.time()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+         "qwen3-1.7b", "--reduced", "--requests", "2", "--max-new", "4"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    stats["subprocess_s"] = time.time() - t
+    if r.returncode != 0 or "tok/s on cuda" not in r.stdout:
+        raise AssertionError(f"[launch] (d) exited {r.returncode}: "
+                             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    log(f"[launch] (d) python -m repro_torch.launch.serve --arch qwen3-1.7b "
+        f"--reduced --requests 2 --max-new 4: exit 0 on the card, "
+        f"{stats['subprocess_s']:.2f} s; "
+        + launch_line(r.stdout.splitlines(), "[serve]"))
+    stats["phase_s"] = time.time() - t0
+    log(f"[launch] phase {stats['phase_s']:.1f} s")
+    return stats, launches
+
+
 def time_register(pool, capture: dict) -> None:
     """Time ``pool.register_prefill`` (with a shared tier, the capture of
     its pages: one blocking copy a page a plane) into ``capture``, between
@@ -4150,7 +4538,13 @@ def main() -> int:
     sc_stats, sc_launches = sched_path(dev, cfg, model, cp)
     f_stats, f_launches = fleet_path(dev, cfg, model, cp)
     pr_stats, pr_launches = probes_path(dev, cfg, model, cp, prompts)
+    t = time.time()
+    l_rows = launch_reference(dev, cfg, model, cp)
+    t_ref = time.time() - t
     del model, cp
+    torch.cuda.empty_cache()
+    l_stats, l_launches = launch_path(cfg, l_rows)
+    l_stats["reference_s"] = t_ref
     torch.cuda.empty_cache()
     w_stats, w_launches, km_row = working_point(dev, prompts, chats, stats,
                                                 peaks)
@@ -4174,7 +4568,8 @@ def main() -> int:
                    "paged_spec": ps_launches.get(k, 0),
                    "sched": sc_launches.get(k, 0),
                    "fleet": f_launches.get(k, 0),
-                   "probes": pr_launches.get(k, 0)}
+                   "probes": pr_launches.get(k, 0),
+                   "launch": l_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -4239,6 +4634,7 @@ def main() -> int:
     log("[done] sched path " + json.dumps(sc_stats))
     log("[done] fleet path " + json.dumps(f_stats))
     log("[done] probes path " + json.dumps(pr_stats))
+    log("[done] launch path " + json.dumps(l_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,7 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
     from repro_torch import configs
     from repro_torch.bridge import from_jax_params
     from repro_torch.device import resolve_device
+    from repro_torch.launch import serve
     from repro_torch.models.model_zoo import build
     from repro_torch.serving import ServeEngine
 
@@ -66,6 +67,8 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
         ServeEngine(model, params, max_len=32, paged=True, kv_dtype="int8")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         model.init_paged_cache(4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-1.7b", "--reduced"])
     # asked for explicitly, the CPU runs the plain versions
     eng = ServeEngine(model, params, max_len=32, device="cpu")
     assert len(eng.generate([[1, 2]], max_new=2)[0]) == 4
