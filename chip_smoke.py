@@ -169,6 +169,20 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches, cache bytes against a bf16 cache's, decode step with each,
    and the gap between their decode logits; and the [spec] phase's
    n-gram draft on this model's int8 cache, as above;
+   [moe], the mixture-of-experts family (``models/moe.py``): the reduced
+   qwen3-moe-30b-a3b and grok-1-314b (token chunks 2, int8 contiguous
+   cache) through dense, codebook and lut, contiguous and paged (bf16 and
+   int8 pages), card tokens equal to the CPU's, or, lut only, parted at a
+   tie of its activation snap that a trace of every discrete decision
+   finds first (``first_parting``); qwen3-moe-30b-a3b at full width, 2
+   layers, bf16, act_levels 32: dense on the contiguous cache and on int8
+   pages, then compressed with ``exclude="router"`` (the router in index
+   form raises ``KeyError`` in the prefill, as the reference's does)
+   through codebook and lut; grok-1-314b at full width, 1 layer, its int8
+   cache and 8 token chunks (128-token prefills); each engine served
+   eager, graph, graph with equal tokens, launches a forward held
+   exactly, a replayed decode step's logits bit-equal to eager's, step
+   ms and tok/s of both routes;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -1092,6 +1106,12 @@ def _to_f32(tree):
     if isinstance(tree, dict):
         return {k: _to_f32(v) for k, v in tree.items()}
     return tree.to(torch.float32) if tree.is_floating_point() else tree
+
+
+# The pattern each kernel's name holds in a profile
+KERNEL_NAMES = {"page_gather": "page_gather", "act_quant": "act_quant",
+                "codebook_swiglu": "StoreSwiglu",
+                "codebook_matmul": "StoreSum", "lut_matmul": "lut_"}
 
 
 # Copies and fills, not kernels: a CUDA graph runs some device-to-device
@@ -3747,13 +3767,10 @@ def working_point(dev, prompts, chats, base, peaks) -> tuple:
                 f"{be}_matmul": (5 if gated else 7) * n_l,
                 "page_gather": n_l if name == "paged" else 0}
         want = {k_: v for k_, v in want.items() if v}
-        by_name = {"page_gather": "page_gather", "act_quant": "act_quant",
-                   "codebook_swiglu": "StoreSwiglu",
-                   "codebook_matmul": "StoreSum", "lut_matmul": "lut_"}
         act_kernel = "StoreSwiglu" if gated else "act_quant"
         res, _ = graph_vs_eager(
             f"[point] {name}", e, reqs, reqs[:4], want,
-            {by_name[k_]: v for k_, v in want.items()},
+            {KERNEL_NAMES[k_]: v for k_, v in want.items()},
             step_pos=120 if name == "paged" else 40, n_pages=N_PAGES,
             match=act_kernel)
         for k_ in want:
@@ -4027,6 +4044,358 @@ def kv_quant_path(dev) -> tuple[dict, dict, dict]:
     del es, model, cp
     sres["reserved_after_free_gib"] = freed(tag)
     return stats, launches, dict(sres["launches"])
+
+
+# --- [moe]: the mixture-of-experts family ------------------------------------
+
+MOE_NEW = 16                    # tokens a request of a full-width serve
+
+
+def moe_compressed(cfg, params, exclude: str = "router"):
+    """``params`` compressed as ``launch/serve.py --compress`` does
+    (laplacian_l1, |W| = N_BOOK, global) with ``exclude`` kept out of the
+    clustering and the index form: (clustered params, index-form params,
+    the clustering state, the WeightQuantConfig)."""
+    import dataclasses
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.serving import to_codebook_params
+    wq = dataclasses.replace(cfg.quantized(n_weights=N_BOOK).wq,
+                             exclude=exclude)
+    pq, state = cluster_params(params, wq, init_state(wq), wq.interval)
+    return pq, to_codebook_params(pq, wq, state), state, wq
+
+
+def moe_decisions(run) -> list:
+    """Every discrete decision ``run()`` takes, in order: (kind, the input
+    as f32 on the host, the decision), for the lut activation snap
+    (``dispatch.lut_acc``: the input in grid units, the level id), the
+    int8 K/V rounding (``attention.quantize_kv``: the input in scale
+    units, the code) and the router's top-k (``moe._top_k``: the
+    probabilities, the expert ids)."""
+    import torch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as M
+    events = []
+    lut_acc, quantize_kv, top_k = dispatch.lut_acc, A.quantize_kv, M._top_k
+
+    def rec(kind, x, out):
+        events.append((kind, x.detach().float().cpu(), out.detach().cpu()))
+
+    def lut(x2, w_idx, codebook, spec, table=None):
+        g = (x2.float() - spec.a_min) / dispatch._grid_step(spec, x2.device)
+        rec("lut", g, torch.clamp(torch.round(g), 0, spec.levels - 1))
+        return lut_acc(x2, w_idx, codebook, spec, table)
+
+    def kvq(t):
+        q, sc = quantize_kv(t)
+        tf = t.float()
+        rec("kvq", tf / (torch.clamp(tf.abs().amax(-1, keepdim=True),
+                                     min=1e-6) / A.KV_QMAX), q)
+        return q, sc
+
+    def top(probs, k):
+        v, ids = top_k(probs, k)
+        rec("route", probs, ids)
+        return v, ids
+    dispatch.lut_acc, A.quantize_kv, M._top_k = lut, kvq, top
+    try:
+        run()
+    finally:
+        dispatch.lut_acc, A.quantize_kv, M._top_k = lut_acc, quantize_kv, top_k
+    return events
+
+
+def first_parting(cpu_events: list, card_events: list) -> str:
+    """The first decision the card takes otherwise than the CPU, which must
+    be a tie: a lut snap (or an int8 K/V rounding) of inputs the two
+    computed within 1e-3 of a unit of the same half-way point, one level
+    apart, every earlier decision equal.  Returns its description; raises
+    for any other first difference (a router choice, a structure that
+    differs, a snap away from a half-way point)."""
+    import torch
+    for i, ((ka, xa, ya), (kb, xb, yb)) in enumerate(zip(cpu_events,
+                                                         card_events)):
+        if ka != kb or xa.shape != xb.shape:
+            raise AssertionError(f"decision {i}: {ka} {tuple(xa.shape)} on "
+                                 f"the CPU, {kb} {tuple(xb.shape)} on the "
+                                 "card")
+        if torch.equal(ya, yb):
+            continue
+        diff = ya != yb
+        what = f"decision {i} of {len(cpu_events)} ({ka}): " \
+            f"{int(diff.sum())} of {ya.numel()} differ"
+        tie = ka in ("lut", "kvq")
+        if tie:
+            half = torch.floor(xa[diff]) + 0.5
+            tie = (bool(((ya[diff].long() - yb[diff].long()).abs() == 1)
+                        .all())
+                   and float((xa[diff] - half).abs().max()) <= 1e-3
+                   and float((xb[diff] - half).abs().max()) <= 1e-3)
+            what += (f"; CPU inputs {xa[diff][:4].tolist()}, card "
+                     f"{xb[diff][:4].tolist()}")
+        if not tie:
+            raise AssertionError("the first decision the card takes "
+                                 "otherwise than the CPU is not a tie: "
+                                 + what)
+        return what
+    raise AssertionError("the tokens part, but every decision is equal")
+
+
+def moe_reduced(dev) -> None:
+    """The reduced qwen3-moe-30b-a3b (f32, 8 experts, top-2) and grok-1-314b
+    (f32, ``kv_quant``, ``moe_token_chunks=2``), compressed on the CPU as
+    ``--compress`` does, through dense, codebook and lut, contiguous
+    (``serve`` of 5 requests over 2 slots, ``generate``) and paged (page 8,
+    bf16 and int8 pages): the card's greedy tokens equal the CPU's.
+
+    lut alone may part: its activation snap rounds half to even, and a
+    value the card computes exactly on a half-way point the CPU may compute
+    an f32 ulp beside it (on an H100: 2410.5 against 2410.500244 grid
+    units).
+    A dense model's next token survives such a snap; a routed one need
+    not, once the snap moves a router choice or a capacity rank.  Where
+    lut's tokens part, both serves run again eagerly with every discrete
+    decision recorded (``moe_decisions``), and the first the card takes
+    otherwise must be such a tie (``first_parting``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine
+    prompts = [[1, 2, 3], [4, 5, 6, 7, 8], [9] * 11, [300, 2, 5, 7, 1, 8],
+               [1, 2, 3, 4, 5, 6, 7]]
+    caches = {"contiguous": {},
+              "paged bf16": dict(paged=True, page_size=8),
+              "paged int8": dict(paged=True, page_size=8, kv_dtype="int8")}
+    partings = []
+    for name, over in (("qwen3-moe-30b-a3b", {}),
+                       ("grok-1-314b", {"moe_token_chunks": 2})):
+        cfg = configs.get(name).reduced().replace(**over)
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        _, cp, _, _ = moe_compressed(cfg, params)
+        cp_dev = _to(cp, dev)
+        for be in ("dense", "codebook", "lut"):
+            for cache, kw in caches.items():
+                kw = dict(max_len=64, max_batch=2, backend=be, **kw)
+                on_cpu = ServeEngine(model, cp, device="cpu", **kw)
+                on_dev = ServeEngine(model, cp_dev, device=dev, **kw)
+                want = [on_cpu.serve(prompts, max_new=8)]
+                got = [on_dev.serve(prompts, max_new=8)]
+                if cache == "contiguous":
+                    want.append(on_cpu.generate(prompts[:3], max_new=8))
+                    got.append(on_dev.generate(prompts[:3], max_new=8))
+                if got == want:
+                    continue
+                tag = f"[moe] reduced {name} {over}, {be} {cache}"
+                if be != "lut":
+                    raise AssertionError(f"{tag}: card tokens {got} != CPU "
+                                         f"tokens {want}")
+                events = []
+                for d, p in (("cpu", cp), (dev, cp_dev)):
+                    e = ServeEngine(model, p, device=d, **kw)
+                    e._graphs = False
+                    events.append(moe_decisions(
+                        lambda: e.serve(prompts, max_new=8)))
+                part = first_parting(*events)
+                partings.append(f"{name} {be} {cache}")
+                log(f"{tag}: card tokens part from the CPU's "
+                    f"({sum(a != b for a, b in zip(got[0], want[0]))} of "
+                    f"{len(prompts)} requests); the first decision the "
+                    f"card takes otherwise is a tie: {part}")
+    log("[moe] reduced qwen3-moe-30b-a3b and grok-1-314b (moe_token_chunks "
+        "2, kv_quant): dense/codebook/lut tokens on the card equal the CPU "
+        "path's, contiguous (serve over reused slots, generate) and paged "
+        "(bf16 and int8 pages)"
+        + (f", but where a lut snap tie parts them ({', '.join(partings)})"
+           if partings else ""))
+
+
+def moe_prompts(n: int, vocab: int, lo: int, hi: int):
+    import numpy as np
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, int(k)).tolist()
+            for k in rng.integers(lo, hi + 1, n)]
+
+
+def moe_engine_check(tag: str, e, reqs, want_launches) -> dict:
+    """Engine ``e`` (a fresh one) on both routes: ``serve(reqs, MOE_NEW)``
+    eager, then on the graph route twice (the first captures, the second
+    captures nothing), tokens equal; kernel launches equal to
+    ``want_launches(n_prefill, n_decode)`` over the prefill forwards and
+    the decode steps whose wrappers ran; then ``step_turns`` on a state of
+    its own (``step_state`` at max_len / 2, a distinct token a slot): the
+    replayed step's logits bit-equal to eager's, wall and device ms, idle
+    share and kernels a step by name.  Returns the figures."""
+    import torch
+    from repro_torch.kernels import ops
+    n_pre = [0]
+    for name in ("_prefill", "_prefill_chunk"):
+        def counted(*a, _orig=getattr(e, name), **k):
+            n_pre[0] += 1
+            return _orig(*a, **k)
+        setattr(e, name, counted)
+    before, c0 = ops.launch_counts(), called_forwards(e)
+    res, outs = {"serve_s": {"eager": [], "graph": []}}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for route in ("eager", "graph", "graph"):
+        e._graphs = route == "graph"
+        k0 = e.n_captures
+        toks, secs = timed(lambda: e.serve(reqs, max_new=MOE_NEW))
+        res["serve_s"][route].append(secs)
+        if route in outs and e.n_captures != k0:
+            raise AssertionError(f"{tag}: the second graph serve captured")
+        outs.setdefault(route, toks)
+        if toks != outs["eager"]:
+            raise AssertionError(f"{tag}: {route} serve's tokens differ from "
+                                 "the eager route's")
+    del e._prefill, e._prefill_chunk
+    for seq in outs["eager"]:
+        if not all(0 <= t < e.model.cfg.vocab for t in seq):
+            raise AssertionError(f"{tag}: token id out of range")
+    after = ops.launch_counts()
+    counts = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    n_dec = called_forwards(e) - c0 - n_pre[0]
+    want = {k: v for k, v in want_launches(n_pre[0], n_dec).items() if v}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts} over {n_pre[0]} "
+                             f"prefill and {n_dec} decode forwards, want "
+                             f"{want}")
+    pos = e.max_len // 2
+    n_pages = 1 + MAX_BATCH * -(-e.max_len // e.page_size) if e.paged else 0
+    st = step_state(e, pos, n_pages)
+    st.last.copy_(torch.arange(1, MAX_BATCH + 1, device=e.device) * 997
+                  % e.model.cfg.vocab)
+    per_step = {KERNEL_NAMES[k]: v for k, v in want_launches(0, 1).items()
+                if v}
+    step = step_turns(tag, e, st, per_step)
+    del st
+    n_tok = sum(len(t) - len(p) for t, p in zip(outs["eager"], reqs))
+    res.update(tokens=n_tok, launches=counts, prefill_forwards=n_pre[0],
+               decode_forwards=n_dec, step=step,
+               tok_s={r: n_tok / min(v) for r, v in res["serve_s"].items()},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    g, ea = step["graph"], step["eager"]
+    log(f"{tag}: serve {len(reqs)} × {MOE_NEW} (eager, graph, graph) "
+        + ", ".join(f"{s:.3f}" for r in ("eager", "graph")
+                    for s in res["serve_s"][r])
+        + f" s → eager {res['tok_s']['eager']:.1f}, graph "
+        f"{res['tok_s']['graph']:.1f} tok/s, tokens equal; launches "
+        f"{counts} over {n_pre[0]} prefill and {n_dec} decode forwards "
+        f"whose wrappers ran; peak allocated {res['peak_gib']:.2f} GiB; "
+        f"decode step ({MAX_BATCH} slots at {pos}, in turns) wall eager "
+        f"{ea['mean_wall_ms']:.2f} ms, graph {g['mean_wall_ms']:.2f} ms; "
+        f"device busy eager {ea['device_ms']:.3f} ms (idle share "
+        f"{ea['idle_share']:.3f}), graph {g['device_ms']:.3f} ms (idle "
+        f"share {g['idle_share']:.3f}); {g['kernels']} kernels a step, by "
+        f"name {g['found']}; replayed logits bit-equal to eager; top "
+        "(graph): " + "; ".join(f"{k} {ms:.3f}ms×{n}"
+                                for k, ms, n in g["top"]))
+    return res
+
+
+def moe_full(dev, name: str, n_layers: int, prompt_lens: tuple) -> tuple:
+    """``name`` at full width, ``n_layers`` of its layers, bf16, random
+    weights from a seeded generator, at ``act_levels`` 32 (the experts'
+    activation on the act_quant kernel), its sizes logged: (model,
+    params, MAX_BATCH prompts of ``prompt_lens`` tokens, config)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model_zoo import build
+    cfg = configs.get(name).replace(n_layers=n_layers,
+                                    act_levels=ACT_LEVELS)
+    model = build(cfg)
+    params, t_init = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    moe = params["blocks"]["moe"]
+    gb = lambda ts: sum(t.numel() * t.element_size()  # noqa: E731
+                        for t in ts) / 1e9
+    experts, total = gb(moe[k] for k in ("w1", "w3", "w2")), \
+        gb(_leaves(params))
+    log(f"[moe] {name}: {n_layers} of {configs.get(name).n_layers} layers, "
+        f"d={cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv}, hd {cfg.hd}, "
+        f"{cfg.n_experts} experts of f={cfg.d_ff}, top-{cfg.top_k}, "
+        f"token chunks {cfg.moe_token_chunks}, vocab {cfg.vocab}, kv_quant "
+        f"{cfg.kv_quant}, act_levels {cfg.act_levels}, {cfg.dtype}: "
+        f"{total:.2f} GB ({experts:.2f} GB of experts), init {t_init:.2f}s")
+    lo, hi = prompt_lens
+    return model, params, moe_prompts(MAX_BATCH, cfg.vocab, lo, hi), cfg
+
+
+def moe_path(dev, smi: str) -> tuple[dict, dict]:
+    """The [moe] phase: ``moe_reduced``; qwen3-moe-30b-a3b at full width
+    (2 layers, bf16, act_levels 32) served uncompressed on the contiguous
+    cache and on int8 pages, then compressed with ``exclude="router"``
+    through codebook and lut (and, without the exclusion, the router in
+    index form raising ``KeyError`` in the prefill, as the reference's
+    does); grok-1-314b at full width (1 layer, bf16, act_levels 32) with
+    its int8 contiguous cache and 8 token chunks, 128-token prefills.
+    Every engine through ``moe_engine_check``.  Returns the figures and
+    the phase's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serving import ServeEngine, to_codebook_params
+    t0 = time.time()
+    ops.reset_launch_counts()
+    moe_reduced(dev)
+    stats = {"reduced_s": time.time() - t0}
+
+    model, params, reqs, cfg = moe_full(dev, "qwen3-moe-30b-a3b", 2, (8, 48))
+    L = cfg.n_layers
+    kw = dict(max_len=128, max_batch=MAX_BATCH, device=dev)
+    caches = {"contiguous": {},
+              "paged int8": dict(paged=True, page_size=PAGE,
+                                 kv_dtype="int8")}
+    for cache, ckw in caches.items():
+        gather = L if ckw else 0
+        stats[f"qwen3_moe dense {cache}"] = moe_engine_check(
+            f"[moe] qwen3-moe-30b-a3b dense {cache}",
+            ServeEngine(model, params, **kw, **ckw), reqs,
+            lambda pre, dec, g=gather: {"act_quant": L * (pre + dec),
+                                        "page_gather": g * (pre + dec)})
+        freed(f"[moe] qwen3-moe-30b-a3b dense {cache}")
+    (pq, cp, state, wq), t_cl = timed(lambda: moe_compressed(cfg, params))
+    del params
+    bad = to_codebook_params(pq, dataclasses.replace(wq, exclude=""), state)
+    if set(bad["blocks"]["moe"]["router"]) != {"w_idx", "codebook"}:
+        raise AssertionError("[moe] the router left out of the index form")
+    try:
+        model.prefill(bad, {"tokens": torch.tensor(reqs[:1], device=dev)})
+    except KeyError as err:
+        if err.args != ("w",):
+            raise
+    else:
+        raise AssertionError("[moe] a router in index form served")
+    del bad, pq
+    log(f"[moe] qwen3-moe-30b-a3b compressed (laplacian_l1, |W| = {N_BOOK}, "
+        f"exclude 'router') in {t_cl:.2f}s; without the exclusion the "
+        "router is in index form and the prefill raises KeyError('w'), as "
+        "the reference's does")
+    for be, site in (("codebook", "codebook_matmul"), ("lut", "lut_matmul")):
+        stats[f"qwen3_moe {be}"] = moe_engine_check(
+            f"[moe] qwen3-moe-30b-a3b {be} contiguous",
+            ServeEngine(model, cp, backend=be, **kw), reqs,
+            lambda pre, dec, s=site: {s: (4 * L + 1) * (pre + dec),
+                                      "act_quant": L * (pre + dec)})
+        freed(f"[moe] qwen3-moe-30b-a3b {be}")
+    del cp, model
+    freed("[moe] qwen3-moe-30b-a3b")
+
+    model, params, reqs, cfg = moe_full(dev, "grok-1-314b", 1, (65, 120))
+    chunks = cfg.moe_token_chunks
+    stats["grok int8 contiguous"] = moe_engine_check(
+        "[moe] grok-1-314b dense, int8 contiguous cache",
+        ServeEngine(model, params, max_len=160, max_batch=MAX_BATCH,
+                    device=dev), reqs,
+        lambda pre, dec: {"act_quant": cfg.n_layers * (chunks * pre + dec)})
+    del params, model
+    freed("[moe] grok-1-314b")
+    launches = ops.launch_counts()
+    stats["phase_s"] = time.time() - t0
+    log(f"[moe] {smi}: phase {stats['phase_s']:.1f}s (reduced against the "
+        f"CPU {stats['reduced_s']:.1f}s); launches {launches}")
+    return stats, launches
 
 
 def unfused_step(dev, e, L) -> dict:
@@ -4551,6 +4920,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     q_stats, q_launches, qs_launches = kv_quant_path(dev)
     torch.cuda.empty_cache()
+    m_stats, m_launches = moe_path(dev, smi)
+    torch.cuda.empty_cache()
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -4569,7 +4940,8 @@ def main() -> int:
                    "sched": sc_launches.get(k, 0),
                    "fleet": f_launches.get(k, 0),
                    "probes": pr_launches.get(k, 0),
-                   "launch": l_launches.get(k, 0)}
+                   "launch": l_launches.get(k, 0),
+                   "moe": m_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -4635,9 +5007,14 @@ def main() -> int:
     log("[done] fleet path " + json.dumps(f_stats))
     log("[done] probes path " + json.dumps(pr_stats))
     log("[done] launch path " + json.dumps(l_stats))
+    log("[done] moe path " + json.dumps(m_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
-    print(json.dumps({"kernels": kernels}))
+    line = json.dumps({"kernels": kernels})
+    print(line)
+    if os.environ.get("CHIP_SMOKE_LOG"):   # the tail of stdout may cut it
+        with open(os.environ["CHIP_SMOKE_LOG"], "a") as f:
+            print(line, file=f)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -1,3 +1,3 @@
-"""Models: the dense-family decoder LM with quant-aware dense layers that
-take weights either as floats ('w') or in codebook-index form
-('w_idx' + 'codebook')."""
+"""Models: the decoder LM of the dense and mixture-of-experts families, with
+quant-aware dense layers that take weights either as floats ('w') or in
+codebook-index form ('w_idx' + 'codebook')."""

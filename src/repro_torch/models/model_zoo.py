@@ -61,7 +61,10 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+    """The model handle of a ``dense`` or ``moe`` config; other families
+    are not ported yet and raise, naming the family."""
+    if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
-            f"the port builds dense-family models; got {cfg.family!r}")
+            f"the port builds {'/'.join(T.FAMILIES)}-family models; got "
+            f"family {cfg.family!r}")
     return Model(cfg)

@@ -1,7 +1,11 @@
-"""Dense-family decoder LM: init, prefill, the contiguous decode step and
-speculative verify step, and the paged KV cache's chunked prefill, decode
-step and speculative verify step (the port's copy of the dense-family
-serving parts of ``repro/models/transformer.py``).
+"""Decoder LM of the dense and mixture-of-experts families: init, prefill,
+the contiguous decode step and speculative verify step, and the paged KV
+cache's chunked prefill, decode step and speculative verify step (the
+port's copy of the KV-cache serving parts of
+``repro/models/transformer.py``).  A ``moe`` model's blocks carry
+``'moe'`` (``models/moe.py``) where a dense model's carry ``'mlp'``; every
+FFN site goes through ``_ffn``, which takes the routed FFN when the layer
+has one, as the reference's ``_dense_block`` does.
 
 Parameters are a nested dict in the JAX package's layout: per-layer tensors
 are stacked under ``params['blocks']`` with a leading layer dim, and the
@@ -29,11 +33,13 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch, probes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 
-__all__ = ["init_params", "prefill", "decode_step", "verify_step",
-           "init_cache", "attn_cfg", "init_paged_cache", "prefill_chunk"]
+__all__ = ["FAMILIES", "init_params", "prefill", "decode_step", "verify_step",
+           "init_cache", "attn_cfg", "moe_cfg", "init_paged_cache",
+           "prefill_chunk"]
 
-_FAMILIES = ("dense",)
+FAMILIES = ("dense", "moe")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -49,13 +55,22 @@ def attn_cfg(cfg) -> A.AttnConfig:
         window=cfg.window, causal=True, kv_block=cfg.kv_block)
 
 
+def moe_cfg(cfg) -> M.MoEConfig:
+    return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       n_experts=cfg.n_experts, top_k=cfg.top_k,
+                       capacity_factor=cfg.moe_capacity,
+                       token_chunks=cfg.moe_token_chunks,
+                       act_kind=cfg.act_kind, act_levels=cfg.act_levels)
+
+
 def init_params(gen: torch.Generator, cfg, device=None):
     """Random parameters with the reference's standard deviations:
-    embeddings N(0, 0.02²), every dense matrix N(0, 1/d_in), norm scales 1.
-    Drawn from ``gen`` (a ``torch.Generator`` on ``device``)."""
-    if cfg.family not in _FAMILIES:
+    embeddings N(0, 0.02²), every dense matrix N(0, 1/d_in), norm scales 1,
+    and for ``moe`` the experts' (``moe.moe_init``).  Drawn from ``gen`` (a
+    ``torch.Generator`` on ``device``)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"the port builds the {_FAMILIES} families; got {cfg.family!r}")
+            f"the port builds the {FAMILIES} families; got {cfg.family!r}")
     dev = resolve_device(device)
     dt = _dtype(cfg)
     d, hd, n = cfg.d_model, cfg.hd, (cfg.n_layers,)
@@ -72,8 +87,12 @@ def init_params(gen: torch.Generator, cfg, device=None):
         attn["k_norm"] = L.rms_norm_init(hd, dt, dev, layers=n)
     p["blocks"] = {"ln1": L.rms_norm_init(d, dt, dev, layers=n),
                    "attn": attn,
-                   "ln2": L.rms_norm_init(d, dt, dev, layers=n),
-                   "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, dev, layers=n)}
+                   "ln2": L.rms_norm_init(d, dt, dev, layers=n)}
+    if cfg.family == "moe":
+        p["blocks"]["moe"] = M.moe_init(gen, moe_cfg(cfg), dt, dev, layers=n)
+    else:
+        p["blocks"]["mlp"] = L.swiglu_init(gen, d, cfg.d_ff, dt, dev,
+                                           layers=n)
     return p
 
 
@@ -81,6 +100,17 @@ def _layer(tree, i: int):
     """Views of layer ``i`` of a stacked parameter dict."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _ffn(p_l, h, cfg, backend):
+    """The layer's FFN on the residual ``h``: the routed experts when the
+    layer has them (their products are plain, as the reference's; the
+    backend runs the index-form matmuls only), else the SwiGLU."""
+    if "moe" in p_l:
+        return M.moe_apply(p_l["moe"], L.rms_norm(p_l["ln2"], h),
+                           moe_cfg(cfg))
+    return L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], h), cfg.act_kind,
+                    cfg.act_levels, backend)
 
 
 def _logits(p, cfg, x, backend):
@@ -140,8 +170,7 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
             a, kv = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x),
                                  acfg, backend)
             x = x + a
-            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                             cfg.act_kind, cfg.act_levels, backend)
+            x = x + _ffn(p_l, x, cfg, backend)
             if cfg.kv_quant:
                 (kq, ksc), (vq, vsc) = (A.quantize_kv(kv["k"]),
                                         A.quantize_kv(kv["v"]))
@@ -227,8 +256,7 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
                 page_table=page_table, write_pid=write_pid, past_len=start,
                 k_pool=cache["k"], v_pool=cache["v"], layer=i,
                 scales=scales, backend=backend)
-            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                             cfg.act_kind, cfg.act_levels, backend)
+            x = x + _ffn(p_l, x, cfg, backend)
     probes.bump(ps, "tokens", length)
     x_last = L.rms_norm(params["final_norm"], x[:, length - 1:length])
     return _logits(params, cfg, x_last, backend), cache
@@ -265,8 +293,7 @@ def _decode_step_paged(params, cfg, tokens, cache, backend):
                 pos=pos[:, None], page_table=pt, write_pid=write_pid,
                 write_off=write_off, valid_len=vlen, k_pool=cache["k"],
                 v_pool=cache["v"], layer=i, scales=scales, backend=backend)
-            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                             cfg.act_kind, cfg.act_levels, backend)
+            x = x + _ffn(p_l, x, cfg, backend)
     probes.bump(ps, "tokens", B)
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), {**cache, "pos": pos + 1}
@@ -302,8 +329,7 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
                 pos=pos_v[:, None], insert_at=ins, valid_len=vlen,
                 k_all=kv["k"], v_all=kv["v"], layer=i, scales=scales,
                 backend=backend)
-            x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                             cfg.act_kind, cfg.act_levels, backend)
+            x = x + _ffn(p_l, x, cfg, backend)
     probes.bump(ps, "tokens", tokens.shape[0])
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}
@@ -343,8 +369,7 @@ def _verify_step_paged(params, cfg, tokens, cache, backend):
             page_table=pt, write_pid=write_pid, write_off=write_off,
             valid_len=vlen, k_pool=cache["k"], v_pool=cache["v"], layer=i,
             scales=scales, backend=backend)
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
+        x = x + _ffn(p_l, x, cfg, backend)
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), cache
 
@@ -386,7 +411,6 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
             p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg, pos=ppos,
             insert_at=ins, valid_len=vlen, k_all=kv["k"], v_all=kv["v"],
             layer=i, scales=scales, backend=backend)
-        x = x + L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], x),
-                         cfg.act_kind, cfg.act_levels, backend)
+        x = x + _ffn(p_l, x, cfg, backend)
     x = L.rms_norm(params["final_norm"], x)
     return _logits(params, cfg, x, backend), cache

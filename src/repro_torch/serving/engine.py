@@ -1,6 +1,12 @@
 """Batched serving engine over the contiguous or the paged KV cache (the
 port's copy of the single-device ``ServeEngine`` of
-``repro/serving/engine.py``).
+``repro/serving/engine.py``), for the KV-cache families ``dense`` and
+``moe``.  In a ``moe`` model every row of a forward competes for the
+experts' capacity, so what the engine feeds its padding and its free or
+retired slots (the prompt bucket's zero tokens, the zero tail of a prefill
+chunk, a free slot's last token and position, a paged speculative round's
+zero proposals outside the active slots) changes the active requests'
+tokens: each is the reference's.
 
 * **Prefill** runs the whole right-padded prompt batch in one forward;
   prompt lengths are bucketed to powers of two (at least 8), logits come
@@ -96,7 +102,7 @@ from repro_torch.serving.telemetry import NULL_TELEMETRY
 
 __all__ = ["ServeEngine", "SchedState", "SwapBlob"]
 
-_ENGINE_FAMILIES = ("dense",)
+_ENGINE_FAMILIES = ("dense", "moe")
 
 
 def _bucket(n: int, lo: int = 8) -> int:
@@ -705,6 +711,11 @@ class ServeEngine:
         st.vtokens[:, 0].copy_(st.last)
         if sp.draft == "ngram":
             d_toks = ngram_propose(st.ctx, st.ctx_len, k=sp.k, n=sp.ngram)
+            if "page_table" in st.cache:
+                # the reference's paged round proposes on the host for the
+                # active slots only, zeros elsewhere
+                d_toks = torch.where(st.active[:, None], d_toks,
+                                     torch.zeros_like(d_toks))
             st.vtokens[:, 1:].copy_(d_toks)
             return d_toks, None
         V = self.model.cfg.vocab
@@ -1051,6 +1062,9 @@ class ServeEngine:
                     slot_rid[b], slot_adm[b] = None, None
                     set_row(b)              # retired → trash page
                     pos[b] = 0
+                    # no history: the draft's next rollback puts the slot
+                    # at position 0, as the reference's does
+                    st.ctx_len[b] = 0
         self.spec_stats.add(*st.stats.tolist())
         return [results[i] for i in range(n)]
 

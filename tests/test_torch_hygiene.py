@@ -75,3 +75,56 @@ def test_entry_points_refuse_to_run_without_gpu(monkeypatch):
     eng = ServeEngine(model, params, max_len=32, device="cpu", paged=True,
                       page_size=4, kv_dtype="int8")
     assert len(eng.serve([[1, 2]], max_new=2)[0]) == 4
+
+
+_MOE_SERVE = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.path.insert(0, {src!r})
+import torch
+from repro_torch import configs
+from repro_torch.models.model_zoo import build
+from repro_torch.serving import ServeEngine, SpecConfig
+model = build(configs.get("qwen3-moe-30b-a3b").reduced())
+params = model.init(torch.Generator().manual_seed(0), "cpu")
+kws = [dict(), dict(paged=True, page_size=8, kv_dtype="int8"),
+       dict(spec=SpecConfig(k=2)), dict(probes=True)]
+for kw in kws:
+    eng = ServeEngine(model, params, max_len=32, max_batch=2, device="cpu",
+                      **kw)
+    out = eng.serve([[1, 2, 3], [4, 5], [6, 7, 8, 9]], max_new=3)
+    assert [len(o) for o in out] == [6, 5, 7], out
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and (m in ("jax", "repro", "jaxlib")
+                  or m.startswith(("jax.", "jaxlib.", "repro."))))
+print("repro_torch.models.moe" in sys.modules, bad)
+"""
+
+
+def test_moe_serving_paths_import_no_jax_and_no_repro():
+    """The ``moe`` family served through the contiguous, paged int8,
+    speculative and probed engine with ``jax`` blocked: nothing of JAX or
+    of the reference package is loaded."""
+    code = _MOE_SERVE.format(src=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": ""})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "True []", r.stdout
+
+
+def test_moe_entry_points_refuse_to_run_without_gpu(monkeypatch):
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build(configs.get("grok-1-314b").reduced())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        model.init(torch.Generator().manual_seed(0))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServeEngine(model, params, max_len=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "qwen3-moe-30b-a3b", "--reduced"])

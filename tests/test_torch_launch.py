@@ -7,7 +7,9 @@ reduced qwen3 with the reference's ``PRNGKey(0)`` weights (the port's
   ``--tp``, with smaller ``--requests``/``--max-new``, and ``--uniform``,
   ``--spec-draft model --compress``, ``--probes --numerics-out``,
   ``--server --metrics-out --trace-out`` and ``--traffic replay
-  --trace-file``: stdout equal line for line once the wall-clock figures
+  --trace-file``, and two runs of the reduced qwen3-moe-30b-a3b with its
+  own weights (lut on int8 pages; ``--server``): stdout equal line for
+  line once the wall-clock figures
   (seconds, tok/s, ms/request) are masked — ``[memory]``, tokens, ``[kv]``,
   ``[spec]``, the virtual TTFT/TPOT/SLO report, admission order, ``[fleet]``
   lines and the event digest.  The KV error of the numerics lines is
@@ -17,7 +19,8 @@ reduced qwen3 with the reference's ``PRNGKey(0)`` weights (the port's
   reference's without the kernels section, the Perfetto trace exactly;
 * every refusal of the reference (``ap.error`` and its ``SystemExit``s)
   with the same exit code and message; ``--tp 2`` refused naming the
-  tensor-parallel slice; a non-dense ``--arch`` refused by ``build``;
+  tensor-parallel slice; an ``--arch`` of a family the port does not build
+  yet (rwkv6-7b) refused by ``build``;
 * the flags, defaults, choices and help of the reference's parser;
 * sampling (T = 0.8) held to the port itself: one seed, one output, and
   ``--top-k 1`` equals greedy;
@@ -68,7 +71,14 @@ CASES = {
                         "--trace-out {dir}/trace.json",
     "replay": "--server --traffic replay --trace-file {trace} --paged "
               "--page-size 8 --max-batch 2 --quantum 2",
+    "moe_lut_paged_int8": "--compress --backend lut --paged --kv-dtype int8 "
+                          "--requests 6 --max-batch 4 --max-new 8",
+    "moe_server": "--server --paged --kv-dtype int8 --requests 8 --compress "
+                  "--backend codebook",
 }
+# the --arch of a case when it is not qwen3-1.7b
+ARCH = {"moe_lut_paged_int8": "qwen3-moe-30b-a3b",
+        "moe_server": "qwen3-moe-30b-a3b"}
 
 _WALL = re.compile(r"in \d+\.\d+s|\d+\.\d+ tok/s|\d+\.\d+ ms/request")
 _KV_ERR = re.compile(r"kv err max \S+|kv round-trip err \S+")
@@ -88,16 +98,35 @@ def _masked(out: str, out_dir: str) -> list:
     return lines
 
 
-@pytest.fixture(scope="module")
-def ref_params():
-    """The reduced qwen3's weights as the reference's launcher draws them,
-    as numpy."""
+def _reference_weights(arch):
+    """A reduced registry model's weights as the reference's launcher draws
+    them, as numpy."""
     jax = pytest.importorskip("jax")
     import repro.configs as C
     from repro.models.model_zoo import build
 
-    params = build(C.get("qwen3-1.7b").reduced()).init(jax.random.PRNGKey(0))
+    params = build(C.get(arch).reduced()).init(jax.random.PRNGKey(0))
     return jax.tree_util.tree_map(np.asarray, params)
+
+
+@pytest.fixture(scope="module")
+def ref_params():
+    """The reduced qwen3's weights as the reference's launcher draws them,
+    as numpy."""
+    return _reference_weights("qwen3-1.7b")
+
+
+@pytest.fixture(scope="module")
+def case_params(ref_params):
+    """The reference's weights of a case's ``--arch``."""
+    cache = {"qwen3-1.7b": ref_params}
+
+    def get(name):
+        arch = ARCH.get(name, "qwen3-1.7b")
+        if arch not in cache:
+            cache[arch] = _reference_weights(arch)
+        return cache[arch]
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +140,8 @@ def trace_file(tmp_path_factory):
 
 
 def _argv(name, out_dir, trace):
-    return REDUCED + CASES[name].format(dir=out_dir, trace=trace).split()
+    return (["--arch", ARCH.get(name, "qwen3-1.7b"), "--reduced"]
+            + CASES[name].format(dir=out_dir, trace=trace).split())
 
 
 def run_reference(argv) -> str:
@@ -168,13 +198,13 @@ def _check_numerics(got: dict, want: dict) -> None:
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_launcher_prints_the_reference_lines(name, reference, ref_params,
+def test_launcher_prints_the_reference_lines(name, reference, case_params,
                                              trace_file, tmp_path,
                                              monkeypatch):
     ref_dir, want = reference(name)
     port_dir = str(tmp_path)
     got = run_port(_argv(name, port_dir, trace_file), monkeypatch,
-                   ref_params)
+                   case_params(name))
     assert _masked(got, port_dir) == _masked(want, ref_dir)
     tags = {ln.split(" ", 1)[0] for ln in got.splitlines()}
     assert "sample:" in tags
@@ -256,9 +286,11 @@ def test_tp_refused_naming_the_tp_slice():
 
 
 def test_non_dense_arch_refused_by_build():
-    with pytest.raises(NotImplementedError, match="dense-family"):
-        TS.main(["--arch", "qwen3-moe-30b-a3b", "--reduced", "--device",
-                 "cpu"])
+    """A family the port does not build yet (rwkv6-7b's ``ssm_rwkv``) is
+    refused by ``build``, naming the family; ``moe`` is served (the
+    ``moe_*`` cases above)."""
+    with pytest.raises(NotImplementedError, match="'ssm_rwkv'"):
+        TS.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu"])
 
 
 def _actions(parser) -> dict:
