@@ -183,6 +183,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    eager, graph, graph with equal tokens, launches a forward held
    exactly, a replayed decode step's logits bit-equal to eager's, step
    ms and tok/s of both routes;
+   [recurrent], RWKV-6 (``models/rwkv.py``) and the Mamba2/Zamba2 hybrid
+   (``models/ssm.py`` and the shared block) through the model handle,
+   which ServeEngine does not serve: the reduced rwkv6-7b and zamba2-2.7b
+   (|W| 256, act_levels 0 and 32) through dense, codebook and lut, card
+   tokens equal to the CPU's (lut parted only at a snap tie); rwkv6-7b at
+   full width, 4 of 32 layers, bf16, act_levels 32, |W| 1000: 4 prompts
+   of 128 tokens by prefill and 16 greedy decodes a backend, launches of
+   a prefill, a decode step and a forward held exactly to the code's
+   count, forward's last logits against prefill's, memory_report's packed
+   bytes under a third of fp32; zamba2-2.7b at full width, 12 of 54
+   layers, the same way: forward over 4 × 64 tokens and 16 decode steps
+   from init_cache a backend, launches exact, and in f32 at act_levels 0
+   the prompts fed through decode within the reference's 2e-2 of
+   forward's logits; codebook within 1 % of dense in f32 at act_levels 0;
+   prefill/forward ms, decode step wall and device ms,
+   idle share, tok/s and peak memory;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -202,6 +218,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -241,6 +258,27 @@ N_PAGES = 1 + MAX_BATCH * PAGED_MAX_LEN // PAGE     # the engine's default
 ACT_LEVELS = 32                  # the paper's working point: |A| = 32 ...
 D_FF = 6144                      # ... at each FFN of qwen3-1.7b
 KM_RTOL = 1e-5                   # k-means codebooks: see centers_agree
+REC_BATCH = 4                    # prompts a full-width run
+REC_NEW = 16                     # decode steps a backend at full width
+REC_PLEN = {"rwkv6-7b": 128, "zamba2-2.7b": 64}   # one chunk each
+# The (K, N) sites the recurrent families give the matmul kernels (rwkv's
+# five time-mix projections, its LoRA down and up, its channel mix;
+# Mamba2's in_proj, whose N is no multiple of 16, and its out_proj, the
+# shape of the shared in_proj; the shared block's wq/wk/wv/wo, w1/w3 and
+# w2) and the row counts each family gives them: decode, and rwkv's
+# 4 × 128 prefill or zamba2's 4 × 64 forward
+REC_ROWS = {"rwkv6-7b": (REC_BATCH, REC_BATCH * 128),
+            "zamba2-2.7b": (REC_BATCH, REC_BATCH * 64)}
+REC_SITES = {"rwkv6-7b": ((4096, 4096), (4096, 32), (32, 4096),
+                          (4096, 14336), (14336, 4096)),
+             "zamba2-2.7b": ((2560, 10448), (5120, 2560), (2560, 2560),
+                             (2560, 10240), (10240, 2560))}
+# the gated launch's site in the shared block (w1/w3), at zamba2's rows
+REC_SWIGLU = (2560, 10240)
+# the widths of their act_quant launches: rwkv's gate (with its multiplier)
+# and squared relu, Mamba2's conv output and z gate (with its multiplier)
+REC_ACT = {"rwkv6-7b": (4096, 14336), "zamba2-2.7b": (5248, 5120)}
+BACKENDS = ("dense", "codebook", "lut")
 
 
 def log(*a):
@@ -374,8 +412,12 @@ def lut_out_of_range(g, dev, m, k, n, R, C):
 
 def parity(dev, rows) -> tuple[dict, dict]:
     """Each kernel against its plain version at every M of ``rows`` and
-    every (K, N) site of the model, int8, int16 and int32 ids, f32 and bf16
-    x, and every route (``codebook_plans``): lut bit-exact, codebook within
+    every (K, N) site of the model, at the recurrent families' sites
+    (``REC_SITES``: rwkv's time mix, its LoRA, a 32-wide N and a 32-deep
+    K, its channel mix, Mamba2's in_proj, whose N is no multiple of 16,
+    and out_proj, the shared block's projections) at each family's rows
+    (``REC_ROWS``), int8, int16 and int32 ids, f32 and bf16 x, and every
+    route (``codebook_plans``): lut bit-exact, codebook within
     ``parity_tolerance`` (16 × the summation-order estimate), which the
     plain version without the cast of weights to bf16 must fail; every
     launch run twice, bit-identical; lut also on out-of-range ids
@@ -389,6 +431,8 @@ def parity(dev, rows) -> tuple[dict, dict]:
     worst = {"codebook_matmul": 0.0, "lut_matmul": 0.0}
     shares, n_cb, n_lut = {}, 0, 0
     cases = [(M, K, N) for M in rows for K, N in sorted(set(SITES.values()))]
+    cases += [(M, K, N) for f, sites in REC_SITES.items()
+              for M in REC_ROWS[f] for K, N in sites]
     cases += [(3, 100, 130), (40, 100, 130)]          # ragged edges
     for M, K, N in cases:
         for idt, W in ((torch.int8, 256), (torch.int16, N_BOOK),
@@ -466,6 +510,9 @@ def parity(dev, rows) -> tuple[dict, dict]:
                     f"{tuple(args[0].shape)} x {tuple(args[1].shape)} not "
                     "exact, or two runs differ")
     log(f"[parity] M in {rows} × {len(set(SITES.values()))} (K, N) sites, "
+        f"the recurrent families' sites at their rows "
+        + "; ".join(f"{f} M in {REC_ROWS[f]} × {list(REC_SITES[f])}"
+                    for f in REC_SITES) + ", "
         f"and M=3, 40 at K=100 N=130; int8/int16/int32 ids × f32/bf16 x: "
         f"{n_cb} codebook launches over its routes, each run twice "
         f"bit-identical, max abs err {worst['codebook_matmul']:.3e}; share "
@@ -560,13 +607,18 @@ ACT_KINDS = ("tanh", "relu6", "sigmoid", "rtanh")
 def act_quant_parity(dev, rows) -> tuple[float, int]:
     """act_quant against its plain version, both forms, every kind, |A| 2,
     32 and 256, f32 and bf16 x, at every FFN row count of the serving
-    paths × 6144 and at odd sizes (1 element; n no multiple of a block).
+    paths × 6144, at the recurrent families' widths (``REC_ACT``: rwkv's
+    gate, with its multiplier as every size is, and squared relu, Mamba2's
+    conv output and z gate) at their decode and prefill row counts, and at
+    odd sizes (1 element; n no multiple of a block).
     Outputs and indices bit-equal but for ties (``parity_ties``); relu6
     bit-equal everywhere.  Returns (max abs err, ties)."""
     import torch
     from repro_torch.kernels import act_quant as aq
     g = torch.Generator(device=dev).manual_seed(4)
     sizes = [(m, D_FF) for m in rows] + [(1,), (1000003,), (3, 257)]
+    sizes += [(m, n) for f, widths in REC_ACT.items() for m in REC_ROWS[f]
+              for n in widths]
     worst, ties, n = 0.0, 0, 0
     for shape in sizes:
         base = torch.randn(shape, generator=g, device=dev) * 3
@@ -608,7 +660,8 @@ def act_quant_parity(dev, rows) -> tuple[float, int]:
 
 def swiglu_parity(dev, rows) -> tuple[float, dict]:
     """The gated launch (codebook_swiglu) at every FFN row count of the
-    serving paths × the w1/w3 site, and an odd N (K 100, N 131: the FMA
+    serving paths × the w1/w3 site, at the hybrid's shared w1/w3 site
+    (``REC_SWIGLU``) at zamba2's rows, and an odd N (K 100, N 131: the FMA
     tile), int8/int16/int32 ids, f32/bf16 x, 4 kinds × |A| 2, 32, 256, on
     the planned route and (bf16) the FMA tile: bit-equal to the unfused
     chain of CUDA launches with the same plan (two codebook_matmul, their
@@ -626,6 +679,7 @@ def swiglu_parity(dev, rows) -> tuple[float, dict]:
     g = torch.Generator(device=dev).manual_seed(8)
     K, N = SITES["w1"]
     cases = [(m, K, N) for m in rows] + [(3, 100, 131), (40, 100, 131)]
+    cases += [(m, *REC_SWIGLU) for m in REC_ROWS["zamba2-2.7b"]]
     n, flips, total, worst = 0, 0, 0, 0.0
     for M, K_, N_ in cases:
         for idt, W in ((torch.int8, 256), (torch.int16, N_BOOK),
@@ -685,7 +739,9 @@ def swiglu_parity(dev, rows) -> tuple[float, dict]:
     counts = {"launches": 2 * n, "flips_vs_plain": flips,
               "elements_vs_plain": total}
     log(f"[parity] codebook_swiglu in {n} cases (M in {rows} at the w1/w3 "
-        f"site {K}×{N}, and M=3, 40 at K=100 N=131; int8/int16/int32 ids × "
+        f"site {K}×{N}, M in {REC_ROWS['zamba2-2.7b']} at the shared "
+        f"block's {REC_SWIGLU[0]}×{REC_SWIGLU[1]}, and M=3, 40 at K=100 "
+        f"N=131; int8/int16/int32 ids × "
         f"f32/bf16 x × {len(ACT_KINDS)} kinds × |A| 2/{ACT_LEVELS}/256; "
         f"planned route and, bf16, the FMA tile): bit-equal to the unfused "
         f"chain of CUDA launches and, relu6, to the plain epilogue of its "
@@ -3295,7 +3351,6 @@ def run_launcher(argv: list, init=None) -> tuple:
     captured (and logged line by line), with ``init`` in place of its
     ``init_params`` when given.  Returns (stdout lines, the engines and
     the servers it built).  A ``SystemExit`` fails the run."""
-    import contextlib
     import io
     from repro_torch.launch import serve as TS
     from repro_torch.serving import server as srv_mod
@@ -4398,6 +4453,468 @@ def moe_path(dev, smi: str) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [recurrent]: RWKV-6 and the Mamba2/Zamba2 hybrid ------------------------
+
+
+
+def rec_launches(cfg, be: str) -> dict:
+    """Kernel launches of one forward of a recurrent model at act_levels >
+    0 (a prefill, a decode step or ``forward``), derived from the code.
+    RWKV-6: 9 index-form matmuls a layer (the time mix's wr, wk, wv, wg,
+    wo and its LoRA's two, the channel mix's wk, wv) and 2 act_quant (the
+    gate with its multiplier, the squared relu's relu6).  The hybrid: 2
+    matmuls a Mamba2 layer (in_proj, out_proj) and 2 act_quant (the conv
+    output, the z gate with its multiplier); a group's shared block
+    in_proj, wq, wk, wv, wo and w2, and its w1/w3 as one gated launch on
+    codebook, else as two matmuls and one act_quant with its
+    multiplier."""
+    L = cfg.n_layers
+    if cfg.family == "ssm_rwkv":
+        mm, aq, gated = 9 * L, 2 * L, 0
+    else:
+        g = cfg.n_layers // cfg.shared_attn_every
+        mm, aq, gated = 2 * L + 6 * g, 2 * L, g
+        if be != "codebook":
+            mm, aq, gated = mm + 2 * g, aq + g, 0
+    out = {"act_quant": aq}
+    if be == "codebook":
+        out.update(codebook_matmul=mm, codebook_swiglu=gated)
+    elif be == "lut":
+        out["lut_matmul"] = mm
+    return {k: v for k, v in out.items() if v}
+
+
+def rec_backend(cp, be: str):
+    """(params, BackendSpec) of backend ``be`` on an index-form tree, the
+    lut grid and tables made as ServeEngine makes them (fan-in and
+    codebooks from ``_index_form_stats``)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.serving.engine import _index_form_stats
+    if be != "lut":
+        return cp, dispatch.BackendSpec(be)
+    _, fan_in, book = _index_form_stats(cp)
+    spec = dispatch.make_lut_spec(book, fan_in)
+    return dispatch.attach_lut_tables(cp, spec), dispatch.BackendSpec(be, spec)
+
+
+def rec_greedy(model, params, bk, toks, n_new: int, feed: bool):
+    """Greedy continuation through the model handle: the prompt by
+    ``prefill`` (``feed``: from ``init_cache``, token by token through
+    ``decode``, the hybrid's generation path), then ``n_new`` greedy
+    decodes.  Returns the (B, n_new) ids."""
+    import torch
+    B, S = toks.shape
+    if feed:
+        cache = model.init_cache(B, S + n_new, dtype=torch.float32,
+                                 device=toks.device)
+        for t in range(S):
+            logits, cache = model.decode(params, toks[:, t:t + 1], cache, bk)
+    else:
+        logits, cache = model.prefill(params, {"tokens": toks}, bk)
+    out = []
+    for _ in range(n_new):
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        out.append(nxt)
+        logits, cache = model.decode(params, nxt[:, None], cache, bk)
+    return torch.stack(out, dim=1).cpu()
+
+
+def recurrent_reduced(dev) -> list:
+    """The reduced rwkv6-7b (2 layers) and zamba2-2.7b (4 layers, shared
+    every 2), f32, compressed on the CPU at |W| 256 (laplacian_l1, global),
+    at act_levels 0 and 32, through dense, codebook and lut: rwkv a 2 × 16
+    prompt by prefill, zamba2 the prompt fed through decode from
+    init_cache, then 8 greedy decodes; the card's tokens equal the CPU's.
+    lut alone may part, where ``first_parting`` finds a half-way tie of its
+    activation snap first, as in [moe].  Returns the partings."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+    partings = []
+    for name in ("rwkv6-7b", "zamba2-2.7b"):
+        for lv in (0, ACT_LEVELS):
+            cfg = configs.get(name).reduced().replace(act_levels=lv)
+            model = build(cfg)
+            params = model.init(torch.Generator().manual_seed(0),
+                                device="cpu")
+            wq = cfg.quantized(n_weights=256).wq
+            pq, state = cluster_params(params, wq, init_state(wq),
+                                       wq.interval)
+            cp = to_codebook_params(pq, wq, state)
+            cp_dev = _to(cp, dev)
+            toks = torch.from_numpy(np.random.default_rng(3).integers(
+                1, cfg.vocab, (2, cfg.ssm_chunk)))
+            feed = cfg.family == "hybrid"
+            for be in BACKENDS:
+                run = {d: (lambda d=d, p=p: rec_greedy(
+                    model, *rec_backend(p, be), toks.to(d), 8, feed))
+                       for d, p in (("cpu", cp), (dev, cp_dev))}
+                want, got = run["cpu"](), run[dev]()
+                if torch.equal(got, want):
+                    continue
+                tag = f"[recurrent] reduced {name} act_levels {lv} {be}"
+                if be != "lut":
+                    raise AssertionError(f"{tag}: card tokens {got.tolist()}"
+                                         f" != CPU tokens {want.tolist()}")
+                part = first_parting(*(moe_decisions(run[d])
+                                       for d in ("cpu", dev)))
+                partings.append(f"{name} act_levels {lv} lut")
+                log(f"{tag}: card tokens part from the CPU's; the first "
+                    f"decision the card takes otherwise is a tie: {part}")
+    log("[recurrent] reduced rwkv6-7b (prefill of 2 × 16) and zamba2-2.7b "
+        "(the prompt fed through decode), |W| 256, act_levels 0 and 32: "
+        "dense/codebook/lut greedy tokens on the card equal the CPU path's"
+        + (f", but where a lut snap tie parts them ({', '.join(partings)})"
+           if partings else ""))
+    return partings
+
+
+def rec_model(dev, name: str, n_layers: int, tag: str):
+    """``name`` at full width, ``n_layers`` of its layers, bf16, random
+    weights from a seeded generator, at act_levels 32, compressed as
+    ``launch/serve.py --compress`` does (laplacian_l1, |W| = N_BOOK,
+    global), and ``core/export.memory_report`` of its index form (packed
+    under a third of fp32): (model, config, index-form params, the norm
+    scales before clustering (``_norm_scales``), figures)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.export import memory_report
+    from repro_torch.core.quantizer import (cluster_params, codebook_indices,
+                                            init_state)
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+    cfg = configs.get(name).replace(n_layers=n_layers, act_levels=ACT_LEVELS)
+    model = build(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params, t_init = timed(lambda: model.init(
+        torch.Generator(device=dev).manual_seed(0), device=dev))
+    n_params = sum(t.numel() for t in _leaves(params))
+    norms = _norm_scales(params)
+    wq = cfg.quantized(n_weights=N_BOOK).wq
+    (pq, state), t_cl = timed(lambda: cluster_params(params, wq,
+                                                     init_state(wq),
+                                                     wq.interval))
+    del params
+    cp = to_codebook_params(pq, wq, state)
+    idx, _ = codebook_indices(pq, wq, state)
+    del pq
+    rep = memory_report(idx, wq.num_weights, ACT_LEVELS)
+    del idx
+    if not (rep.n_params == n_params and rep.packed_bytes
+            < rep.fp32_bytes / 3):
+        raise AssertionError(f"{tag} memory_report {rep.row()}: want "
+                             f"{n_params} params, packed under a third of "
+                             "fp32")
+    fig = {"params": n_params, "init_s": t_init, "cluster_s": t_cl,
+           "memory_row": rep.row(), "packed_bytes": rep.packed_bytes,
+           "fp32_bytes": rep.fp32_bytes,
+           "packed_share": rep.packed_bytes / rep.fp32_bytes,
+           "build_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"{tag}: {n_layers} of {configs.get(name).n_layers} layers, "
+        f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, act_levels {cfg.act_levels}: {n_params} params, init "
+        f"{t_init:.2f}s, cluster {t_cl:.2f}s; [memory] {rep.row()} (packed "
+        f"{fig['packed_share']:.3f} of fp32)")
+    return model, cfg, cp, norms, fig
+
+
+def rec_counted(fn):
+    """(fn's result, the kernel launches it made)."""
+    from repro_torch.kernels import ops
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] > before[k]}
+
+
+def rec_check(tag: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, want {want}")
+
+
+def rec_step_figures(fn, n_tok: int) -> dict:
+    """A decode step's wall ms (mean of REC_NEW calls, each synchronized),
+    the profiler's device ms, idle share and kernels a step, and tok/s."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(REC_NEW):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / REC_NEW
+    busy, top, _, n_k, _ = device_time(fn, top=6)
+    return {"step_ms": wall, "device_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall), "kernels": n_k,
+            "tok_s": n_tok / wall * 1e3,
+            "top": [(k, round(ms, 4), n) for k, ms, n in top]}
+
+
+def _norm_scales(tree, path=()) -> list:
+    """[(path, leaf)] of a tree's norm scales (the leaves named 'scale')."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _norm_scales(v, path + (k,))]
+    return [(path, tree)] if path[-1] == "scale" else []
+
+
+def _with_leaves(tree, leaves):
+    """``tree`` with each (path, leaf) of ``leaves`` put in (the dicts on
+    those paths copied, every other leaf shared)."""
+    out = dict(tree)
+    for path, leaf in leaves:
+        node = out
+        for k in path[:-1]:
+            node[k] = node = dict(node[k])
+        node[path[-1]] = leaf
+    return out
+
+
+@contextlib.contextmanager
+def plain_lut():
+    """lut_matmul's wrapper routes card tensors to its plain version: the
+    same lut arithmetic with no hand-written kernel (nothing launches,
+    nothing is counted)."""
+    from repro_torch.kernels import lut_matmul as lm
+    cuda = lm.lut_matmul_cuda
+    lm.lut_matmul_cuda = lambda a, w, t: lm.lut_matmul_plain(a, w, t)
+    try:
+        yield
+    finally:
+        lm.lut_matmul_cuda = cuda
+
+
+@contextlib.contextmanager
+def lut_snaps(out: list):
+    """Each snap of activations onto the lut grid (``dispatch.lut_acc``)
+    appends (K, N, mean |x|, the snap's relative error ‖x̂ − x‖ / ‖x‖) to
+    ``out``."""
+    import torch
+    from repro_torch.kernels import dispatch
+    acc = dispatch.lut_acc
+
+    def spy(x2, w_idx, codebook, spec, table=None):
+        x = x2.float()
+        a = torch.clamp(torch.round((x - spec.a_min) / spec.da), 0,
+                        spec.levels - 1)
+        err = (spec.a_min + a * spec.da - x).norm() / x.norm().clamp(
+            min=1e-30)
+        out.append((*w_idx.shape, float(x.abs().mean()), float(err)))
+        return acc(x2, w_idx, codebook, spec, table)
+    dispatch.lut_acc = spy
+    try:
+        yield
+    finally:
+        dispatch.lut_acc = acc
+
+
+def rec_f32_agreement(tag: str, cfg, cp, norms, toks) -> dict:
+    """The same index-form weights in f32 (``_to_f32``) at act_levels 0:
+    each backend's last logits of ``forward`` over ``toks`` against
+    dense's.  In bf16 at act_levels 32 the backends part at activation
+    level flips (a rounding moves a gate across a level boundary, and the
+    step is 6/31).  Here codebook differs from dense only in the order of
+    its f32 sums (and, in RWKV's scan, at the ties of its bf16 streams), so
+    its logits must fall within 1 % of their range.  lut's distance is
+    reported with readings that place it: the lut forward over the first
+    prompt's first 16 tokens against the same forward on lut_matmul's
+    plain version (``plain_lut``; the same index tree and lut spec), which
+    must agree within 1e-4 of the range at every position (that forward's
+    launches, ``compare_launches``, are not the path's); lut's distance
+    from dense with the norm scales given back their values before
+    clustering (``norms``: ``cluster_params`` snaps them onto the weights'
+    codebook, as the reference's does); and the relative error of each
+    snap of activations onto the lut grid (``lut_snaps``), the worst
+    sites."""
+    import torch
+    from repro_torch.models.model_zoo import build
+    m32 = build(cfg.replace(dtype="float32", act_levels=0))
+
+    def last(tree, bes):
+        out = {}
+        for be in bes:
+            params, bk = rec_backend(tree, be)
+            out[be] = m32.forward(params, {"tokens": toks}, bk)[:, -1]
+            del params
+        return out
+    p32 = _to_f32(cp)
+    snaps = []
+    with lut_snaps(snaps):
+        first = last(p32, BACKENDS)
+    worst = sorted(snaps, key=lambda r: -r[3])[:3]
+    rng_ = float(first["dense"].max() - first["dense"].min())
+    gaps = {be: float((first[be] - first["dense"]).abs().max())
+            for be in ("codebook", "lut")}
+    if not gaps["codebook"] <= 0.01 * rng_:
+        raise AssertionError(f"{tag} f32: codebook logits {gaps['codebook']} "
+                             f"from dense's, over 1 % of their range {rng_}")
+    params, bk = rec_backend(p32, "lut")
+    short = {"tokens": toks[:1, :16]}
+    kern, compared = rec_counted(lambda: m32.forward(params, short, bk))
+    with plain_lut():
+        plain = m32.forward(params, short, bk)
+    plain_gap = float((kern - plain).abs().max())
+    if not plain_gap <= 1e-4 * rng_:
+        raise AssertionError(f"{tag} f32: the lut forward {plain_gap} from "
+                             "the same forward on lut_matmul's plain version")
+    del params, kern, plain
+    unsnapped = last(_to_f32(_with_leaves(cp, norms)), ("dense", "lut"))
+    un_rng = float(unsnapped["dense"].max() - unsnapped["dense"].min())
+    un_gap = float((unsnapped["lut"] - unsnapped["dense"]).abs().max())
+    log(f"{tag} f32, the same weights, act_levels 0: last logits against "
+        f"dense max |Δ| codebook {gaps['codebook']:.2e}, lut "
+        f"{gaps['lut']:.4f} (dense range {rng_:.2f}; codebook within 1 %); "
+        f"the lut forward over 1 × 16 tokens on lut_matmul's plain version "
+        f"within {plain_gap:.2e} of the kernel's (limit {1e-4 * rng_:.2e}); "
+        f"with the {len(norms)} norm scales unsnapped, lut {un_gap:.4f} from "
+        f"dense (dense range {un_rng:.2f}); the {len(snaps)} snaps onto the "
+        f"lut grid (step {bk.lut_spec.da:.5f}), worst relative errors "
+        + ", ".join(f"{e:.4f} at {k}×{n} (mean |x| {m:.4f})"
+                    for k, n, m, e in worst)
+        + f", median {sorted(r[3] for r in snaps)[len(snaps) // 2]:.4f}")
+    return {"f32_gap_to_dense": gaps, "f32_dense_range": rng_,
+            "f32_lut_vs_plain": plain_gap, "f32_lut_snaps_worst": worst,
+            "compare_launches": compared,
+            "f32_unsnapped_norms": {"lut_gap_to_dense": un_gap,
+                                    "dense_range": un_rng}}
+
+
+def rec_decode_vs_forward(tag: str, cfg, cp, toks) -> float:
+    """The reference's decode-against-forward bound, in f32 at act_levels
+    0 on dense: the whole prompts fed through ``decode`` from
+    ``init_cache``, logits within 2e-2 of ``forward``'s at every position.
+    Returns the largest distance."""
+    import torch
+    from repro_torch.models.model_zoo import build
+    m32, p32 = build(cfg.replace(dtype="float32", act_levels=0)), _to_f32(cp)
+    B, S = toks.shape
+    fwd = m32.forward(p32, {"tokens": toks})
+    cache = m32.init_cache(B, S, dtype=torch.float32, device=toks.device)
+    worst = 0.0
+    for i in range(S):
+        logits, cache = m32.decode(p32, toks[:, i:i + 1], cache)
+        worst = max(worst, float((logits[:, 0] - fwd[:, i]).abs().max()))
+    if not worst < 2e-2:
+        raise AssertionError(f"{tag} f32 decode logits {worst} from "
+                             "forward's (the reference's bound is 2e-2)")
+    log(f"{tag} f32, act_levels 0, dense: the {S}-token prompts fed through "
+        f"decode from init_cache give logits within {worst:.2e} of "
+        "forward's at every position (the reference's bound 2e-2)")
+    return worst
+
+
+def rec_full(dev, name: str, n_layers: int, seed: int) -> dict:
+    """``name`` at full width, ``n_layers`` of its layers (``rec_model``):
+    REC_BATCH prompts of REC_PLEN tokens (one chunk) on each backend, by
+    ``prefill`` and by ``forward`` (the hybrid's prefill is its forward's
+    last logits and a zero cache, the reference's quirk), their last
+    logits within 1e-3; then REC_NEW decodes, RWKV's greedy from
+    prefill's cache, the hybrid's from ``init_cache`` with the prompts'
+    first tokens fed (its generation path); the launches of each call held
+    exactly to ``rec_launches``; prefill and forward ms, the decode step's
+    figures, peak memory; the prompt's last logits of codebook and lut
+    against dense's, and in f32 (``rec_f32_agreement``); for the hybrid,
+    decode against forward in f32 (``rec_decode_vs_forward``)."""
+    import numpy as np
+    import torch
+    tag = f"[recurrent] {name}"
+    model, cfg, cp, norms, fig = rec_model(dev, name, n_layers, tag)
+    S, feed = REC_PLEN[name], cfg.family == "hybrid"
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (REC_BATCH, S))).to(dev)
+    batch, first = {"tokens": toks}, {}
+    for be in BACKENDS:
+        params, bk = rec_backend(cp, be)
+        want = rec_launches(cfg, be)
+        model.prefill(params, batch, bk)                     # warm
+        torch.cuda.reset_peak_memory_stats()
+        ((logits, cache), pre_s), n = rec_counted(lambda: timed(
+            lambda: model.prefill(params, batch, bk)))
+        rec_check(f"{tag} {be} prefill", n, want)
+        first[be] = logits[:, -1].float()
+        (fwd, fwd_s), n = rec_counted(lambda: timed(
+            lambda: model.forward(params, batch, bk)))
+        rec_check(f"{tag} {be} forward", n, want)
+        fwd_gap = float((fwd[:, -1] - first[be]).abs().max())
+        if not fwd_gap <= 1e-3:
+            raise AssertionError(f"{tag} {be}: forward's last logits "
+                                 f"{fwd_gap} from prefill's")
+        del fwd
+        if feed:
+            cache = model.init_cache(REC_BATCH, S + REC_NEW, device=dev)
+        ids = []
+        t = time.perf_counter()
+        for i in range(REC_NEW):
+            nxt = (toks[:, i:i + 1] if feed
+                   else torch.argmax(logits[:, -1], dim=-1)[:, None])
+            ids.append(nxt)
+            (logits, cache), n = rec_counted(
+                lambda: model.decode(params, nxt, cache, bk))
+            rec_check(f"{tag} {be} decode", n, want)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag} {be}: logits not finite")
+        step = rec_step_figures(
+            lambda: model.decode(params, nxt, cache, bk), REC_BATCH)
+        gap = float((first[be] - first["dense"]).abs().max())
+        rng_ = float(first["dense"].max() - first["dense"].min())
+        fig[be] = {"prefill_ms": pre_s * 1e3, "forward_ms": fwd_s * 1e3,
+                   "launches": want, "forward_gap": fwd_gap,
+                   "loop_tok_s": REC_BATCH * REC_NEW / loop_s,
+                   "gap_to_dense": gap, "dense_range": rng_, "step": step,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if not feed:
+            fig[be]["tokens"] = torch.cat(ids, 1)[0].tolist()
+        log(f"{tag} {be}: prefill {REC_BATCH} × {S} {pre_s * 1e3:.1f} ms, "
+            f"forward {fwd_s * 1e3:.1f} ms; launches a prefill, a forward "
+            f"and a decode step {want}, exact; forward's last logits within "
+            f"{fwd_gap:.2e} of prefill's; {REC_NEW} decodes "
+            f"{'feeding the prompts from init_cache' if feed else 'greedy'} "
+            f"{fig[be]['loop_tok_s']:.1f} tok/s; decode step wall "
+            f"{step['step_ms']:.2f} ms, device busy {step['device_ms']:.3f} "
+            f"ms (idle share {step['idle_share']:.3f}), {step['kernels']} "
+            f"kernels, {step['tok_s']:.1f} tok/s; prompt's last logits vs "
+            f"dense max |Δ| {gap:.4f} (dense range {rng_:.2f}); peak "
+            f"allocated {fig[be]['peak_gib']:.2f} GiB; top {step['top']}")
+        del params, cache, logits
+    fig.update(rec_f32_agreement(tag, cfg, cp, norms, toks))
+    if feed:
+        fig["f32_decode_vs_forward"] = rec_decode_vs_forward(tag, cfg, cp,
+                                                             toks)
+    return fig
+
+
+def recurrent_path(dev, smi: str) -> tuple[dict, dict]:
+    """The [recurrent] phase: ``recurrent_reduced``, then ``rec_full`` of
+    rwkv6-7b (4 of 32 layers) and zamba2-2.7b (12 of 54: two groups of
+    six Mamba2 blocks, each after the shared block).  Returns the figures
+    and the phase's launches."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.time()
+    ops.reset_launch_counts()
+    stats = {"partings": recurrent_reduced(dev),
+             "reduced_s": time.time() - t0}
+    stats["rwkv6-7b"] = rec_full(dev, "rwkv6-7b", 4, 5)
+    freed("[recurrent] rwkv6-7b")
+    stats["zamba2-2.7b"] = rec_full(dev, "zamba2-2.7b", 12, 6)
+    freed("[recurrent] zamba2-2.7b")
+    launches = ops.launch_counts()
+    for name in ("rwkv6-7b", "zamba2-2.7b"):
+        for k, v in stats[name]["compare_launches"].items():
+            launches[k] -= v
+    stats["phase_s"] = time.time() - t0
+    torch.cuda.empty_cache()
+    log(f"[recurrent] {smi}: phase {stats['phase_s']:.1f}s (reduced against "
+        f"the CPU {stats['reduced_s']:.1f}s); launches {launches}")
+    return stats, launches
+
+
 def unfused_step(dev, e, L) -> dict:
     """The working-point codebook decode step (4 slots at 40) with the
     gated launch, and with the FFN as the port ran it before that launch
@@ -4922,6 +5439,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     m_stats, m_launches = moe_path(dev, smi)
     torch.cuda.empty_cache()
+    r_stats, r_launches = recurrent_path(dev, smi)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -4941,7 +5459,8 @@ def main() -> int:
                    "fleet": f_launches.get(k, 0),
                    "probes": pr_launches.get(k, 0),
                    "launch": l_launches.get(k, 0),
-                   "moe": m_launches.get(k, 0)}
+                   "moe": m_launches.get(k, 0),
+                   "recurrent": r_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -5008,6 +5527,7 @@ def main() -> int:
     log("[done] probes path " + json.dumps(pr_stats))
     log("[done] launch path " + json.dumps(l_stats))
     log("[done] moe path " + json.dumps(m_stats))
+    log("[done] recurrent path " + json.dumps(r_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

@@ -2,6 +2,7 @@
 ``repro/models/model_zoo.py``).
 
     model.init(gen, device)                      -> params
+    model.forward(params, batch, backend)        -> logits at every position
     model.prefill(params, batch, backend)        -> (logits, cache)
     model.decode(params, tokens, cache, backend) -> (logits, cache)
     model.verify(params, tokens, cache, backend) -> (logits, cache)
@@ -33,6 +34,10 @@ class Model:
     def init(self, gen: torch.Generator, device=None):
         return T.init_params(gen, self.cfg, device)
 
+    def forward(self, params, batch, backend=dispatch.DENSE):
+        """The trunk over whole prompts, no cache: (B, L, V) f32 logits."""
+        return T.forward(params, self.cfg, batch, backend)
+
     def prefill(self, params, batch, backend=dispatch.DENSE):
         return T.prefill(params, self.cfg, batch, backend)
 
@@ -61,8 +66,9 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    """The model handle of a ``dense`` or ``moe`` config; other families
-    are not ported yet and raise, naming the family."""
+    """The model handle of a ``dense``, ``moe``, ``ssm_rwkv`` or ``hybrid``
+    config; other families are not ported yet and raise, naming the
+    family."""
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
             f"the port builds {'/'.join(T.FAMILIES)}-family models; got "

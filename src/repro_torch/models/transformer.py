@@ -1,11 +1,21 @@
-"""Decoder LM of the dense and mixture-of-experts families: init, prefill,
-the contiguous decode step and speculative verify step, and the paged KV
-cache's chunked prefill, decode step and speculative verify step (the
-port's copy of the KV-cache serving parts of
-``repro/models/transformer.py``).  A ``moe`` model's blocks carry
-``'moe'`` (``models/moe.py``) where a dense model's carry ``'mlp'``; every
-FFN site goes through ``_ffn``, which takes the routed FFN when the layer
-has one, as the reference's ``_dense_block`` does.
+"""Decoder LMs of the dense, mixture-of-experts, RWKV-6 and Mamba2/Zamba2
+hybrid families (the port's copy of the inference parts of
+``repro/models/transformer.py``): init, the trunk ``forward``, prefill and
+the decode step for every family; the speculative verify step and the
+paged KV cache's chunked prefill, decode step and verify step for the
+KV-cache families (dense, moe).  A ``moe`` model's blocks carry ``'moe'``
+(``models/moe.py``) where a dense model's carry ``'mlp'``; every FFN site
+goes through ``_ffn``, which takes the routed FFN when the layer has one,
+as the reference's ``_dense_block`` does.
+
+The recurrent families (``ssm_rwkv``: ``models/rwkv.py``; ``hybrid``: a
+stack of Mamba2 blocks, ``models/ssm.py``, with one shared attention block
+applied before every group of ``shared_attn_every`` of them on concat(h,
+embeddings)) keep the reference's uniform-batch contract: their caches
+carry a 0-d ``pos``, their prefill takes no ``lengths``, and they have no
+paged cache and no verify step.  Their decode returns fresh state tensors
+(the reference's dtypes, promotions included), but the hybrid's shared
+K/V ring is written in place.
 
 Parameters are a nested dict in the JAX package's layout: per-layer tensors
 are stacked under ``params['blocks']`` with a leading layer dim, and the
@@ -34,12 +44,15 @@ from repro_torch.kernels import dispatch, probes
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 
-__all__ = ["FAMILIES", "init_params", "prefill", "decode_step", "verify_step",
-           "init_cache", "attn_cfg", "moe_cfg", "init_paged_cache",
-           "prefill_chunk"]
+__all__ = ["FAMILIES", "init_params", "forward", "prefill", "decode_step",
+           "verify_step", "init_cache", "attn_cfg", "moe_cfg", "ssm_cfg",
+           "rwkv_cfg", "init_paged_cache", "prefill_chunk"]
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm_rwkv", "hybrid")
+_KV_FAMILIES = ("dense", "moe")      # KV-cache LMs: paged cache, verify
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -63,31 +76,68 @@ def moe_cfg(cfg) -> M.MoEConfig:
                        act_kind=cfg.act_kind, act_levels=cfg.act_levels)
 
 
+def ssm_cfg(cfg) -> S.SSMConfig:
+    return S.SSMConfig(d_model=cfg.d_model, d_state=cfg.ssm_state,
+                       head_dim=cfg.ssm_head_dim, chunk=cfg.ssm_chunk,
+                       act_kind="silu", act_levels=cfg.act_levels)
+
+
+def rwkv_cfg(cfg) -> R.RWKVConfig:
+    return R.RWKVConfig(d_model=cfg.d_model, head_dim=cfg.rwkv_head_dim,
+                        d_ff=cfg.d_ff, chunk=cfg.ssm_chunk,
+                        act_levels=cfg.act_levels)
+
+
+def _attn_init(gen, cfg, dt, dev, layers: tuple = ()):
+    d, hd = cfg.d_model, cfg.hd
+
+    def mat(d_in, d_out):
+        return L.dense_init(gen, d_in, d_out, dt, dev, layers=layers)
+    attn = {"wq": mat(d, cfg.n_heads * hd), "wk": mat(d, cfg.n_kv * hd),
+            "wv": mat(d, cfg.n_kv * hd), "wo": mat(cfg.n_heads * hd, d)}
+    if cfg.qk_norm:
+        attn["q_norm"] = L.rms_norm_init(hd, dt, dev, layers=layers)
+        attn["k_norm"] = L.rms_norm_init(hd, dt, dev, layers=layers)
+    return attn
+
+
 def init_params(gen: torch.Generator, cfg, device=None):
-    """Random parameters with the reference's standard deviations:
-    embeddings N(0, 0.02²), every dense matrix N(0, 1/d_in), norm scales 1,
-    and for ``moe`` the experts' (``moe.moe_init``).  Drawn from ``gen`` (a
-    ``torch.Generator`` on ``device``)."""
+    """Random parameters with the reference's initializers: embeddings N(0,
+    0.02²), every dense matrix N(0, 1/d_in), norm scales 1, and the
+    experts', RWKV-6's and Mamba2's own (``moe.moe_init``,
+    ``rwkv.rwkv_tm_init``/``rwkv_cm_init``, ``ssm.ssm_init``).  Drawn from
+    ``gen`` (a ``torch.Generator`` on ``device``)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"the port builds the {FAMILIES} families; got {cfg.family!r}")
     dev = resolve_device(device)
     dt = _dtype(cfg)
-    d, hd, n = cfg.d_model, cfg.hd, (cfg.n_layers,)
+    d, n = cfg.d_model, (cfg.n_layers,)
     p = {"embed": L.embed_init(gen, cfg.padded_vocab, d, dt, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.padded_vocab, dt, dev)
     p["final_norm"] = L.rms_norm_init(d, dt, dev)
-    attn = {"wq": L.dense_init(gen, d, cfg.n_heads * hd, dt, dev, layers=n),
-            "wk": L.dense_init(gen, d, cfg.n_kv * hd, dt, dev, layers=n),
-            "wv": L.dense_init(gen, d, cfg.n_kv * hd, dt, dev, layers=n),
-            "wo": L.dense_init(gen, cfg.n_heads * hd, d, dt, dev, layers=n)}
-    if cfg.qk_norm:
-        attn["q_norm"] = L.rms_norm_init(hd, dt, dev, layers=n)
-        attn["k_norm"] = L.rms_norm_init(hd, dt, dev, layers=n)
-    p["blocks"] = {"ln1": L.rms_norm_init(d, dt, dev, layers=n),
-                   "attn": attn,
-                   "ln2": L.rms_norm_init(d, dt, dev, layers=n)}
+    norm = lambda: L.rms_norm_init(d, dt, dev, layers=n)  # noqa: E731
+    if cfg.family == "ssm_rwkv":
+        rc = rwkv_cfg(cfg)
+        p["blocks"] = {"ln1": norm(),
+                       "tm": R.rwkv_tm_init(gen, rc, dt, dev, layers=n),
+                       "ln2": norm(),
+                       "cm": R.rwkv_cm_init(gen, rc, dt, dev, layers=n)}
+        return p
+    if cfg.family == "hybrid":
+        p["blocks"] = {"ln": norm(),
+                       "ssm": S.ssm_init(gen, ssm_cfg(cfg), dt, dev,
+                                         layers=n)}
+        # the shared block: concat(h, embeddings) -> d, attention, SwiGLU
+        p["shared"] = {"in_proj": L.dense_init(gen, 2 * d, d, dt, dev),
+                       "ln1": L.rms_norm_init(d, dt, dev),
+                       "attn": _attn_init(gen, cfg, dt, dev),
+                       "ln2": L.rms_norm_init(d, dt, dev),
+                       "mlp": L.swiglu_init(gen, d, cfg.d_ff, dt, dev)}
+        return p
+    p["blocks"] = {"ln1": norm(), "attn": _attn_init(gen, cfg, dt, dev, n),
+                   "ln2": norm()}
     if cfg.family == "moe":
         p["blocks"]["moe"] = M.moe_init(gen, moe_cfg(cfg), dt, dev, layers=n)
     else:
@@ -123,12 +173,200 @@ def _logits(p, cfg, x, backend):
     return logits
 
 
+# --- the recurrent families' blocks ------------------------------------------
+
+def _rwkv_block(p_l, x, cfg, backend, state=None, decode=False):
+    """Time-mix then channel-mix, each on its pre-norm residual.  Returns
+    (x, the layer's new state {'s', 'x_tm', 'x_cm'})."""
+    rc = rwkv_cfg(cfg)
+    f_tm = R.rwkv_tm_decode if decode else R.rwkv_tm_apply
+    f_cm = R.rwkv_cm_decode if decode else R.rwkv_cm_apply
+    tm, st_tm = f_tm(p_l["tm"], L.rms_norm(p_l["ln1"], x), rc, state, backend)
+    x = x + tm
+    cm, st_cm = f_cm(p_l["cm"], L.rms_norm(p_l["ln2"], x), rc, state, backend)
+    return x + cm, {**st_tm, **st_cm}
+
+
+def _shared_in(shared, h, x0, backend):
+    """The shared block's input: concat(h, embeddings) projected to d."""
+    return L.dense(shared["in_proj"], torch.cat([h, x0], dim=-1), backend)
+
+
+def _shared_mlp(shared, hin, cfg, backend):
+    return hin + L.swiglu(shared["mlp"], L.rms_norm(shared["ln2"], hin),
+                          cfg.act_kind, cfg.act_levels, backend)
+
+
+def _shared_block(shared, h, x0, cfg, backend):
+    """The hybrid's shared attention block over a prompt (no cache)."""
+    hin = _shared_in(shared, h, x0, backend)
+    a, _ = A.attn_apply(shared["attn"], L.rms_norm(shared["ln1"], hin),
+                        attn_cfg(cfg), backend)
+    return h + _shared_mlp(shared, hin + a, cfg, backend)
+
+
+def _mamba_block(p_l, x, cfg, backend, cache=None):
+    """A Mamba2 block on its pre-norm residual: over a prompt, or one decode
+    step when ``cache`` ({'h', 'conv'}) is given.  Returns (x, the new
+    cache or None)."""
+    sc = ssm_cfg(cfg)
+    h = L.rms_norm(p_l["ln"], x)
+    if cache is None:
+        return x + S.ssm_apply(p_l["ssm"], h, sc, backend), None
+    y, new = S.ssm_decode_step(p_l["ssm"], h, sc, cache, backend)
+    return x + y, new
+
+
+def _groups(cfg) -> int:
+    """The hybrid's groups: one shared block before each run of
+    ``shared_attn_every`` Mamba2 blocks."""
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def _rwkv_trunk(params, cfg, x, backend):
+    """RWKV-6's layers over whole prompts: (x, each layer's final state)."""
+    states = []
+    for i in range(cfg.n_layers):
+        x, st = _rwkv_block(_layer(params["blocks"], i), x, cfg, backend)
+        states.append(st)
+    return x, states
+
+
+def forward(params, cfg, batch, backend=dispatch.DENSE):
+    """The trunk over whole prompts, no cache: logits (B, L, padded_vocab)
+    f32 at every position.  batch: {'tokens': (B, L)}.  Inference only (no
+    autograd)."""
+    x = L.embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    blocks = params["blocks"]
+    if cfg.family in _KV_FAMILIES:
+        acfg = attn_cfg(cfg)
+        for i in range(cfg.n_layers):
+            p_l = _layer(blocks, i)
+            a, _ = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+                                backend)
+            x = x + a
+            x = x + _ffn(p_l, x, cfg, backend)
+    elif cfg.family == "ssm_rwkv":
+        x, _ = _rwkv_trunk(params, cfg, x, backend)
+    elif cfg.family == "hybrid":
+        G, x0 = cfg.shared_attn_every, x
+        for g in range(_groups(cfg)):
+            x = _shared_block(params["shared"], x, x0, cfg, backend)
+            for j in range(G):
+                x, _ = _mamba_block(_layer(blocks, g * G + j), x, cfg,
+                                    backend)
+    else:
+        raise ValueError(cfg.family)
+    return _logits(params, cfg, L.rms_norm(params["final_norm"], x), backend)
+
+
+def _recurrent_init_cache(cfg, batch, max_len, dtype, dev):
+    """The recurrent families' decode cache: RWKV-6's f32 states (L, B, H,
+    P, P) and token-shift rows in ``dtype``; the hybrid's f32 SSM states,
+    conv tails in ``dtype`` and the shared block's K/V ring, whose length
+    is ``max_len`` up to 65,536 and ``min(max_len, cfg.long_window)`` past
+    it.  ``pos`` is a 0-d int32, as the reference's."""
+    Lg = cfg.n_layers
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+    pos = z(dt=torch.int32)
+    if cfg.family == "ssm_rwkv":
+        rc = rwkv_cfg(cfg)
+        H, P = rc.n_heads, rc.head_dim
+        return {"s": z(Lg, batch, H, P, P, dt=torch.float32),
+                "x_tm": z(Lg, batch, 1, cfg.d_model),
+                "x_cm": z(Lg, batch, 1, cfg.d_model), "pos": pos}
+    sc = ssm_cfg(cfg)
+    win = min(max_len, cfg.long_window) if max_len > 65536 else max_len
+    ring = (_groups(cfg), batch, win, cfg.n_kv, cfg.hd)
+    return {"h": z(Lg, batch, sc.n_heads, sc.d_state, sc.head_dim,
+                   dt=torch.float32),
+            "conv": z(Lg, batch, sc.conv_width - 1,
+                      sc.d_inner + 2 * sc.n_groups * sc.d_state),
+            "shared_k": z(*ring), "shared_v": z(*ring), "pos": pos}
+
+
+def _recurrent_prefill(params, cfg, tokens, backend):
+    """Prefill of the recurrent families (whole prompts, no ``lengths``).
+
+    RWKV-6: logits at the last position and the layers' final states, the
+    token-shift rows in the cache dtype, ``pos`` = the prompt length.  The
+    hybrid, as the reference's: ``forward``'s last logits and a *zero*
+    cache of length S at ``pos`` 0, which does not hold the prompt (its
+    generation path is ``init_cache`` and the prompt fed through
+    ``decode_step``)."""
+    dt = _dtype(cfg)
+    cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else dt
+    B, Sq = tokens.shape
+    if cfg.family == "hybrid":
+        logits = forward(params, cfg, {"tokens": tokens}, backend)
+        return logits[:, -1:], init_cache(cfg, B, Sq, cdt, tokens.device)
+    x, states = _rwkv_trunk(
+        params, cfg, L.embed_lookup(params["embed"], tokens).to(dt), backend)
+    cache = {"s": torch.stack([st["s"] for st in states]),
+             "x_tm": torch.stack([st["x_tm"].to(cdt) for st in states]),
+             "x_cm": torch.stack([st["x_cm"].to(cdt) for st in states]),
+             "pos": torch.tensor(Sq, dtype=torch.int32, device=tokens.device)}
+    x_last = L.rms_norm(params["final_norm"], x[:, -1:])
+    return _logits(params, cfg, x_last, backend), cache
+
+
+def _recurrent_decode(params, cfg, tokens, cache, backend):
+    """One decode step of a uniform batch: every row at the cache's 0-d
+    ``pos``.  The hybrid's shared block writes its K/V at ``pos % win`` of
+    the ring and attends ``min(pos + 1, win)`` entries."""
+    pos_s = cache["pos"]
+    B = tokens.shape[0]
+    x = L.embed_lookup(params["embed"], tokens).to(_dtype(cfg))
+    blocks = params["blocks"]
+    if cfg.family == "ssm_rwkv":
+        states = []
+        for i in range(cfg.n_layers):
+            st = {k: cache[k][i] for k in ("s", "x_tm", "x_cm")}
+            x, st = _rwkv_block(_layer(blocks, i), x, cfg, backend, st,
+                                decode=True)
+            states.append(st)
+        new = {k: torch.stack([st[k] for st in states])
+               for k in ("s", "x_tm", "x_cm")}
+    else:
+        G, x0, shared = cfg.shared_attn_every, x, params["shared"]
+        win = cache["shared_k"].shape[2]
+        pos = pos_s.reshape(1, 1).expand(B, 1)
+        ins = (pos_s % win).long().reshape(1).expand(B)
+        vlen = torch.clamp(pos_s + 1, max=win).reshape(1).expand(B)
+        acfg = attn_cfg(cfg)
+        hs, convs = [], []
+        for g in range(_groups(cfg)):
+            hin = _shared_in(shared, x, x0, backend)
+            hin = hin + A.attn_decode_cached(
+                shared["attn"], L.rms_norm(shared["ln1"], hin), acfg,
+                pos=pos, insert_at=ins, valid_len=vlen,
+                k_all=cache["shared_k"], v_all=cache["shared_v"], layer=g,
+                backend=backend)
+            x = x + _shared_mlp(shared, hin, cfg, backend)
+            for j in range(G):
+                i = g * G + j
+                x, c = _mamba_block(_layer(blocks, i), x, cfg, backend,
+                                    {"h": cache["h"][i],
+                                     "conv": cache["conv"][i]})
+                hs.append(c["h"])
+                convs.append(c["conv"])
+        new = {"h": torch.stack(hs), "conv": torch.stack(convs),
+               "shared_k": cache["shared_k"], "shared_v": cache["shared_v"]}
+    x = L.rms_norm(params["final_norm"], x)
+    return _logits(params, cfg, x, backend), {**new, "pos": pos_s + 1}
+
+
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Contiguous decode cache with per-slot positions.  ``cfg.kv_quant``:
     int8 K/V planes with per-token-per-head bf16 scales (``dtype`` is then
-    not read), as the reference builds them."""
+    not read), as the reference builds them.  The recurrent families'
+    caches are ``_recurrent_init_cache``'s."""
     dev = resolve_device(device)
+    if cfg.family not in _KV_FAMILIES:
+        return _recurrent_init_cache(cfg, batch, max_len, dtype, dev)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.hd)
     if cfg.kv_quant:
         kv = {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -151,13 +389,20 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
     'probes': the probe state (optional)}.
     Returns (logits (B, 1, V) at each row's last real position, cache with
     K/V planes (L, B, S, KV, hd), int8 with their scales (L, B, S, KV) when
-    ``cfg.kv_quant`` is set, and ``pos`` = lengths).
+    ``cfg.kv_quant`` is set, and ``pos`` = lengths).  The recurrent
+    families take whole prompts only (``_recurrent_prefill``).
     """
     dt = _dtype(cfg)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else dt
     tokens = batch["tokens"]
     B, Sq = tokens.shape
     lengths = batch.get("lengths")
+    if cfg.family not in _KV_FAMILIES:
+        if lengths is not None:
+            raise NotImplementedError(
+                f"per-request prompt lengths need a KV cache; family "
+                f"{cfg.family!r} carries recurrent state through the padding")
+        return _recurrent_prefill(params, cfg, tokens, backend)
     if lengths is None:
         lengths = torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
     x = L.embed_lookup(params["embed"], tokens).to(dt)
@@ -195,8 +440,13 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, dtype=torch.bfloat16,
 
     ``dtype=torch.int8`` stores pages quantized with per-token-per-head bf16
     scales (``attention.quantize_kv``); a float dtype stores them plain.
-    Page 0 is the allocator's trash page (``serving/kvcache.py``).
+    Page 0 is the allocator's trash page (``serving/kvcache.py``).  The
+    KV-cache families only.
     """
+    if cfg.family not in _KV_FAMILIES:
+        raise NotImplementedError(
+            f"paged KV cache serves families {_KV_FAMILIES}; got "
+            f"{cfg.family!r}")
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv, cfg.hd)
     if dtype == torch.int8:
@@ -236,6 +486,8 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
     written in place, and may carry ``'probes'``.  Returns (logits (1, 1,
     V) at the chunk's last real position, the same pool).
     """
+    if cfg.family not in _KV_FAMILIES:
+        raise NotImplementedError(cfg.family)
     dt = _dtype(cfg)
     tokens = batch["tokens"]
     start, length = int(batch["start"]), int(batch["length"])
@@ -308,9 +560,18 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     reuses them, and count as tokens for the probes, as the reference's
     do.  The cache's K/V planes (and, for ``cfg.kv_quant``, their
     scales) are updated in place; the returned cache carries ``pos + 1``.
+
+    The recurrent families decode uniform batches only: their 0-d ``pos``
+    is every row's (``_recurrent_decode``).
     """
     if "page_table" in cache:
         return _decode_step_paged(params, cfg, tokens, cache, backend)
+    if cfg.family not in _KV_FAMILIES:
+        if cache["pos"].ndim == 1:
+            raise NotImplementedError(
+                f"per-slot decode positions need a KV cache; family "
+                f"{cfg.family!r} carries recurrent state")
+        return _recurrent_decode(params, cfg, tokens, cache, backend)
     dt = _dtype(cfg)
     pos_v = cache["pos"]
     S = cache["kv"]["k"].shape[2]
@@ -394,6 +655,10 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     """
     if "page_table" in cache:
         return _verify_step_paged(params, cfg, tokens, cache, backend)
+    if cfg.family not in _KV_FAMILIES:
+        raise NotImplementedError(
+            f"verify_step serves KV-cache families {_KV_FAMILIES}; got "
+            f"{cfg.family!r}")
     dt = _dtype(cfg)
     B, K1 = tokens.shape
     pos_v = cache["pos"]

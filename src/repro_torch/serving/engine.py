@@ -382,7 +382,8 @@ class ServeEngine:
         cfg = self.model.cfg
         if cfg.family not in _ENGINE_FAMILIES:
             raise NotImplementedError(
-                f"ServeEngine serves {_ENGINE_FAMILIES}; got {cfg.family!r}")
+                f"ServeEngine serves KV-cache token LMs {_ENGINE_FAMILIES}; "
+                f"got family {cfg.family!r}")
         if self.backend not in dispatch.BACKENDS:
             raise ValueError(f"backend {self.backend!r} not in "
                              f"{dispatch.BACKENDS}")

@@ -20,7 +20,9 @@ reduced qwen3 with the reference's ``PRNGKey(0)`` weights (the port's
 * every refusal of the reference (``ap.error`` and its ``SystemExit``s)
   with the same exit code and message; ``--tp 2`` refused naming the
   tensor-parallel slice; an ``--arch`` of a family the port does not build
-  yet (rwkv6-7b) refused by ``build``;
+  yet (whisper-small) refused by ``build``, and the recurrent families
+  (rwkv6-7b, zamba2-2.7b) refused by ``ServeEngine`` with the reference's
+  message;
 * the flags, defaults, choices and help of the reference's parser;
 * sampling (T = 0.8) held to the port itself: one seed, one output, and
   ``--top-k 1`` equals greedy;
@@ -286,11 +288,28 @@ def test_tp_refused_naming_the_tp_slice():
 
 
 def test_non_dense_arch_refused_by_build():
-    """A family the port does not build yet (rwkv6-7b's ``ssm_rwkv``) is
+    """A family the port does not build yet (whisper-small's ``audio``) is
     refused by ``build``, naming the family; ``moe`` is served (the
-    ``moe_*`` cases above)."""
-    with pytest.raises(NotImplementedError, match="'ssm_rwkv'"):
-        TS.main(["--arch", "rwkv6-7b", "--reduced", "--device", "cpu"])
+    ``moe_*`` cases above) and the recurrent families are built and then
+    refused by the engine (below)."""
+    with pytest.raises(NotImplementedError, match="'audio'"):
+        TS.main(["--arch", "whisper-small", "--reduced", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
+def test_recurrent_arch_refused_by_engine(arch):
+    """The recurrent families are built, and ``ServeEngine`` refuses them
+    with the reference's exception and text, as the reference's launcher
+    does: it serves KV-cache token LMs."""
+    argv = ["--arch", arch, "--reduced"]
+    with pytest.raises(NotImplementedError) as want, \
+            contextlib.redirect_stdout(io.StringIO()):
+        run_reference(argv)
+    with pytest.raises(NotImplementedError) as got, \
+            contextlib.redirect_stdout(io.StringIO()):
+        TS.main(argv + ["--device", "cpu"])
+    assert str(got.value) == str(want.value)
+    assert str(want.value).startswith("ServeEngine serves KV-cache token LMs")
 
 
 def _actions(parser) -> dict:
