@@ -199,6 +199,28 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward's logits; codebook within 1 % of dense in f32 at act_levels 0;
    prefill/forward ms, decode step wall and device ms,
    idle share, tok/s and peak memory;
+   [paper], the paper's §4 integer engine (``core/lut.py``,
+   ``core/fixedpoint.py``) and its own nets (``models/papernets.py``, inputs
+   from ``data/synthetic.py``): lut_matmul on the §4 table (33 × 1001
+   int32, rows off 16-byte boundaries) at every (M, K, N) the phase
+   launches, planned and each route forced, bit-exact; then, counted, the
+   784 → 128 → 128 → 10 tanh MLP with a k-means |W| = 1000 codebook and
+   the tanh |A| = 32 tables through ``int_mlp_forward`` (card = CPU bit
+   for bit; argmax agreement and decode gap against the float quantized
+   net logged) and through the codebook and dense backends (each codebook
+   layer within its parity limit of dense), and paper-alexnet at img 224,
+   batch 32 (about 5.7·10⁷ params): the float forward card against CPU
+   within 1e-4 of the range, at act_levels 32 the same with every
+   activation site locked to the CPU's (levels that differ one apart at a
+   boundary tie, counted), act_levels 32 against float logged, the
+   integer head f6–f8 on a k-means |W| = 1000 codebook and relu6 tables
+   bit-exact against lut_matmul's plain version; launches of the driven
+   path held exactly (200 kmeans_assign, 6 lut_matmul, 16 act_quant, 3
+   codebook_matmul), each of its act_quant launches held against the
+   plain version on its own input, and kmeans_assign against the plain
+   version on both k-means' values; the forward's ms and peak at both
+   act_levels, and each layer's lut_matmul ms on both routes beside its
+   bound;
 8. kernel timings: the matmuls at M = 1, 4 (decode), 32 (prefill) and 256
    (four 64-token prefills) × the 7 sites of a layer, with the route each
    took (lut: and the other route forced), the bound, the plain version's
@@ -4915,6 +4937,594 @@ def recurrent_path(dev, smi: str) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [paper]: the §4 integer engine and the paper's own nets -----------------
+
+PAPER_MLP = (784, [128, 128], 10)        # benchmarks/memory_savings.py's MLP
+PAPER_MLP_BATCH = 256
+PAPER_BATCH = 32                         # AlexNet images a forward
+PAPER_CPU_BATCH = 4                      # of them, also run on the CPU
+PAPER_IMG = 224                          # the paper's ImageNet side
+PAPER_W = 1000                           # |W| of both k-means codebooks
+PAPER_LOCK_REL = 1e-4    # locked AlexNet sites: card input vs CPU, of max |x|
+# (M, K, N) of every lut_matmul launch of the phase: the MLP's three
+# layers, and the AlexNet head's f6, f7, f8
+PAPER_LUT_SHAPES = ((PAPER_MLP_BATCH, 784, 128), (PAPER_MLP_BATCH, 128, 128),
+                    (PAPER_MLP_BATCH, 128, 10), (PAPER_BATCH, 50176, 1024),
+                    (PAPER_BATCH, 1024, 1024), (PAPER_BATCH, 1024, 1000))
+
+
+def paper_tables(book, kind: str, fan_in: int):
+    """The §4 tables of a codebook (a tensor) at |A| = ACT_LEVELS: tanh with
+    4096 table entries, relu6 with its identity table."""
+    from repro_torch.core.activations import ActQuantConfig
+    from repro_torch.core.lut import LutConfig, build_tables
+    return build_tables(book.cpu().numpy(), LutConfig(
+        ActQuantConfig(kind, ACT_LEVELS),
+        table_entries=4096 if kind == "tanh" else 0), fan_in=fan_in)
+
+
+def paper_parity(dev) -> int:
+    """lut_matmul on the §4 table (33 × 1001 int32: rows of 4004 bytes,
+    which the smem route stages word by word) at every (M, K, N) the phase
+    launches, random row ids in [0, 33) and column ids in [0, 1001) (the
+    identity column too), on the planned route and each route forced:
+    bit-exact against the plain version, and twice bit-identical.
+    Returns the launches."""
+    import torch
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels._common import is_aligned
+    g = torch.Generator(device=dev).manual_seed(26)
+    book = torch.sort(torch.randn(PAPER_W, generator=g, device=dev)
+                      * 0.05).values
+    n = 0
+    for M, K, N in PAPER_LUT_SHAPES:
+        kind = "tanh" if M == PAPER_MLP_BATCH else "relu6"
+        tabs = paper_tables(book, kind, K + 1)
+        tab = torch.from_numpy(tabs.mult).to(dev)
+        if tuple(tab.shape) != (ACT_LEVELS + 1, PAPER_W + 1) \
+                or is_aligned(tab, tab.shape[1]):
+            raise AssertionError(f"§4 table {tuple(tab.shape)}: want 33 × "
+                                 "1001 with rows off 16-byte boundaries")
+        a = torch.randint(0, ACT_LEVELS + 1, (M, K), generator=g, device=dev,
+                          dtype=torch.int32)
+        w = torch.randint(0, PAPER_W + 1, (K, N), generator=g, device=dev
+                          ).to(torch.int16)
+        want = lm.lut_matmul_plain(a, w, tab)
+        for route, plan in lut_plans(a, w, tab):
+            got = lm.lut_matmul_cuda(a, w, tab, plan=plan)
+            again = lm.lut_matmul_cuda(a, w, tab, plan=plan)
+            n += 2
+            if not (torch.equal(got, want) and torch.equal(got, again)):
+                raise AssertionError(
+                    f"[paper] lut_matmul {route} M={M} K={K} N={N} on the "
+                    "§4 table: not bit-exact, or two runs differ")
+    log(f"[paper] parity: lut_matmul on the §4 table (33 × 1001 int32, "
+        f"4004-byte rows) at {list(PAPER_LUT_SHAPES)}, planned and each "
+        f"route forced: bit-exact and bit-identical twice in {n} launches")
+    return n
+
+
+def snap_to(tree: dict, book):
+    """(index form: {name: (w_idx int16, b_idx int32)}, snapped floats:
+    {name: {'w', 'b'}}) of a tree of dense layers on a sorted codebook."""
+    import torch
+    from repro_torch.core.clustering import (assign_to_centers,
+                                             quantize_to_centers)
+    idx = {k: (assign_to_centers(p["w"], book).to(torch.int16),
+               assign_to_centers(p["b"], book)) for k, p in tree.items()}
+    snapped = {k: {n: quantize_to_centers(p[n], book) for n in ("w", "b")}
+               for k, p in tree.items()}
+    return idx, snapped
+
+
+def wall_ms(fn, reps: int = 10) -> float:
+    """Wall ms of a synchronized call, the mean of ``reps`` (for calls that
+    copy from the host, which ``time_ms`` cannot queue behind a sleep)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def paper_lut_rows(a, layers, tabs, names, peaks: dict) -> list:
+    """Each layer's lut_matmul on the §4 table, on its own inputs (the
+    previous layer's activation indices): ms on the planned route and on
+    the other route forced, the plain version's ms, and the bound: a_idx
+    and ids read once, the table once (it is staged, or sits in L1/L2),
+    the int32 out written once; 2·M·K·N int32 operations (address add,
+    accumulate)."""
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.kernels import lut_matmul as lm
+    mult = torch.from_numpy(tabs.mult).to(a.device)
+    rows = []
+    for (w, _), name in zip(layers, names):
+        M, K = a.shape
+        N = w.shape[1]
+        nbytes = M * K * 4 + K * N * 2 + mult.numel() * 4 + M * N * 4
+        b_bytes, b_ops = nbytes / peaks["bytes"], 2 * M * K * N / peaks["int32"]
+        route = lm.plan_for(a, w, mult).route
+        rows.append({
+            "layer": name, "M": M, "K": K, "N": N, "route": route,
+            "ms": time_ms(lambda a=a, w=w: lm.lut_matmul_cuda(a, w, mult),
+                          reps=5, warm=1),
+            "other_routes_ms": {r_: time_ms(
+                lambda a=a, w=w, p=p: lm.lut_matmul_cuda(a, w, mult, plan=p),
+                reps=5, warm=1) for r_, p in lut_plans(a, w, mult)[1:]
+                if r_ != route},
+            "plain_ms": time_ms(lambda a=a, w=w: lm.lut_matmul_plain(
+                a, w, mult), reps=2, warm=1),
+            "bound_ms": 1e3 * max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+        a = fp.acc_to_act_index(lm.lut_matmul_cuda(a, w, mult), tabs)
+    return rows
+
+
+def lut_rows_text(rows: list) -> str:
+    return ", ".join(
+        f"{x['layer']} ({x['M']}, {x['K']}, {x['N']}) {x['ms']:.4f} ms "
+        f"({x['route']}"
+        + "".join(f"; {o} route {ms:.4f}"
+                  for o, ms in x["other_routes_ms"].items())
+        + f"; bound {x['bound_ms']:.4f} {x['bound_by']}, plain "
+        f"{x['plain_ms']:.3f})" for x in rows)
+
+
+def paper_mlp(dev) -> dict:
+    """The §4 engine on the paper's MLP (784 → 128 → 128 → 10, tanh), the
+    shape of ``benchmarks/memory_savings.py``: ``mlp_init`` on the card
+    from a seeded generator, a k-means |W| = 1000 codebook of all weights
+    and biases (``clustering.kmeans1d``: 100 kmeans_assign launches), each
+    leaf snapped to it, the tanh |A| = 32 tables (4096 entries, fan-in 785),
+    ``pseudo_mnist_batch(2000, 256)`` through tanh and
+    ``input_to_indices``, and ``int_mlp_forward`` (3 lut_matmul launches).
+    The float quantized net on the snapped weights (2 act_quant) and the
+    index-form MLP on the codebook and dense backends at act_levels 32 (3
+    codebook_matmul and 2 act_quant, then 2 act_quant) are driven too.
+    Checks come after the driven part, in ``paper_mlp_checks``."""
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.core.activations import ActQuantConfig, act_apply
+    from repro_torch.core.clustering import kmeans1d
+    from repro_torch.data.synthetic import pseudo_mnist_batch
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import papernets as PN
+    d_in, hidden, d_out = PAPER_MLP
+    params = PN.mlp_init(torch.Generator(device=dev).manual_seed(26), d_in,
+                         hidden, d_out, device=dev)
+    flat = torch.cat([t.reshape(-1) for t in _leaves(params)])
+    book, t_km = timed(lambda: kmeans1d(flat, PAPER_W))
+    idx, snapped = snap_to(params, book)
+    tabs = paper_tables(book, "tanh", d_in + 1)
+    act = ActQuantConfig("tanh", ACT_LEVELS)
+    x = pseudo_mnist_batch(2000, PAPER_MLP_BATCH, device=dev)["x"]
+    xi = fp.input_to_indices(torch.tanh(x), act)
+    layers = [idx[f"layer{i}"] for i in range(len(idx))]
+    acc, t_eng = timed(lambda: fp.int_mlp_forward(layers, xi, tabs))
+    lo, _ = act.out_range
+    h = lo + xi.to(torch.float32) * act.step
+    for i in range(len(snapped)):
+        p = snapped[f"layer{i}"]
+        h = h @ p["w"] + p["b"]
+        if i < len(snapped) - 1:
+            h = act_apply(act, h)
+    index_form = {k: {"w_idx": w, "codebook": book,
+                      "b": snapped[k]["b"]} for k, (w, _) in idx.items()}
+    xq = lo + xi.to(torch.float32) * act.step
+    by_backend = {be: PN.mlp_apply(index_form, xq, "tanh", ACT_LEVELS,
+                                   dispatch.BackendSpec(be))
+                  for be in ("codebook", "dense")}
+    return {"params": params, "book": book, "idx": idx, "tabs": tabs,
+            "xi": xi, "layers": layers, "acc": acc, "float": h,
+            "index_form": index_form, "xq": xq, "by_backend": by_backend,
+            "kmeans_s": t_km, "first_call_s": t_eng, "flat": flat}
+
+
+def paper_mlp_checks(dev, r: dict, peaks: dict, smi: str) -> dict:
+    """The MLP's gates and readings, after the driven part: the engine on
+    the card equals the same call on CPU tensors bit for bit; each layer
+    of the codebook backend against the dense backend on the dense run's
+    inputs, within the codebook kernel's parity limit
+    (``parity_tolerance``); logged only: argmax agreement and the largest
+    |decode − float| against the float quantized net (random weights, so
+    the reference's trained-net bounds of 0.97 and 0.6 are for reading),
+    the codebook MLP's end-to-end gap, the engine's wall ms a forward and
+    each layer's lut_matmul (``paper_lut_rows``)."""
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.models import layers as L
+    cpu_layers = [(w.cpu(), b.cpu()) for w, b in r["layers"]]
+    want = fp.int_mlp_forward(cpu_layers, r["xi"].cpu(), r["tabs"])
+    if not torch.equal(r["acc"].cpu(), want):
+        raise AssertionError("[paper] int_mlp_forward on the card differs "
+                             "from the same call on CPU tensors")
+    km_err = kmeans_case(r["flat"], r["book"])
+    dec = torch.from_numpy(r["tabs"].decode(r["acc"]))
+    flo = r["float"].double().cpu()
+    agree = (dec.argmax(-1) == flo.argmax(-1)).double().mean().item()
+    gap = (dec - flo).abs().max().item()
+    # the codebook backend layer by layer on the dense run's inputs
+    h, shares = r["xq"], []
+    n = len(r["index_form"])
+    for i in range(n):
+        p = r["index_form"][f"layer{i}"]
+        got = cm.codebook_matmul_cuda(h, p["w_idx"], p["codebook"])
+        ref = h @ L.dequantize(p)
+        tol = cm.parity_tolerance(h, p["w_idx"], p["codebook"])
+        shares.append(((got - ref).abs() / tol).max().item())
+        if shares[-1] > 1:
+            raise AssertionError(f"[paper] codebook backend layer {i}: "
+                                 f"{shares[-1]:.3f} of the parity limit "
+                                 "against the dense backend")
+        h = L.dense(p, h)
+        if i < n - 1:
+            h = L.ffn_act(h, "tanh", ACT_LEVELS)
+    cb, dn = r["by_backend"]["codebook"], r["by_backend"]["dense"]
+    out = {"engine_agree_float": agree, "engine_max_gap": gap,
+           "tables": {"mult": list(r["tabs"].mult.shape),
+                      "s": r["tabs"].s,
+                      "zero_offset": r["tabs"].zero_offset,
+                      "act_table": int(r["tabs"].act_table.shape[0])},
+           "codebook_share_of_limit": max(shares),
+           "codebook_vs_dense_gap": (cb - dn).abs().max().item(),
+           "codebook_vs_dense_argmax": (cb.argmax(-1) == dn.argmax(-1))
+           .double().mean().item(),
+           "kmeans_s": r["kmeans_s"], "kmeans_values": r["flat"].numel(),
+           "kmeans_vs_plain": km_err,
+           "engine_first_call_s": r["first_call_s"],
+           "engine_wall_ms": wall_ms(lambda: fp.int_mlp_forward(
+               r["layers"], r["xi"], r["tabs"])),
+           "lut": paper_lut_rows(r["xi"], r["layers"], r["tabs"],
+                                 [f"layer{i}" for i in range(n)], peaks)}
+    log(f"[paper] {smi}: engine MLP {PAPER_MLP[0]}→{PAPER_MLP[1]}→"
+        f"{PAPER_MLP[2]} "
+        f"tanh |A| {ACT_LEVELS}, k-means |W| {PAPER_W} over "
+        f"{r['flat'].numel()} values in {r['kmeans_s']:.2f}s ("
+        f"kmeans_assign on them against the plain version: {km_text(km_err)}"
+        f"), tables "
+        f"{out['tables']}: int_mlp_forward of {PAPER_MLP_BATCH} "
+        f"pseudo-MNIST rows on the card = the CPU's bit for bit; "
+        f"{out['engine_wall_ms']:.3f} ms wall a forward; against the float "
+        f"quantized net argmax agreement {agree:.4f}, max |decode − float| "
+        f"{gap:.4f} (random weights: read only); codebook backend within "
+        f"{max(shares):.4f} of its parity limit layer by layer, end to end "
+        f"max |codebook − dense| {out['codebook_vs_dense_gap']:.3e}, argmax "
+        f"agreement {out['codebook_vs_dense_argmax']:.4f}; lut_matmul by "
+        f"layer: " + lut_rows_text(out["lut"]))
+    return out
+
+
+def paper_alexnet(dev) -> dict:
+    """paper-alexnet as the registry gives it (width d_model/96 = 1.0, 1000
+    classes, relu6) at img 224, batch 32 of ``class_images`` at side 224:
+    ``alexnet_init`` on the card; the forward at act_levels 0, and at 32
+    as ``alexnet_features`` then ``alexnet_head`` (7 act_quant: c1–c5,
+    f6, f7; held exactly); the integer head: a k-means |W| = 1000 codebook
+    of f6–f8's weights and biases (100 kmeans_assign launches), the relu6
+    |A| = 32 tables at fan-in 50177, ``act_index`` of that forward's
+    flattened pooled c5 output (1 act_quant), ``int_mlp_forward`` over f6,
+    f7 and f8 (3 lut_matmul launches), and the float head on the snapped
+    weights (2 act_quant)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.core.activations import ActQuantConfig, act_index
+    from repro_torch.core.clustering import kmeans1d
+    from repro_torch.data.synthetic import class_images
+    from repro_torch.models import papernets as PN
+    from repro_torch.models.layers import dense, ffn_act
+    cfg = configs.get("paper-alexnet")
+    width = cfg.d_model / 96
+    params = PN.alexnet_init(torch.Generator(device=dev).manual_seed(26),
+                             n_classes=cfg.vocab, width=width,
+                             img=PAPER_IMG, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    x = class_images(0, PAPER_BATCH, PAPER_IMG, n_classes=cfg.vocab,
+                     device=dev)["x"]
+    kind = cfg.act_kind
+    logits = {0: PN.alexnet_apply(params, x, kind, 0)}
+
+    def forward_32():
+        f = PN.alexnet_features(params, x, kind, ACT_LEVELS)
+        return f, PN.alexnet_head(params, f, kind, ACT_LEVELS)
+    (feat, logits[ACT_LEVELS]), per_fwd = rec_counted(forward_32)
+    rec_check("[paper] AlexNet forward at act_levels 32", per_fwd,
+              {"act_quant": 7})
+    head = {k: params[k] for k in ("f6", "f7", "f8")}
+    flat = torch.cat([t.reshape(-1) for t in _leaves(head)])
+    book, t_km = timed(lambda: kmeans1d(flat, PAPER_W))
+    idx, snapped = snap_to(head, book)
+    tabs = paper_tables(book, kind, head["f6"]["w"].shape[0] + 1)
+    feat = feat.reshape(feat.shape[0], -1)
+    xi = act_index(ActQuantConfig(kind, ACT_LEVELS), feat)
+    layers = [idx[k] for k in ("f6", "f7", "f8")]
+    acc = fp.int_mlp_forward(layers, xi, tabs)
+    h = feat
+    for i, k in enumerate(("f6", "f7", "f8")):
+        h = dense(snapped[k], h)
+        if i < 2:
+            h = ffn_act(h, kind, ACT_LEVELS)
+    return {"cfg": cfg, "width": width, "params": params,
+            "n_params": n_params, "x": x, "logits": logits, "book": book,
+            "tabs": tabs, "feat": feat, "xi": xi, "layers": layers,
+            "acc": acc, "head_float": h, "kmeans_s": t_km, "flat": flat}
+
+
+def paper_locked(cpu_params, params, xc, x, kind: str) -> dict:
+    """AlexNet at act_levels 32 on the card against the CPU, every
+    activation site locked to the CPU run's, as the port's CPU tests lock
+    it to the reference's: the CPU forward records each ``ffn_act``'s input
+    and output; each card site, in the same order, holds its input within
+    PAPER_LOCK_REL of the site's largest |x|, and its output's levels equal
+    but where a level flipped at a boundary tie (one level apart, both
+    inputs within that bound of the boundary between the two levels),
+    counted; the card then goes on with the CPU's output.  The logits
+    within 1e-4 of the CPU's range.  Returns the CPU logits and the
+    counts."""
+    import torch
+    from repro_torch.core.activations import (ActQuantConfig,
+                                              act_input_boundaries)
+    from repro_torch.models import papernets as PN
+    from repro_torch.models.layers import _bounded
+    act = PN.ffn_act
+    recorded = []
+    cfg = ActQuantConfig(_bounded(kind), ACT_LEVELS)
+    lo, _ = cfg.out_range
+    edges = torch.from_numpy(act_input_boundaries(cfg))
+    st = {"sites": 0, "acts": 0, "flips": 0, "input_share_of_bound": 0.0}
+
+    def cpu_site(v, k, lv, mul=None):
+        y = act(v, k, lv, mul)
+        recorded.append((v, y))
+        return y
+
+    def card_site(v, k, lv, mul=None):
+        xw, yw = recorded.pop(0)
+        xp, yp = v.cpu(), act(v, k, lv, mul).cpu()
+        tol = PAPER_LOCK_REL * max(1.0, xw.abs().max().item())
+        if xp.shape != xw.shape or not (xp - xw).abs().max().item() <= tol:
+            raise AssertionError(f"[paper] locked AlexNet site {st['sites']}"
+                                 ": card input off the CPU's")
+        st["input_share_of_bound"] = max(st["input_share_of_bound"], (
+            xp - xw).abs().max().item() / tol)
+        lp, lw = (torch.round((t.double() - lo) / cfg.step).long()
+                  for t in (yp, yw))
+        flip = lp != lw
+        if bool(flip.any()):
+            edge = edges[torch.minimum(lp, lw)[flip]]
+            if bool(((lp - lw).abs()[flip] != 1).any()) or not bool(
+                    ((xp[flip].double() - edge).abs() <= tol).all()
+                    and ((xw[flip].double() - edge).abs() <= tol).all()):
+                raise AssertionError(
+                    f"[paper] locked AlexNet site {st['sites']}: a level "
+                    "differs off a boundary tie, or by more than one")
+        st["flips"] += int(flip.sum())
+        st["sites"] += 1
+        st["acts"] += yw.numel()
+        return yw.to(v.device)
+
+    try:
+        PN.ffn_act = cpu_site
+        want = PN.alexnet_apply(cpu_params, xc, kind, ACT_LEVELS)
+        PN.ffn_act = card_site
+        got = PN.alexnet_apply(params, x, kind, ACT_LEVELS).cpu()
+    finally:
+        PN.ffn_act = act
+    gap = (got - want).abs().max().item()
+    rng_ = (want.max() - want.min()).item()
+    if recorded or st["sites"] != 7 or not gap <= 1e-4 * rng_:
+        raise AssertionError(f"[paper] locked AlexNet at act_levels 32: "
+                             f"{st['sites']} sites, max |Δ| {gap:.3e} of the "
+                             f"range {rng_:.3f}")
+    return {"want": want, **st, "gap": gap, "range": rng_}
+
+
+def paper_alexnet_checks(dev, r: dict, peaks: dict, smi: str) -> dict:
+    """AlexNet's gates and readings, after the driven part: the float
+    forward at act_levels 0 on the card against the CPU's on the same
+    weights and the first PAPER_CPU_BATCH images, within 1e-4 of the
+    output's range (TF32 off); at act_levels 32 the same with the sites
+    locked (``paper_locked``); the head's k-means values through
+    kmeans_assign against the plain version (``kmeans_case``); the
+    integer head bit-exact against itself with lut_matmul's plain version
+    on the card (``plain_lut``); logged: act_levels 32 against 0 (top-1
+    agreement, logit gap), the driven act_levels 32 forward against the
+    CPU's, unlocked, the head's top-1 agreement with the float head on the
+    same snapped weights; the forward's ms at both act_levels and its peak
+    memory; each head layer's lut_matmul (``paper_lut_rows``)."""
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.models import papernets as PN
+    kind, B = r["cfg"].act_kind, PAPER_CPU_BATCH
+    cpu_params = _to(r["params"], "cpu")
+    xc = r["x"][:B].cpu()
+    out = {"params": r["n_params"], "width": r["width"], "img": PAPER_IMG,
+           "batch": PAPER_BATCH}
+    locked = paper_locked(cpu_params, r["params"], xc, r["x"][:B], kind)
+    wants = {0: PN.alexnet_apply(cpu_params, xc, kind, 0),
+             ACT_LEVELS: locked.pop("want")}
+    out["locked_32"] = locked
+    for lv, want in wants.items():
+        got = r["logits"][lv][:B].cpu()
+        gap = (got - want).abs().max().item()
+        rng_ = (want.max() - want.min()).item()
+        out[f"card_vs_cpu_{lv}"] = {"gap": gap, "range": rng_, "top1": (
+            got.argmax(-1) == want.argmax(-1)).double().mean().item()}
+        if lv == 0 and not gap <= 1e-4 * rng_:
+            raise AssertionError(f"[paper] AlexNet float forward: card vs "
+                                 f"CPU max |Δ| {gap:.3e} over 1e-4 of the "
+                                 f"range {rng_:.3f}")
+    del cpu_params
+    km_err = kmeans_case(r["flat"], r["book"])
+    l0, l32 = r["logits"][0], r["logits"][ACT_LEVELS]
+    out["act32_vs_float"] = {
+        "top1": (l0.argmax(-1) == l32.argmax(-1)).double().mean().item(),
+        "gap": (l0 - l32).abs().max().item(),
+        "range": (l0.max() - l0.min()).item()}
+    with plain_lut():
+        want = fp.int_mlp_forward(r["layers"], r["xi"], r["tabs"])
+    if not torch.equal(r["acc"], want):
+        raise AssertionError("[paper] AlexNet integer head: the lut_matmul "
+                             "kernel differs from its plain version")
+    dec = torch.from_numpy(r["tabs"].decode(r["acc"]))
+    hf = r["head_float"].double().cpu()
+    out["head"] = {
+        "top1_vs_float_head": (dec.argmax(-1) == hf.argmax(-1)).double()
+        .mean().item(),
+        "max_gap": (dec - hf).abs().max().item(),
+        "float_range": (hf.max() - hf.min()).item(),
+        "tables": {"mult": list(r["tabs"].mult.shape), "s": r["tabs"].s,
+                   "act_table": int(r["tabs"].act_table.shape[0])},
+        "kmeans_s": r["kmeans_s"], "kmeans_values": r["flat"].numel(),
+        "kmeans_vs_plain": km_err}
+    # figures: the forward at both act_levels, its peak, the head's layers
+    params, x = r["params"], r["x"]
+    for lv in (0, ACT_LEVELS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = time_ms(lambda lv=lv: PN.alexnet_apply(params, x, kind, lv),
+                     reps=5, warm=1)
+        out[f"forward_ms_{lv}"] = ms
+        out[f"forward_peak_gib_{lv}"] = (torch.cuda.max_memory_allocated()
+                                         - base) / 2 ** 30
+    out["head_lut"] = paper_lut_rows(r["xi"], r["layers"], r["tabs"],
+                                     ("f6", "f7", "f8"), peaks)
+    log(f"[paper] {smi}: AlexNet (paper-alexnet: width {r['width']:.2f}, "
+        f"{r['cfg'].vocab} classes, {kind}) at img {PAPER_IMG}: "
+        f"{r['n_params']} params; float forward card vs CPU (batch {B}) max "
+        f"|Δ| {out['card_vs_cpu_0']['gap']:.3e} of range "
+        f"{out['card_vs_cpu_0']['range']:.3f}; act_levels 32 card vs CPU "
+        f"with the {locked['sites']} sites locked: max |Δ| "
+        f"{locked['gap']:.3e} of range {locked['range']:.3f}, "
+        f"{locked['flips']} flips at boundary ties in {locked['acts']} "
+        f"activations, inputs within {locked['input_share_of_bound']:.4f} "
+        f"of their bound; unlocked (the driven forward) "
+        f"{out[f'card_vs_cpu_{ACT_LEVELS}']}; act_levels 32 vs float "
+        f"(batch {PAPER_BATCH}) {out['act32_vs_float']}; forward "
+        f"{out['forward_ms_0']:.3f} ms (peak +"
+        f"{out['forward_peak_gib_0']:.2f} GiB) at act_levels 0, "
+        f"{out[f'forward_ms_{ACT_LEVELS}']:.3f} ms (peak +"
+        f"{out[f'forward_peak_gib_{ACT_LEVELS}']:.2f} GiB) at 32")
+    log(f"[paper] {smi}: AlexNet integer head f6–f8: k-means |W| "
+        f"{PAPER_W} over "
+        f"{r['flat'].numel()} values in {r['kmeans_s']:.2f}s (kmeans_assign "
+        f"on them against the plain version: {km_text(km_err)}), relu6 tables "
+        f"{out['head']['tables']}; int_mlp_forward bit-exact against "
+        f"lut_matmul's plain version on the card; top-1 against the float "
+        f"head on the snapped weights {out['head']['top1_vs_float_head']:.4f}"
+        f", max |decode − float| {out['head']['max_gap']:.4f} of range "
+        f"{out['head']['float_range']:.3f}; lut_matmul by layer: "
+        + lut_rows_text(out["head_lut"]))
+    return out
+
+
+def km_text(e: dict) -> str:
+    """A ``kmeans_case`` result in a line."""
+    return (f"idx and counts exact, sums − plain max abs "
+            f"{e['max_abs_err']:.3e}, {e['kernel_share_of_limit']:.4f} of "
+            f"the tolerance and {e['kernel_fixed_point_share_of_limit']:.4f}"
+            f" of the fixed-point bound")
+
+
+@contextlib.contextmanager
+def record_act_quant(out: list):
+    """Each act_quant launch through ``ops`` appends (x, kind, levels,
+    form, mul, (y, idx)) to ``out``: the inputs the driven path gave the
+    kernel and what it returned, to hold against the plain version
+    afterwards.  The wrapper and its launch count stay the kernel's own."""
+    from repro_torch.kernels import ops
+    route = ops._act_quant
+
+    def spy(x, kind, levels, form, with_index, mul=None):
+        got = route(x, kind, levels, form, with_index, mul)
+        if ops._route(x) == "cuda":
+            out.append((x, kind, levels, form, mul, got))
+        return got
+
+    ops._act_quant = spy
+    try:
+        yield
+    finally:
+        ops._act_quant = route
+
+
+def paper_act_parity(records: list) -> dict:
+    """Every act_quant launch of the driven path (``record_act_quant``)
+    held against the plain version on the same input: a launch made
+    without the index runs once more with it, its output bit-equal to the
+    path's; then outputs and indices bit-equal but for level-boundary ties
+    (``parity_ties``, which raises on anything else), relu6 bit-equal."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    ties, worst, seen = 0, 0.0, {}
+    for x, kind, levels, form, mul, (y, idx) in records:
+        if idx is None:
+            y2, idx = aq.act_quant_cuda(x, kind, levels, form=form, mul=mul)
+            if not torch.equal(y2, y):
+                raise AssertionError(f"act_quant {kind} {tuple(x.shape)}: "
+                                     "a second run differs")
+        want = aq.act_quant_plain(x, kind, levels, form=form, mul=mul)
+        ties += aq.parity_ties(y, idx, *want, kind, levels, mul=mul)
+        worst = max(worst, (y.float() - want[0].float()).abs().max().item())
+        key = f"{kind} {tuple(x.shape)}"
+        seen[key] = seen.get(key, 0) + 1
+    return {"launches": len(records), "ties": ties, "max_abs_err": worst,
+            "sites": seen}
+
+
+def paper_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
+    """The [paper] phase: ``paper_parity``; then, with every launch count
+    set to 0, ``paper_mlp`` and ``paper_alexnet`` (the driven path, whose
+    launches are held to the code's count and returned, and whose
+    act_quant launches are recorded); then their checks and figures,
+    uncounted, the recorded act_quant launches first
+    (``paper_act_parity``)."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.time()
+    n_parity = paper_parity(dev)
+    t_parity = time.time() - t0
+    acts = []
+    ops.reset_launch_counts()
+    with record_act_quant(acts):
+        mlp = paper_mlp(dev)
+        alex = paper_alexnet(dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    # 2 × 50 Lloyd steps a k-means; lut: the MLP's 3 layers and f6–f8;
+    # act_quant: the float MLP's 2, the backends' 2 + 2, the AlexNet
+    # forward's 7 at act_levels 32 (c1–c5, f6, f7), act_index of its c5
+    # output, the float head's 2; codebook_matmul: the codebook MLP's 3
+    want = {"kmeans_assign": 200, "lut_matmul": 6,
+            "act_quant": 2 + 2 + 2 + 7 + 1 + 2, "codebook_matmul": 3}
+    rec_check("[paper] the driven path", launches, want)
+    t_path = time.time() - t0 - t_parity
+    act_par = paper_act_parity(acts)
+    del acts
+    log(f"[paper] act_quant on the driven path's own inputs: "
+        f"{act_par['launches']} launches ({act_par['sites']}) against the "
+        f"plain version: bit-equal but for {act_par['ties']} level-boundary "
+        f"ties (each one level apart), relu6 bit-equal; max abs err "
+        f"{act_par['max_abs_err']:.3e}")
+    stats = {"act_quant_vs_plain": act_par,
+             "mlp": paper_mlp_checks(dev, mlp, peaks, smi),
+             "alexnet": paper_alexnet_checks(dev, alex, peaks, smi),
+             "parity_launches": n_parity, "parity_s": t_parity,
+             "path_s": t_path}
+    del mlp, alex
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.time() - t0
+    log(f"[paper] {smi}: phase {stats['phase_s']:.1f}s (parity "
+        f"{t_parity:.1f}s, driven path {t_path:.1f}s); launches {launches}")
+    return stats, launches
+
+
 def unfused_step(dev, e, L) -> dict:
     """The working-point codebook decode step (4 slots at 40) with the
     gated launch, and with the FFN as the port ran it before that launch
@@ -5440,6 +6050,8 @@ def main() -> int:
     m_stats, m_launches = moe_path(dev, smi)
     torch.cuda.empty_cache()
     r_stats, r_launches = recurrent_path(dev, smi)
+    torch.cuda.empty_cache()
+    pa_stats, pa_launches = paper_path(dev, smi, peaks)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -5460,7 +6072,8 @@ def main() -> int:
                    "probes": pr_launches.get(k, 0),
                    "launch": l_launches.get(k, 0),
                    "moe": m_launches.get(k, 0),
-                   "recurrent": r_launches.get(k, 0)}
+                   "recurrent": r_launches.get(k, 0),
+                   "paper": pa_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -5528,6 +6141,7 @@ def main() -> int:
     log("[done] launch path " + json.dumps(l_stats))
     log("[done] moe path " + json.dumps(m_stats))
     log("[done] recurrent path " + json.dumps(r_stats))
+    log("[done] paper path " + json.dumps(pa_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

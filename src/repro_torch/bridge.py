@@ -1,6 +1,7 @@
 """Parameter bridge: a ``repro`` parameter tree (as numpy arrays) → the same
-nested dict of torch tensors, and a ``repro`` ``QuantizerState``'s codebooks
-→ the port's ``QuantizerState``.
+nested dict of torch tensors, a ``repro`` ``QuantizerState``'s codebooks
+→ the port's ``QuantizerState``, and a ``repro`` ``LutTables`` (its
+fields, numpy already) → the port's.
 
 The caller converts the JAX objects first, e.g.
 ``jax.tree_util.tree_map(np.asarray, params)`` and
@@ -15,10 +16,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.lut import LutTables
 from repro_torch.core.quantizer import QuantizerState
 from repro_torch.device import resolve_device
 
-__all__ = ["from_jax_params", "from_jax_state", "to_numpy_tree"]
+__all__ = ["from_jax_params", "from_jax_state", "from_jax_lut_tables",
+           "to_numpy_tree"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -53,6 +56,19 @@ def from_jax_state(codebooks: dict, last_step: int = -1,
     return QuantizerState(codebooks={p: _tensor(c, dev)
                                      for p, c in codebooks.items()},
                           last_step=last_step)
+
+
+def from_jax_lut_tables(fields: dict) -> LutTables:
+    """``dataclasses.asdict`` of a reference ``LutTables`` (numpy arrays,
+    ints, a float and a numpy dtype) → the port's ``LutTables``, arrays
+    copied with their dtypes."""
+    arrays = {k: np.array(fields[k]) for k in ("mult", "act_table",
+                                                "levels", "codebook")}
+    return LutTables(**arrays, s=int(fields["s"]), dx=float(fields["dx"]),
+                     zero_offset=int(fields["zero_offset"]),
+                     bias_row=int(fields["bias_row"]),
+                     identity_col=int(fields["identity_col"]),
+                     acc_dtype=np.dtype(fields["acc_dtype"]))
 
 
 def to_numpy_tree(tree):

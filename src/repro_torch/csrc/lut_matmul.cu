@@ -31,8 +31,10 @@
 //   address from device memory, clamped, as the first version did, so the
 //   flat-address semantics hold for every id.
 // * l2: the first version's tile, every lookup through L2, for rows too
-//   long to stage and, at M <= 4, for sites of at most 1024 columns, where
-//   a staged row serves too few columns to pay for its copy.
+//   long to stage, for rows off 16-byte boundaries (the smem route would
+//   copy those word by word, every k: the §4 engine's |W| + 1 columns),
+//   and, at M <= 4, for sites of at most 1024 columns, where a staged row
+//   serves too few columns to pay for its copy.
 //
 // K is split across blocks to fill the card.  uint32 sums wrap the same in
 // any order, so the splits add their parts with integer atomics into a

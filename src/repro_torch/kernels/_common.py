@@ -174,8 +174,14 @@ def lut_plan(M: int, K: int, N: int, *, n_cols: int, idx_bytes: int,
     ids (at most LUT_A_BYTES), else lookups through L2.  At M <= 4 a site
     of at most LUT_L2_MAX_N columns looks up through L2 too: a staged row
     serves too few columns there to pay for its copy, and the L2 route is
-    no slower on any ids (PERF.md).  ``route`` forces "smem" or "l2"."""
-    if route is None and M <= LUT_ROWS[0] and N <= LUT_L2_MAX_N:
+    no slower on any ids (PERF.md).  So does an int32 table whose rows do
+    not start on 16-byte boundaries (``n_cols`` no multiple of 4, as the
+    §4 engine's |W| + 1 columns): the smem route would copy its rows word
+    by word, every k, and was 5.9 to 200 times slower than the L2 route
+    on the §4 table on an H100 (PERF.md).  ``route`` forces "smem" or
+    "l2"."""
+    if route is None and (n_cols % 4
+                          or (M <= LUT_ROWS[0] and N <= LUT_L2_MAX_N)):
         route = "l2"
     small, large = LUT_ROWS
     for bm in (() if route == "l2" else

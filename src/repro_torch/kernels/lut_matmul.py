@@ -11,8 +11,8 @@ block) take their terms from there, so the bound is shared-memory lookups.
 A term whose w lies outside [0, C) reads the flat address ``a·C + w`` from
 device memory, clamped into the table, as before.  ``_common.lut_plan``
 picks the route (rows staged, or every lookup through L2 where rows are too
-long to stage or, at M <= 4, a site has at most 1024 columns) and the K
-split; the splits add into a zeroed accumulator with
+long to stage or off 16-byte boundaries or, at M <= 4, a site has at most
+1024 columns) and the K split; the splits add into a zeroed accumulator with
 integer atomics (uint32 sums wrap the same in any order) and the last block
 of a tile copies it out, in the same launch.  Bit-exact with the plain
 version.

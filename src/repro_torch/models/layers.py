@@ -16,11 +16,16 @@ __all__ = ["dense_init", "dense", "dequantize", "rms_norm_init", "rms_norm",
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
-               std: float | None = None, layers: tuple = ()):
-    """{'w': normal · d_in^-0.5}; ``layers`` prepends stacked dims."""
+               std: float | None = None, layers: tuple = (),
+               bias: bool = False):
+    """{'w': normal · d_in^-0.5}, and {'b': zeros} with ``bias``;
+    ``layers`` prepends stacked dims."""
     std = (d_in ** -0.5) if std is None else std
     w = torch.randn(layers + (d_in, d_out), generator=gen, device=device)
-    return {"w": (w * std).to(dtype)}
+    p = {"w": (w * std).to(dtype)}
+    if bias:
+        p["b"] = torch.zeros(layers + (d_out,), dtype=dtype, device=device)
+    return p
 
 
 def dequantize(p) -> torch.Tensor:

@@ -67,8 +67,12 @@ class Model:
 
 def build(cfg: ModelConfig) -> Model:
     """The model handle of a ``dense``, ``moe``, ``ssm_rwkv`` or ``hybrid``
-    config; other families are not ported yet and raise, naming the
-    family."""
+    config; the paper's own nets are built through ``models.papernets``
+    (ValueError, as the reference's ``build`` refuses them), and the other
+    families are not ported yet and raise, naming the family."""
+    if cfg.family == "paper":
+        raise ValueError("paper-family nets are built via repro_torch."
+                         "models.papernets")
     if cfg.family not in T.FAMILIES:
         raise NotImplementedError(
             f"the port builds {'/'.join(T.FAMILIES)}-family models; got "
