@@ -5525,6 +5525,712 @@ def paper_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [train] -----------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_REDUCED = dict(steps=10, batch=2, seq=16, log_every=1)
+TRAIN_REDUCED_EVENT = 5          # laplacian_l1 |W| 1000, global, at step 5
+TRAIN_FAIL_AT, TRAIN_CKPT_EVERY = 6, 4
+TRAIN_FULL = dict(steps=6, batch=2, seq=128, log_every=1)
+TRAIN_FULL_EVENT = 3
+TRAIN_LOCK_REL = 1e-5     # locked sites: card input vs CPU, of max |x|
+TRAIN_LOSS_TOL = 1e-4     # reduced losses, card vs CPU (the tests' bound)
+TRAIN_CM = (256, 2048, 6144)     # codebook_matmul's gradient: 2 × 128 rows
+MLP_STEPS, MLP_ENGINE_STEPS, PARABOLA_STEPS = 250, 200, 600
+ALEX_STEPS, ALEX_EVENT, ALEX_SUBSAMPLE = 4, 2, 0.02
+
+
+def quant_cfg(cfg, interval: int):
+    """The paper's working point as ``launch/train.py --quant`` sets it:
+    |A| 32, |W| 1000 laplacian_l1 global, the event every ``interval``."""
+    import dataclasses
+    q = cfg.quantized()
+    return q.replace(wq=dataclasses.replace(q.wq, interval=interval))
+
+
+@contextlib.contextmanager
+def ffn_sites(records: list, stats: dict | None = None):
+    """Every FFN activation site (``layers.ffn_act``): without ``stats``
+    each call appends its input and output, on the host, to ``records``
+    (the CPU run); with ``stats`` each call takes the next record, checks
+    its own input within ``TRAIN_LOCK_REL`` of the site's largest |x| and
+    its levels equal but where one flipped at a boundary tie (one level
+    apart, both inputs within that bound of the boundary), counted, and
+    goes on with the recorded output, straight through (the card run),
+    as the port's CPU tests lock the card's twin, the reference."""
+    import numpy as np
+    from repro_torch.core.activations import (ActQuantConfig,
+                                              act_input_boundaries)
+    from repro_torch.models import layers as L
+    route = L.ffn_act
+
+    def record(x, kind, levels, mul=None):
+        y = route(x, kind, levels)
+        records.append((x.detach().cpu(), y.detach().cpu()))
+        return y if mul is None else y * mul
+
+    def lock(x, kind, levels, mul=None):
+        y = route(x, kind, levels)
+        xw, yw = records.pop(0)
+        xp, yp = x.detach().float().cpu().numpy(), y.detach().float().cpu(
+            ).numpy()
+        xw, ywn = xw.float().numpy(), yw.float().numpy()
+        tol = TRAIN_LOCK_REL * max(1.0, float(np.abs(xw).max()))
+        stats["max_input_gap"] = max(stats["max_input_gap"],
+                                     float(np.abs(xp - xw).max()))
+        if xp.shape != xw.shape or np.abs(xp - xw).max() > tol:
+            raise AssertionError(
+                f"[train] FFN site {stats['sites']}: its input on the card "
+                f"is {np.abs(xp - xw).max():.3e} from the CPU's (bound "
+                f"{tol:.3e})")
+        cfg = ActQuantConfig(L._bounded(kind), levels)
+        lo, _ = cfg.out_range
+        lp = np.rint((yp - lo) / cfg.step).astype(int)
+        lw = np.rint((ywn - lo) / cfg.step).astype(int)
+        flip = lp != lw
+        if flip.any():
+            edge = act_input_boundaries(cfg)[np.minimum(lp, lw)[flip]]
+            if not ((np.abs(lp - lw)[flip] == 1).all()
+                    and (np.abs(xp[flip] - edge) <= tol).all()
+                    and (np.abs(xw[flip] - edge) <= tol).all()):
+                raise AssertionError("[train] a level differs off a "
+                                     "boundary tie")
+        stats["flips"] += int(flip.sum())
+        stats["sites"] += 1
+        stats["acts"] += ywn.size
+        y = y + (yw.to(y.device, y.dtype) - y).detach()
+        return y if mul is None else y * mul
+
+    L.ffn_act = record if stats is None else lock
+    try:
+        yield
+    finally:
+        L.ffn_act = route
+
+
+def train_reduced(dev) -> dict:
+    """(a) The reduced qwen3 at ``--quant`` (act_levels 32, laplacian_l1
+    event at step 5, remat on), 10 steps of ``launch.train.train`` on the
+    CPU, then on the card from the same initial params (the CPU's, moved:
+    a CUDA generator draws other numbers) with every FFN site locked to
+    the CPU run's (``ffn_sites``): each logged loss within
+    ``TRAIN_LOSS_TOL``, flips counted.  Then on the card a run with
+    checkpoints every 4 steps and a failure injected at step 6, resumed
+    from step 4, against an uninterrupted card run: the resumed steps'
+    losses equal."""
+    import tempfile
+    from repro_torch import checkpoint as CKPT
+    from repro_torch import configs
+    from repro_torch.distributed.fault_tolerance import (FailureInjector,
+                                                         SimulatedFailure)
+    import torch
+    from repro_torch.launch import train as TT
+    from repro_torch.models.model_zoo import Model, build
+    quiet = lambda *a: None                                  # noqa: E731
+    cfg = quant_cfg(configs.get(TRAIN_ARCH).reduced(), TRAIN_REDUCED_EVENT)
+    recs = []
+    t0 = time.time()
+    with ffn_sites(recs):
+        _, cq, cpu = TT.train(cfg, TT.TrainLoopConfig(**TRAIN_REDUCED,
+                                                      device="cpu"),
+                              log=quiet)
+    lock = {"sites": 0, "acts": 0, "flips": 0, "max_input_gap": 0.0}
+    init = build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    route = Model.init
+    Model.init = lambda self, gen, device=None: _to(init, device)
+    try:
+        with ffn_sites(recs, lock):
+            _, gq, card = TT.train(cfg, TT.TrainLoopConfig(**TRAIN_REDUCED,
+                                                           device="cuda"),
+                                   log=quiet)
+    finally:
+        Model.init = route
+    if recs:
+        raise AssertionError("[train] the card ran fewer FFN sites than "
+                             "the CPU")
+    gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu))
+    if [h["step"] for h in card] != [h["step"] for h in cpu] or \
+            gap > TRAIN_LOSS_TOL:
+        raise AssertionError(f"[train] reduced losses card vs CPU: {gap}")
+    if (gq.last_step, cq.last_step) != (TRAIN_REDUCED_EVENT,) * 2:
+        raise AssertionError("[train] the clustering event did not run")
+    t_lock = time.time() - t0
+    with tempfile.TemporaryDirectory(prefix="train_ckpt_") as ck:
+        loop = TT.TrainLoopConfig(**TRAIN_REDUCED, device="cuda",
+                                  ckpt_dir=ck, ckpt_every=TRAIN_CKPT_EVERY)
+        try:
+            TT.train(cfg, loop, injector=FailureInjector(
+                fail_at_step=TRAIN_FAIL_AT), log=quiet)
+            raise AssertionError("[train] the injected failure did not "
+                                 "fire")
+        except SimulatedFailure:
+            pass
+        if CKPT.latest_step(ck) != TRAIN_CKPT_EVERY:
+            raise AssertionError("[train] no checkpoint at step 4")
+        lines = []
+        _, _, resumed = TT.train(cfg, loop, log=lines.append)
+    _, _, clean = TT.train(cfg, TT.TrainLoopConfig(**TRAIN_REDUCED,
+                                                   device="cuda"), log=quiet)
+    clean = {h["step"]: h["loss"] for h in clean}
+    resume_gap = max(abs(h["loss"] - clean[h["step"]]) for h in resumed)
+    if lines[0] != f"[resume] from step {TRAIN_CKPT_EVERY}" or \
+            [h["step"] for h in resumed] != list(range(TRAIN_CKPT_EVERY,
+                                                       10)) or \
+            resume_gap > 1e-5:
+        raise AssertionError(f"[train] resumed run: {lines[0]}, gap "
+                             f"{resume_gap}")
+    out = {"loss_gap_card_cpu": gap, "lock": lock,
+           "losses": [h["loss"] for h in card],
+           "resume_gap": resume_gap, "locked_runs_s": t_lock}
+    log(f"[train] (a) reduced {TRAIN_ARCH} --quant, {TRAIN_REDUCED['steps']}"
+        f" steps, event at {TRAIN_REDUCED_EVENT}: card vs CPU max |Δloss| "
+        f"{gap:.3e} (gate {TRAIN_LOSS_TOL}), every FFN site locked: "
+        f"{lock['sites']} sites, {lock['flips']} flips at boundary ties in "
+        f"{lock['acts']} activations, inputs within "
+        f"{lock['max_input_gap']:.3e}; failure at step {TRAIN_FAIL_AT}, "
+        f"resumed from {TRAIN_CKPT_EVERY}: max |Δloss| against the "
+        f"uninterrupted card run {resume_gap:.3e}")
+    return out
+
+
+def train_codebook_grad(dev) -> list:
+    """(c) codebook_matmul under its gradient at 256 × 2048 × 6144 (int16
+    ids into |W| = 1000), f32 and bf16 x: one launch each; returns the
+    inputs and results for ``train_codebook_checks``."""
+    import torch
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev).manual_seed(27)
+    M, K, N = TRAIN_CM
+    ids = torch.randint(0, N_BOOK, (K, N), generator=g, device=dev).to(
+        torch.int16)
+    book = torch.randn(N_BOOK, generator=g, device=dev)
+    out = []
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(M, K, generator=g, device=dev).to(dt)
+        gy = torch.randn(M, N, generator=g, device=dev)
+        xr, br = x.clone().requires_grad_(True), book.clone().requires_grad_(
+            True)
+        y = ops.codebook_matmul(xr, ids, br)
+        y.backward(gy)
+        out.append({"x": x, "ids": ids, "book": book, "gy": gy,
+                    "y": y.detach(), "dx": xr.grad, "dbook": br.grad})
+    return out
+
+
+def train_codebook_checks(cases: list) -> dict:
+    """The card's forward within the kernel's parity limit of the plain
+    version, and its gradients against the same function on CPU tensors
+    (the plain version and the same backward): dbook (f32) within 1e-5 of
+    its largest |g|, dx within that or, in bf16, one bf16 ulp of each
+    element."""
+    import torch
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import ops
+    out = {}
+    for c in cases:
+        x, ids, book = c["x"].cpu(), c["ids"].cpu(), c["book"].cpu()
+        xr, br = x.clone().requires_grad_(True), book.clone().requires_grad_(
+            True)
+        y = ops.codebook_matmul(xr, ids, br)
+        y.backward(c["gy"].cpu())
+        tol = cm.parity_tolerance(c["x"], c["ids"], c["book"])
+        share = ((c["y"] - cm.codebook_matmul_plain(c["x"], c["ids"],
+                                                    c["book"])).abs()
+                 / tol).max().item()
+        db = (c["dbook"].cpu() - br.grad).abs().max().item() / \
+            br.grad.abs().max().item()
+        dxg, dxw = c["dx"].cpu().float(), xr.grad.float()
+        lim = 1e-5 * dxw.abs().max()
+        if x.dtype == torch.bfloat16:
+            lim = torch.maximum(lim, torch.finfo(torch.bfloat16).eps
+                                * dxw.abs())
+        dx_ok = bool(((dxg - dxw).abs() <= lim).all())
+        if share > 1 or db > 1e-5 or not dx_ok:
+            raise AssertionError(f"[train] codebook_matmul gradient {x.dtype}"
+                                 f": forward {share:.3f} of its limit, dbook "
+                                 f"{db:.3e}, dx within bound {dx_ok}")
+        out[str(x.dtype).split(".")[-1]] = {
+            "forward_share_of_limit": share, "dbook_rel_err": db,
+            "dx_max_abs_err": (dxg - dxw).abs().max().item()}
+    log(f"[train] (c) codebook_matmul at {TRAIN_CM} under its gradient, card"
+        f" against the plain version on CPU tensors: {json.dumps(out)}")
+    return out
+
+
+def train_full(dev, acts: list) -> dict:
+    """(b) ``launch.train.train`` on qwen3-1.7b at full width and depth
+    (28 layers, bf16, remat), ``--quant`` with the event at step 3, 2 ×
+    128 tokens a step, 6 steps.  The event is timed and checked as it
+    returns (every weight equal to one of the |W| centers in its dtype);
+    the act_quant launches are recorded (``record_act_quant``)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import train as TT
+    cfg = quant_cfg(configs.get(TRAIN_ARCH), TRAIN_FULL_EVENT)
+    events, lines = [], []
+    route = TT.cluster_params
+
+    def event(params, wq, qstate, step, gen):
+        out, secs = timed(lambda: route(params, wq, qstate, step, gen))
+        book = torch.unique(out[1].codebooks[""].to(torch.bfloat16)).float()
+        off = n = 0
+        for leaf in _leaves(out[0]):
+            v = leaf.reshape(-1).float()
+            i = torch.searchsorted(book, v).clamp(max=book.numel() - 1)
+            off += int((book[i] != v).sum())
+            n += v.numel()
+        events.append({"step": step, "s": secs, "values": n,
+                       "off_center": off})
+        return out
+
+    TT.cluster_params = event
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_stats()
+    try:
+        with record_act_quant(acts):
+            (params, qstate, hist), launches = rec_counted(
+                lambda: TT.train(cfg, TT.TrainLoopConfig(**TRAIN_FULL,
+                                                         device="cuda"),
+                                 log=lines.append))
+    finally:
+        TT.cluster_params = route
+    # a step: each layer's FFN in the forward and in its remat recompute
+    rec_check("[train] (b) the full-width trainer", launches,
+              {"act_quant": 2 * cfg.n_layers * TRAIN_FULL["steps"]})
+    peak = torch.cuda.max_memory_allocated()
+    after = torch.cuda.memory_stats()
+    allocator = {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "num_alloc_retries", "num_device_alloc", "num_device_free")}
+    finite = all(bool(torch.isfinite(t).all()) for t in _leaves(params))
+    n_params = sum(t.numel() for t in _leaves(params))
+    return {"cfg": cfg, "hist": hist, "events": events, "peak": peak,
+            "finite": finite, "n_params": n_params, "lines": lines,
+            "book": int(qstate.codebooks[""].numel()), "params": params,
+            "allocator": allocator}
+
+
+def train_step_split(cfg, params) -> dict:
+    """One more full-width step on the trained params, its two halves
+    timed apart (each synchronized): the loss's forward and backward
+    (``value_and_grad``, remat included) and the optimizer's update
+    (``apply_updates``, adamw on f32 moments, fresh); then each half again
+    under the profiler: device busy ms, the idle share against the timed
+    call's wall, kernels launched, the largest kernels."""
+    from repro_torch.data.synthetic import TokenPipeline
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    model = build(cfg)
+    ocfg = OptConfig(name="adamw", lr=3e-3, moments_dtype=cfg.moments_dtype)
+    batch = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_FULL["batch"],
+                          seq=TRAIN_FULL["seq"], device=params["embed"][
+                              "table"].device).batch_at(TRAIN_FULL["steps"])
+    opt = init_opt_state(params, ocfg)
+
+    def grad():
+        return value_and_grad(model.loss, params, batch)
+    (_, grads), t_grad = timed(grad)
+
+    def update():
+        return apply_updates(params, grads, opt, ocfg)
+    _, t_upd = timed(update)
+    out = {"grad_ms": t_grad * 1e3, "update_ms": t_upd * 1e3}
+    for name, fn, wall in (("grad", grad, t_grad), ("update", update,
+                                                    t_upd)):
+        busy, top, _, n, _ = device_time(fn, top=4, match="act_quant")
+        out[name] = {"busy_ms": busy, "idle_share": 1 - busy / (wall * 1e3),
+                     "kernels": n, "top": top}
+    return out
+
+
+def train_full_checks(r: dict, smi: str) -> dict:
+    import statistics
+    hist, ev = r["hist"], r["events"]
+    cfg = r["cfg"]
+    if not r["finite"] or not all(math_finite(h["loss"]) for h in hist):
+        raise AssertionError("[train] full width: a loss or parameter is "
+                             "not finite")
+    if len(ev) != 1 or ev[0]["step"] != TRAIN_FULL_EVENT or \
+            ev[0]["off_center"] or ev[0]["values"] != r["n_params"] or \
+            r["book"] != cfg.wq.num_weights:
+        raise AssertionError(f"[train] full width clustering event: {ev}")
+    step_ms = statistics.median(h["sec"] for h in hist[1:]) * 1e3
+    tokens = TRAIN_FULL["batch"] * TRAIN_FULL["seq"]
+    split = train_step_split(cfg, r.pop("params"))
+    out = {"params": r["n_params"], "losses": [h["loss"] for h in hist],
+           "step_ms": step_ms, "first_step_ms": hist[0]["sec"] * 1e3,
+           "event_step_ms": hist[TRAIN_FULL_EVENT]["sec"] * 1e3,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_gib": r["peak"] / 2**30, "event_s": ev[0]["s"],
+           "event_values": ev[0]["values"]}
+    log(f"[train] (b) {smi}: {TRAIN_ARCH} full width ({cfg.n_layers} layers,"
+        f" {r['n_params']} params, {cfg.dtype}, remat {cfg.remat}), --quant "
+        f"(|A| {cfg.act_levels}, |W| {cfg.wq.num_weights} "
+        f"{cfg.wq.method}), {TRAIN_FULL['batch']} × {TRAIN_FULL['seq']} "
+        f"tokens, {TRAIN_FULL['steps']} steps: step {step_ms:.1f} ms "
+        f"(median after the first; first {out['first_step_ms']:.1f}, the "
+        f"event's step {out['event_step_ms']:.1f}), "
+        f"{out['tokens_per_s']:.0f} tokens/s (a step apart: forward and "
+        f"backward {split['grad_ms']:.1f} ms wall, "
+        f"{split['grad']['busy_ms']:.1f} busy, idle {split['grad']['idle_share']:.3f}, "
+        f"{split['grad']['kernels']} kernels, the largest "
+        f"{split['grad']['top']}; update {split['update_ms']:.1f} ms wall, "
+        f"{split['update']['busy_ms']:.1f} busy, idle "
+        f"{split['update']['idle_share']:.3f}, {split['update']['kernels']} "
+        f"kernels; allocator during train() {r['allocator']}), peak "
+        f"{out['peak_gib']:.2f} GiB allocated; event at step "
+        f"{TRAIN_FULL_EVENT} {ev[0]['s']:.2f}s, every one of "
+        f"{ev[0]['values']} weights on one of the {r['book']} centers; "
+        f"losses {[round(x, 4) for x in out['losses']]}, all finite")
+    return out
+
+
+def math_finite(v: float) -> bool:
+    return v == v and abs(v) != float("inf")
+
+
+def mlp_ce(params, x, y, levels):
+    import torch
+    from repro_torch.models import papernets as PN
+    logits = PN.mlp_apply(params, x, "tanh", levels)
+    loss = torch.mean(torch.logsumexp(logits, -1) - torch.take_along_dim(
+        logits, y[:, None].long(), -1)[:, 0])
+    return loss, loss
+
+
+def train_mlp(dev, levels: int, n_weights: int, steps: int, hidden):
+    """The reference's ``_train_mlp`` (tests/test_papernets_integration):
+    adam lr 2e-3 on pseudo-MNIST batches of 64, laplacian_l1 events every
+    50 steps and a final snap."""
+    import torch
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, init_state)
+    from repro_torch.data.synthetic import pseudo_mnist_batch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import papernets as PN
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    params = PN.mlp_init(torch.Generator(device=dev).manual_seed(0), 784,
+                         list(hidden), 10, device=dev)
+    ocfg = OptConfig(name="adam", lr=2e-3)
+    opt = init_opt_state(params, ocfg)
+    wq = WeightQuantConfig(num_weights=n_weights, method="laplacian_l1",
+                           interval=50) if n_weights else WeightQuantConfig()
+    qstate = init_state(wq)
+    for s in range(steps):
+        if wq.due(s):
+            params, qstate = cluster_params(params, wq, qstate, s)
+        b = pseudo_mnist_batch(s, 64, device=dev)
+        _, g = value_and_grad(mlp_ce, params, b["x"], b["y"], levels)
+        params, opt, _ = apply_updates(params, g, opt, ocfg)
+    if wq.enabled:
+        params, qstate = cluster_params(params, wq, qstate, steps)
+    return params, qstate
+
+
+def mlp_accuracy(dev, params, levels: int) -> float:
+    import torch
+    from repro_torch.data.synthetic import pseudo_mnist_batch
+    from repro_torch.models import papernets as PN
+    hits = tot = 0
+    with torch.no_grad():
+        for s in range(1000, 1005):
+            b = pseudo_mnist_batch(s, 128, device=dev)
+            pred = PN.mlp_apply(params, b["x"], "tanh", levels).argmax(-1)
+            hits += int((pred == b["y"]).sum())
+            tot += pred.numel()
+    return hits / tot
+
+
+@contextlib.contextmanager
+def record_lut(out: list):
+    """Each ``ops.lut_matmul`` call appends (a_idx, w_idx, table, acc):
+    the inputs the driven path gave the kernel and what it returned."""
+    from repro_torch.kernels import ops
+    route = ops.lut_matmul
+
+    def spy(a_idx, w_idx, table):
+        acc = route(a_idx, w_idx, table)
+        out.append((a_idx, w_idx, table, acc))
+        return acc
+
+    ops.lut_matmul = spy
+    try:
+        yield
+    finally:
+        ops.lut_matmul = route
+
+
+def train_paper_mlp(dev) -> dict:
+    """(d) The paper's MLP loop on the card, the reference's contracts:
+    the continuous and the |A| 32, |W| 256 MLP (250 steps each) and their
+    accuracies; the |A| 16, |W| 128 MLP (200 steps) trained into the §4
+    engine (tables at 8192 entries, fan-in 785) and the float quantized net
+    beside it; the Fig. 2 parabola at |A| 2, 8, 256 (600 steps each)."""
+    import torch
+    from repro_torch.core import clustering
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.core.activations import ActQuantConfig, act_apply
+    from repro_torch.core.lut import LutConfig, build_tables
+    from repro_torch.data.synthetic import parabola_batch, pseudo_mnist_batch
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import papernets as PN
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    t0 = time.time()
+    p_cont, _ = train_mlp(dev, 0, 0, MLP_STEPS, (32,))
+    p_q, _ = train_mlp(dev, ACT_LEVELS, 256, MLP_STEPS, (32,))
+    acc = {"continuous": mlp_accuracy(dev, p_cont, 0),
+           "quantized": mlp_accuracy(dev, p_q, ACT_LEVELS)}
+    act = ActQuantConfig("tanh", 16)
+    params, qstate = train_mlp(dev, 16, 128, MLP_ENGINE_STEPS, (24,))
+    book = qstate.codebooks[""]
+    tabs = build_tables(book.cpu().numpy(), LutConfig(act=act,
+                                                      table_entries=8192),
+                        fan_in=785)
+    layers = [(clustering.assign_to_centers(params[f"layer{i}"]["w"], book),
+               clustering.assign_to_centers(params[f"layer{i}"]["b"], book))
+              for i in range(len(params))]
+    b = pseudo_mnist_batch(2000, 256, device=dev)
+    xi = fp.input_to_indices(torch.tanh(b["x"]), act)
+    with torch.no_grad():
+        lo, _ = act.out_range
+        h = lo + xi.to(torch.float32) * act.step
+        for i in range(len(params) - 1):
+            h = act_apply(act, h @ params[f"layer{i}"]["w"]
+                          + params[f"layer{i}"]["b"])
+        last = params[f"layer{len(params) - 1}"]
+        yf = h @ last["w"] + last["b"]
+    luts = []
+    with record_lut(luts):
+        acc_int = fp.int_mlp_forward(layers, xi, tabs)
+    errs = {}
+    for levels in (2, 8, 256):
+        p = PN.mlp_init(torch.Generator(device=dev).manual_seed(1), 1, [2], 1,
+                        device=dev)
+        ocfg = OptConfig(name="adam", lr=2e-2)
+        opt = init_opt_state(p, ocfg)
+
+        def mse(q, bb):
+            loss = torch.mean((PN.mlp_apply(q, bb["x"], "tanh", levels)
+                               - bb["y"]) ** 2)
+            return loss, loss
+        for s in range(PARABOLA_STEPS):
+            (loss, _), g = value_and_grad(mse, p, parabola_batch(s,
+                                                                 device=dev))
+            p, opt, _ = apply_updates(p, g, opt, ocfg)
+        errs[levels] = float(loss)
+    return {"acc": acc, "tabs": tabs, "layers": layers, "xi": xi,
+            "float": yf, "acc_int": acc_int, "luts": luts, "parabola": errs,
+            "s": time.time() - t0}
+
+
+def train_paper_mlp_checks(r: dict, smi: str) -> dict:
+    """The reference's contracts, then the engine's layers on the trained
+    tables: each layer's lut_matmul on the card bit-exact against the
+    plain version on the same inputs, and int_mlp_forward on the card
+    equal to the same call on CPU tensors."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fixedpoint as fp
+    from repro_torch.kernels import lut_matmul as lm
+    acc, errs = r["acc"], r["parabola"]
+    dec = r["tabs"].decode(r["acc_int"])
+    yf = r["float"].double().cpu().numpy()
+    agree = float(np.mean(dec.argmax(-1) == yf.argmax(-1)))
+    gap = float(np.abs(dec - yf).max())
+    if not (acc["continuous"] > 0.85
+            and acc["quantized"] > acc["continuous"] - 0.05
+            and agree > 0.97 and gap < 0.6
+            and errs[8] < errs[2] and errs[256] < errs[2]
+            and errs[256] < 5e-3):
+        raise AssertionError(f"[train] paper MLP contracts: {acc}, engine "
+                             f"agreement {agree}, gap {gap}, parabola "
+                             f"{errs}")
+    if len(r["luts"]) != len(r["layers"]):
+        raise AssertionError("[train] the engine MLP launched "
+                             f"{len(r['luts'])} lut_matmul")
+    for i, (a, w, table, got) in enumerate(r["luts"]):
+        if not torch.equal(got, lm.lut_matmul_plain(a, w, table)):
+            raise AssertionError(f"[train] lut_matmul layer {i} on the "
+                                 "trained tables differs from plain")
+    cpu = fp.int_mlp_forward([(w.cpu(), b.cpu()) for w, b in r["layers"]],
+                             r["xi"].cpu(), r["tabs"])
+    if not torch.equal(cpu, r["acc_int"].cpu()):
+        raise AssertionError("[train] the trained engine MLP on the card "
+                             "differs from the CPU's")
+    out = {"accuracy": acc, "engine_agreement": agree, "engine_max_gap": gap,
+           "parabola": errs, "s": r["s"]}
+    log(f"[train] (d) {smi}: paper MLP on the card: accuracy continuous "
+        f"{acc['continuous']:.4f}, |A| {ACT_LEVELS} |W| 256 "
+        f"{acc['quantized']:.4f}; trained into the §4 engine (tanh |A| 16, "
+        f"|W| 128): agreement with the float quantized net {agree:.4f}, max"
+        f" |decode − float| {gap:.4f}, lut_matmul bit-exact against the "
+        f"plain version on the trained tables, card = CPU; parabola e2 "
+        f"{errs[2]:.5f} e8 {errs[8]:.5f} e256 {errs[256]:.5f}; "
+        f"{r['s']:.1f}s")
+    return out
+
+
+def alexnet_ce(params, x, y, levels):
+    import torch
+    from repro_torch.models import papernets as PN
+    logits = PN.alexnet_apply(params, x, "relu6", levels)
+    loss = torch.mean(torch.logsumexp(logits, -1) - torch.take_along_dim(
+        logits, y[:, None].long(), -1)[:, 0])
+    return loss, loss
+
+
+def train_alexnet(dev) -> dict:
+    """(e) paper-alexnet at width 1.0, img 224, 1000 classes, relu6 at |A|
+    32, batch 32 of ``class_images``: 4 adam steps (lr 1e-3, no dropout,
+    as ``benchmarks/table1_alexnet.py`` trains) with a k-means |W| 1000
+    event before step 2 on a 2 % subsample of all weights and biases
+    (Table 1 #6), drawn from a folded generator; the subsample kept for
+    the kernel check, each step synchronized."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core import clustering
+    from repro_torch.core.quantizer import (WeightQuantConfig,
+                                            cluster_params, fold_in,
+                                            init_state)
+    from repro_torch.data.synthetic import class_images
+    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.models import papernets as PN
+    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    cfg = configs.get("paper-alexnet")
+    params = PN.alexnet_init(torch.Generator(device=dev).manual_seed(27),
+                             n_classes=cfg.vocab, width=cfg.d_model / 96,
+                             img=PAPER_IMG, device=dev)
+    ocfg = OptConfig(name="adam", lr=1e-3)
+    opt = init_opt_state(params, ocfg)
+    wq = WeightQuantConfig(num_weights=PAPER_W, method="kmeans",
+                           subsample=ALEX_SUBSAMPLE, interval=ALEX_EVENT)
+    qstate = init_state(wq)
+    drawn = []
+    route = clustering.subsample
+
+    def keep(values, fraction, gen):
+        out = route(values, fraction, gen)
+        drawn.append(out)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, losses, event_s = [], [], None
+    clustering.subsample = keep
+    try:
+        for s in range(ALEX_STEPS):
+            if wq.due(s):
+                gen = fold_in(torch.Generator(device=dev).manual_seed(27), s)
+                (params, qstate), event_s = timed(lambda: cluster_params(
+                    params, wq, qstate, s, gen))
+            b = class_images(s, PAPER_BATCH, PAPER_IMG, n_classes=cfg.vocab,
+                             device=dev)
+
+            def step():
+                (loss, _), g = value_and_grad(alexnet_ce, params, b["x"],
+                                              b["y"], ACT_LEVELS)
+                return (loss,) + apply_updates(params, g, opt, ocfg)[:2]
+            (loss, params, opt), secs = timed(step)
+            steps.append(secs)
+            losses.append(float(loss))
+    finally:
+        clustering.subsample = route
+    return {"params": params, "qstate": qstate, "drawn": drawn,
+            "steps": steps, "losses": losses, "event_s": event_s,
+            "peak": torch.cuda.max_memory_allocated(),
+            "n_params": sum(t.numel() for t in _leaves(params))}
+
+
+def train_alexnet_checks(r: dict, smi: str) -> dict:
+    import statistics
+    import torch
+    if len(r["drawn"]) != 1 or r["qstate"].last_step != ALEX_EVENT:
+        raise AssertionError("[train] AlexNet: no subsampled event")
+    v, book = r["drawn"][0], r["qstate"].codebooks[""]
+    if v.numel() != int(r["n_params"] * ALEX_SUBSAMPLE) or \
+            book.numel() != PAPER_W:
+        raise AssertionError(f"[train] AlexNet subsample {v.numel()} of "
+                             f"{r['n_params']}, {book.numel()} centers")
+    if not all(math_finite(x) for x in r["losses"]) or not all(
+            bool(torch.isfinite(t).all()) for t in _leaves(r["params"])):
+        raise AssertionError("[train] AlexNet: not finite")
+    km = kmeans_case(v, book)
+    out = {"params": r["n_params"], "losses": r["losses"],
+           "step_ms": statistics.median(r["steps"][1:]) * 1e3,
+           "first_step_ms": r["steps"][0] * 1e3,
+           "peak_gib": r["peak"] / 2**30, "event_s": r["event_s"],
+           "subsample": v.numel(), "kmeans_vs_plain": km}
+    log(f"[train] (e) {smi}: paper-alexnet width 1.0 img {PAPER_IMG}, "
+        f"{r['n_params']} params, relu6 |A| {ACT_LEVELS}, batch "
+        f"{PAPER_BATCH}, {ALEX_STEPS} adam steps: step "
+        f"{out['step_ms']:.1f} ms (median after the first; first "
+        f"{out['first_step_ms']:.1f}), peak {out['peak_gib']:.2f} GiB "
+        f"allocated; k-means |W| {PAPER_W} event at step {ALEX_EVENT} on a "
+        f"{ALEX_SUBSAMPLE:.0%} subsample ({v.numel()} values) "
+        f"{r['event_s']:.2f}s, kmeans_assign on them against the plain "
+        f"version: {km_text(km)}; losses "
+        f"{[round(x, 4) for x in r['losses']]}")
+    return out
+
+
+def train_path(dev, smi: str) -> tuple[dict, dict]:
+    """The [train] phase: (a) the reduced trainer card against CPU and the
+    resume, uncounted; then, with every launch count set to 0, the driven
+    path: (c) codebook_matmul's gradient, (b) the full-width trainer, (d)
+    the paper MLP's loop, (e) AlexNet's steps with the subsampled event;
+    the launches held exactly to the code's count; then the checks, the
+    recorded act_quant launches first, against the plain version."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.time()
+    red = train_reduced(dev)
+    t_red = time.time() - t0
+    acts = []
+    ops.reset_launch_counts()
+    cm_cases = train_codebook_grad(dev)
+    full = train_full(dev, acts)
+    t_full = time.time() - t0 - t_red
+    with record_act_quant(acts):
+        mlp = train_paper_mlp(dev)
+        alex = train_alexnet(dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    L = full["cfg"].n_layers
+    # act_quant: each FFN of the full width's forwards and remat
+    # recomputes; the MLP loops' one hidden site a forward (250 quantized
+    # steps + 5 accuracy batches, 200 engine steps + the float net, 3 ×
+    # 600 parabola steps); AlexNet's 7 sites a step.  kmeans_assign: 2 ×
+    # 25 Lloyd steps of AlexNet's event; lut_matmul: the engine MLP's 2
+    # layers; codebook_matmul: (c)'s two forwards
+    want = {"act_quant": 2 * L * TRAIN_FULL["steps"]
+            + MLP_STEPS + 5 + MLP_ENGINE_STEPS + 1 + 3 * PARABOLA_STEPS
+            + 7 * ALEX_STEPS,
+            "kmeans_assign": 50, "lut_matmul": 2, "codebook_matmul": 2}
+    rec_check("[train] the driven path", launches, want)
+    t_path = time.time() - t0 - t_red
+    act_par = paper_act_parity(acts)
+    del acts
+    log(f"[train] act_quant on the driven path's own inputs: "
+        f"{act_par['launches']} launches against the plain version: "
+        f"bit-equal but for {act_par['ties']} level-boundary ties, relu6 "
+        f"bit-equal; max abs err {act_par['max_abs_err']:.3e}")
+    stats = {"reduced": red, "act_quant_vs_plain": {
+                 k: act_par[k] for k in ("launches", "ties", "max_abs_err")},
+             "codebook_grad": train_codebook_checks(cm_cases),
+             "full": train_full_checks(full, smi),
+             "mlp": train_paper_mlp_checks(mlp, smi),
+             "alexnet": train_alexnet_checks(alex, smi),
+             "reduced_s": t_red, "full_s": t_full, "path_s": t_path}
+    del full, mlp, alex, cm_cases
+    torch.cuda.empty_cache()
+    stats["phase_s"] = time.time() - t0
+    log(f"[train] {smi}: phase {stats['phase_s']:.1f}s (reduced "
+        f"{t_red:.1f}s, driven path {t_path:.1f}s of which full width "
+        f"{t_full:.1f}s); launches {launches}")
+    return stats, launches
+
+
 def unfused_step(dev, e, L) -> dict:
     """The working-point codebook decode step (4 slots at 40) with the
     gated launch, and with the FFN as the port ran it before that launch
@@ -6052,6 +6758,8 @@ def main() -> int:
     r_stats, r_launches = recurrent_path(dev, smi)
     torch.cuda.empty_cache()
     pa_stats, pa_launches = paper_path(dev, smi, peaks)
+    torch.cuda.empty_cache()
+    tr_stats, tr_launches = train_path(dev, smi)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -6073,7 +6781,8 @@ def main() -> int:
                    "launch": l_launches.get(k, 0),
                    "moe": m_launches.get(k, 0),
                    "recurrent": r_launches.get(k, 0),
-                   "paper": pa_launches.get(k, 0)}
+                   "paper": pa_launches.get(k, 0),
+                   "train": tr_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -6142,6 +6851,7 @@ def main() -> int:
     log("[done] moe path " + json.dumps(m_stats))
     log("[done] recurrent path " + json.dumps(r_stats))
     log("[done] paper path " + json.dumps(pa_stats))
+    log("[done] train path " + json.dumps(tr_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

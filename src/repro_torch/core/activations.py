@@ -9,9 +9,12 @@ boundaries sit at ``f⁻¹`` of the midpoints of adjacent levels.
 ``act_apply`` and ``act_index`` run the ``act_quant`` kernel in its
 ``act_apply`` form (``kernels/act_quant.py``) for a CUDA tensor and its
 plain version for a CPU tensor: op by op in x's dtype, as the reference
-computes them.  Their backward, the derivative of the underlying function
-(``y + stop_gradient(q(y) − y)`` in the reference), comes with the training
-slice: until then ``act_apply`` refuses an input that requires grad.
+computes them.  Backward: the quantization is ignored and the derivative
+of the *underlying* function is used (paper §2.1), what JAX takes through
+the reference's ``y + stop_gradient(q(y) − y)``, half of it at the corners
+of ``clip`` and ``maximum`` as JAX's rules give it
+(``ops.act_apply_quant``).  ``act_index`` has no gradient, and refuses an
+input that requires one.
 """
 
 from __future__ import annotations
@@ -109,24 +112,22 @@ def act_levels(cfg: ActQuantConfig) -> torch.Tensor:
 
 def act_apply(cfg: ActQuantConfig, x: torch.Tensor,
               mul: torch.Tensor | None = None) -> torch.Tensor:
-    """Quantized activation, forward only (see the module docstring).
-    ``mul`` (x's shape and dtype): return the activation times ``mul`` in
-    x's dtype, in the same kernel launch (a SwiGLU's gate times its up
-    product)."""
+    """Quantized activation with the underlying function's derivative as
+    its gradient (see the module docstring).  ``mul`` (x's shape and
+    dtype): return the activation times ``mul`` in x's dtype, in the same
+    kernel launch (a SwiGLU's gate times its up product); its gradient is
+    ``g·q(f(x))``."""
     if not cfg.enabled:
         y = _base_fn(cfg.kind)(x)
         return y if mul is None else y * mul
-    if x.requires_grad:
-        raise NotImplementedError(
-            "act_apply's straight-through gradient is not ported yet; call "
-            "it without grad (torch.no_grad) or use ops.act_quant")
     return ops.act_apply_quant(x, cfg.kind, cfg.levels, mul=mul)[0]
 
 
 def act_index(cfg: ActQuantConfig, x: torch.Tensor) -> torch.Tensor:
     """Level index j in [0, |A|) of the quantized activation (int32): the
     row index fed to the next layer's multiplication table in the §4
-    engine (paper Fig. 8/9)."""
+    engine (paper Fig. 8/9).  No gradient: an input that requires one is
+    refused."""
     if not cfg.enabled:
         raise ValueError("continuous activation has no level index")
     return ops.act_apply_quant(x, cfg.kind, cfg.levels, with_index=True)[1]
@@ -158,7 +159,15 @@ def quantize_input(x: torch.Tensor, levels: int, lo: float,
                    hi: float) -> torch.Tensor:
     """Quantize network inputs to ``levels`` uniform values in [lo, hi]
     (the paper's Table-1 "quantized inputs"), op by op in x's dtype as the
-    reference computes ``x + stop_gradient(q − x)``; forward only."""
+    reference computes ``x + stop_gradient(q − x)``, whose gradient is the
+    identity (straight through)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _StraightThrough.apply(x, levels, lo, hi)
+    return _quantized_input(x, levels, lo, hi)
+
+
+def _quantized_input(x: torch.Tensor, levels: int, lo: float,
+                     hi: float) -> torch.Tensor:
     step = (hi - lo) / (levels - 1)
     dt, f32 = x.dtype, torch.float32
 
@@ -173,3 +182,15 @@ def quantize_input(x: torch.Tensor, levels: int, lo: float,
     q = r(torch.round(r(torch.div(r(xf - t(lo)), t(step)))))
     q = r(r(torch.clamp(q, 0.0, float(t(levels - 1))) * t(step)) + t(lo))
     return r(xf + r(q - xf)).to(dt)
+
+
+class _StraightThrough(torch.autograd.Function):
+    """``quantize_input``'s value; x's gradient is g unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, levels, lo, hi):
+        return _quantized_input(x, levels, lo, hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None

@@ -5,8 +5,8 @@
 
 ``kmeans1d`` runs each Lloyd step through ``ops.kmeans_stats`` (the
 ``kmeans_assign`` kernel's sums-only form for CUDA tensors).
-``subsample``, whose ``jax.random`` draw cannot be reproduced, comes with
-the training slice.
+``subsample`` draws from a ``torch.Generator``: its draws cannot be the
+reference's ``jax.random`` ones, only their number and kind.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from repro_torch.kernels import ops
 
 __all__ = ["kmeans1d", "laplacian_l1_levels", "laplacian_l1_centers",
            "uniform_centers", "assign_to_centers", "quantize_to_centers",
-           "quantile_f32", "quantization_mse"]
+           "quantile_f32", "quantization_mse", "subsample"]
 
 _MSE_CHUNK = 1 << 26          # values per chunk of the final MSE pass
 
@@ -42,6 +42,18 @@ def quantize_to_centers(values: torch.Tensor,
     """Replace each value with its assigned (sorted) center's value."""
     idx = assign_to_centers(values, centers)
     return centers[idx.long()].to(values.dtype)
+
+
+def subsample(values: torch.Tensor, fraction: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Random subsample (paper §3.3: 2 % of AlexNet's weights for k-means):
+    m = max(1, int(n·fraction)) draws with replacement, as the reference
+    draws them, from ``generator`` (on values' device)."""
+    n = values.shape[0]
+    m = max(1, int(n * fraction))
+    idx = torch.randint(0, n, (m,), generator=generator,
+                        device=values.device)
+    return values[idx]
 
 
 def laplacian_l1_levels(n_centers: int) -> np.ndarray:

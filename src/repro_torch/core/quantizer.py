@@ -5,10 +5,11 @@ the index form of a clustered network (``codebook_indices``).
 Scopes: ``global`` (one codebook for the whole network, the paper's
 default) and ``per_layer`` (one codebook per parameter tensor, of
 ``min(|W|, size)`` centers).  Methods: ``kmeans`` (``clustering.kmeans1d``),
-``laplacian_l1`` and ``uniform``; none needs a random key, so
-``cluster_params`` takes none.  The reference's key feeds only k-means'
-``subsample``, which comes with the training slice: a config that would
-subsample raises.
+``laplacian_l1`` and ``uniform``.  The reference's random key feeds only
+k-means' ``subsample`` (paper §3.3: 2 % of AlexNet's weights); the port
+takes a ``torch.Generator`` in its place (``fold_in`` derives one per
+tensor, or per step, as ``jax.random.fold_in`` does a key).  Its draws are
+not the reference's: no torch generator reproduces ``jax.random``'s bits.
 """
 
 from __future__ import annotations
@@ -16,13 +17,14 @@ from __future__ import annotations
 import dataclasses
 import re
 
+import numpy as np
 import torch
 
 from repro_torch.core import clustering
 
 __all__ = ["WeightQuantConfig", "QuantizerState", "init_state",
            "cluster_params", "codebook_indices", "num_weights_at",
-           "param_filter"]
+           "param_filter", "fold_in"]
 
 _SUBSAMPLE_ABOVE = 1_000_000       # the reference subsamples larger tensors
 
@@ -116,26 +118,43 @@ def _rebuild(params, new_leaves, prefix=()):
             for k, v in params.items()}
 
 
-def _centers(values: torch.Tensor, cfg: WeightQuantConfig,
-             k: int) -> torch.Tensor:
+def fold_in(generator: torch.Generator, data: int) -> torch.Generator:
+    """A new generator on ``generator``'s device, seeded from its seed and
+    ``data``: the port's ``jax.random.fold_in`` (the same pair, the same
+    draws; ``generator``'s own state is not advanced)."""
+    seed = np.random.SeedSequence(
+        [generator.initial_seed() & (2**64 - 1), int(data) & (2**64 - 1)]
+    ).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=generator.device).manual_seed(
+        int(seed) & (2**63 - 1))
+
+
+def _centers(values: torch.Tensor, cfg: WeightQuantConfig, k: int,
+             generator: torch.Generator | None) -> torch.Tensor:
     if cfg.method == "laplacian_l1":
         return clustering.laplacian_l1_centers(values, k)
     if cfg.method == "uniform":
         return clustering.uniform_centers(values, k)
-    if cfg.subsample < 1.0 and values.numel() > _SUBSAMPLE_ABOVE:
-        raise NotImplementedError(
-            "k-means on a random subsample of the weights is not ported yet "
-            f"(subsample={cfg.subsample} over {values.numel()} values)")
-    return clustering.kmeans1d(values, k, iters=cfg.kmeans_iters)
+    v = values
+    if cfg.subsample < 1.0 and v.numel() > _SUBSAMPLE_ABOVE:
+        if generator is None:
+            raise ValueError("k-means on a subsample draws from a "
+                             "torch.Generator: pass cluster_params one")
+        v = clustering.subsample(v.reshape(-1), cfg.subsample, generator)
+    return clustering.kmeans1d(v, k, iters=cfg.kmeans_iters)
 
 
 def cluster_params(params, cfg: WeightQuantConfig, state: QuantizerState,
-                   step: int) -> tuple[dict, QuantizerState]:
+                   step: int, generator: torch.Generator | None = None
+                   ) -> tuple[dict, QuantizerState]:
     """One clustering event: snap every (included) weight to its centroid.
 
     Pure function over a nested dict of tensors; callers decide the cadence
     (``cfg.due(step)``).  Codebooks are keyed ``''`` (global) or by the
     tensor's path, ``'blocks/mlp/w1/w'`` (per_layer), as the reference's.
+    ``generator`` (on the params' device) feeds k-means' subsample, folded
+    with each tensor's position for ``per_layer``; the other methods do
+    not draw.
     """
     if not cfg.enabled:
         return params, state
@@ -147,18 +166,19 @@ def cluster_params(params, cfg: WeightQuantConfig, state: QuantizerState,
                     for p, v in leaves if keep("/".join(p))]
         flat = torch.cat(included)
         del included
-        centers = _centers(flat, cfg, k)
+        centers = _centers(flat, cfg, k, generator)
         del flat
         new = {p: clustering.quantize_to_centers(v, centers)
                if keep("/".join(p)) else v for p, v in leaves}
         books = {"": centers}
     else:
         books, new = {}, {}
-        for p, v in leaves:
+        for i, (p, v) in enumerate(leaves):
             path = "/".join(p)
             if keep(path) and v.numel() >= 2:
+                gen = None if generator is None else fold_in(generator, i)
                 books[path] = _centers(v.reshape(-1).to(torch.float32), cfg,
-                                       min(k, v.numel()))
+                                       min(k, v.numel()), gen)
                 new[p] = clustering.quantize_to_centers(v, books[path])
             else:
                 new[p] = v

@@ -1,0 +1,65 @@
+"""The training step, the port's copy of ``make_train_step`` from
+``repro/launch/steps.py``, on one device: the reference's mesh, its
+sharding specs and its abstract-shape helpers wait for tensor parallelism.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models.model_zoo import Model
+from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.tree import leaves, tree_map, unflatten
+
+__all__ = ["make_train_step", "value_and_grad"]
+
+_ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def value_and_grad(loss_fn, params, *args):
+    """((loss, aux), grads): ``loss_fn(params, *args)`` returns (scalar
+    loss, aux); its gradient is taken on detached copies of the params
+    that require grad (the params themselves never do), a tree of their
+    structure.  ``jax.value_and_grad(..., has_aux=True)``'s counterpart."""
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(p, *args)
+    grads = torch.autograd.grad(loss, list(leaves(p)))
+    return (loss.detach(), aux), unflatten(p, grads)
+
+
+def make_train_step(model: Model, ocfg: OptConfig):
+    """step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``model.loss``'s gradient (``value_and_grad``), then ``apply_updates``
+    returns new trees.  With ``cfg.microbatches`` N > 1 the batch is
+    processed in N sequential slices of its first dim, bounding activation
+    memory at 1/N while keeping the same update: the grads are averaged
+    in the moments dtype, the metrics are the slices' mean."""
+    cfg = model.cfg
+    nmb = max(1, cfg.microbatches)
+
+    def grad_fn(params, batch):
+        (_, metrics), grads = value_and_grad(model.loss, params, batch)
+        return metrics, grads
+
+    def step(params, opt_state, batch):
+        if nmb == 1:
+            metrics, grads = grad_fn(params, batch)
+        else:
+            acc_dt = _ACC_DTYPES[cfg.moments_dtype]
+            grads, ms = None, []
+            for i in range(nmb):
+                mb = {k: x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
+                      for k, x in batch.items()}
+                m_i, g = grad_fn(params, mb)
+                div = torch.full((), nmb, dtype=acc_dt,
+                                 device=next(leaves(params)).device)
+                g = tree_map(lambda b: b.to(acc_dt) / div, g)
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                ms.append(m_i)
+            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]), dim=0)
+                       for k in ms[0]}
+        params, opt_state, om = apply_updates(params, grads, opt_state, ocfg)
+        return params, opt_state, {**metrics, **om}
+
+    return step

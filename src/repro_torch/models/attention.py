@@ -103,15 +103,44 @@ def decode_attention(q, k, v, kv_len, exclude=None, extra_kv=None):
 
 def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
                     window: int = 0, kv_block: int = 1024):
-    """Online-softmax attention over KV blocks (forward only).
+    """Online-softmax attention over KV blocks.
 
     q: (B, Lq, KV, G, hd); k, v: (B, Lk, KV, hd).  Scores and the P·V
     product accumulate in f32; P is rounded to v's dtype first, as the
-    reference does.  Returns (B, Lq, KV, G, hd) in q.dtype.
+    reference does.  Returns (B, Lq, KV, G, hd) in q.dtype.  Under
+    autograd the backward is the reference's flash backward
+    (``_FlashAttention``): only (q, k, v, out, m, denom) are kept, and each
+    block's probabilities are recomputed.
     """
-    B, Lq, KV, G, hd = q.shape
-    Lk = k.shape[1]
+    args = (causal, q_offset, window, kv_block)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, *args)
+    return _flash_forward(q, k, v, *args)[0]
+
+
+def _kv_blocks(Lk: int, kv_block: int):
+    """(start, stop) of each KV block; a ragged last block is simply
+    shorter: the reference's padded keys are masked and add exp(-inf) = 0
+    to every sum (and their gradients are cut off)."""
     blk = min(kv_block, Lk)
+    return [(a, min(a + blk, Lk)) for a in range(0, Lk, blk)]
+
+
+def _block_mask(qpos, start: int, stop: int, causal: bool, window: int):
+    kpos = torch.arange(start, stop, device=qpos.device)
+    mask = torch.ones((qpos.shape[0], stop - start), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def _flash_forward(q, k, v, causal, q_offset, window, kv_block):
+    """(out, m, denom): the output and the running max and denominator of
+    each query row, (B, KV, G, Lq) f32."""
+    B, Lq, KV, G, hd = q.shape
     scale = hd ** -0.5
     qpos = q_offset + torch.arange(Lq, device=q.device)
     qf = q.to(torch.float32)
@@ -119,20 +148,12 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     m = torch.full((B, KV, G, Lq), NEG_INF, dtype=torch.float32,
                    device=q.device)
     denom = torch.zeros((B, KV, G, Lq), dtype=torch.float32, device=q.device)
-    for start in range(0, Lk, blk):
-        # a ragged last block is simply shorter: the reference's padded
-        # keys are masked and add exp(-inf) = 0 to every sum
-        kblk, vblk = k[:, start:start + blk], v[:, start:start + blk]
-        kpos = start + torch.arange(kblk.shape[1], device=q.device)
+    for start, stop in _kv_blocks(k.shape[1], kv_block):
+        kblk, vblk = k[:, start:stop], v[:, start:stop]
         s = torch.einsum("bqkgd,bckd->bkgqc", qf,
                          kblk.to(torch.float32)) * scale
-        mask = torch.ones((Lq, kpos.shape[0]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask = mask & (kpos[None, :] <= qpos[:, None])
-        if window:
-            mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_block_mask(qpos, start, stop, causal, window), s,
+                        NEG_INF)
         m_new = torch.maximum(m, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -143,7 +164,58 @@ def flash_attention(q, k, v, *, causal: bool, q_offset: int = 0,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(denom[..., None], min=1e-30)
-    return out.permute(0, 3, 1, 2, 4).to(q.dtype)       # (B, Lq, KV, G, hd)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype), m, denom
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_flash_cvjp``: forward as ``_flash_forward``;
+    backward ``_flash_cvjp_bwd`` (``repro/models/attention.py``), block by
+    block: P re-derived from the saved (m, denom), ``dV = Pᵀ·dOut`` (P in
+    dOut's dtype), ``dS = P ⊙ (dOut·Vᵀ − δ)`` with ``δ = Σ_d dOut·Out``,
+    ``dK = dSᵀ·Q·scale`` and ``dQ += dS·K·scale`` (dS in q's dtype), each
+    product accumulated in f32.  Plain PyTorch, as the reference's is jnp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, window, kv_block):
+        out, m, denom = _flash_forward(q, k, v, causal, q_offset, window,
+                                       kv_block)
+        ctx.save_for_backward(q, k, v, out, m, denom)
+        ctx.args = (causal, q_offset, window, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, m, denom = ctx.saved_tensors
+        causal, q_offset, window, kv_block = ctx.args
+        f32 = torch.float32
+        Lq, hd = q.shape[1], q.shape[-1]
+        scale = hd ** -0.5
+        gT = g.permute(0, 2, 3, 1, 4).to(f32)                # (B,KV,G,Lq,hd)
+        delta = torch.einsum("bkgqd,bkgqd->bkgq", gT,
+                             out.permute(0, 2, 3, 1, 4).to(f32))
+        denom = torch.clamp(denom, min=1e-30)
+        m = torch.where(m <= NEG_INF / 2, 0.0, m)  # masked rows: p stays 0
+        qpos = q_offset + torch.arange(Lq, device=q.device)
+        qf = q.to(f32)
+        dq = torch.zeros(q.shape, dtype=f32, device=q.device)
+        dks, dvs = [], []
+        for start, stop in _kv_blocks(k.shape[1], kv_block):
+            kblk = k[:, start:stop].to(f32)
+            vblk = v[:, start:stop].to(f32)
+            s = torch.einsum("bqkgd,bckd->bkgqc", qf, kblk) * scale
+            s = torch.where(_block_mask(qpos, start, stop, causal, window),
+                            s, NEG_INF)
+            p = torch.exp(s - m[..., None]) / denom[..., None]
+            pc = p.to(g.dtype).to(f32)
+            dvs.append(torch.einsum("bkgqc,bkgqd->bckd", pc, gT))
+            ds = p * (torch.einsum("bkgqd,bckd->bkgqc", gT, vblk)
+                      - delta[..., None])
+            dsc = ds.to(q.dtype).to(f32)
+            dks.append(torch.einsum("bkgqc,bqkgd->bckd", dsc, qf) * scale)
+            dq = dq + torch.einsum("bkgqc,bckd->bqkgd", dsc, kblk) * scale
+        dk, dv = torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
 
 
 # --- projections and the two serving forms -----------------------------------

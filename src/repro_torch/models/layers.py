@@ -1,5 +1,7 @@
 """Shared layers: quant-aware dense, norms, embeddings, SwiGLU (the port's
-copy of the serving parts of ``repro/models/layers.py``)."""
+copy of the decoder parts of ``repro/models/layers.py``).  All run under
+autograd but the gated codebook launch (``ops.codebook_swiglu``, which has
+no gradient in the reference either) and the lut backend."""
 
 from __future__ import annotations
 

@@ -2,6 +2,7 @@
 ``repro/models/model_zoo.py``).
 
     model.init(gen, device)                      -> params
+    model.loss(params, batch, backend)           -> (loss, metrics)
     model.forward(params, batch, backend)        -> logits at every position
     model.prefill(params, batch, backend)        -> (logits, cache)
     model.decode(params, tokens, cache, backend) -> (logits, cache)
@@ -33,6 +34,11 @@ class Model:
 
     def init(self, gen: torch.Generator, device=None):
         return T.init_params(gen, self.cfg, device)
+
+    def loss(self, params, batch, backend=dispatch.DENSE):
+        """Next-token CE and its metrics (dense family; the others raise
+        ``NotImplementedError``)."""
+        return T.loss_fn(params, self.cfg, batch, backend)
 
     def forward(self, params, batch, backend=dispatch.DENSE):
         """The trunk over whole prompts, no cache: (B, L, V) f32 logits."""

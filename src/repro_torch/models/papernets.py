@@ -1,5 +1,5 @@
 """The paper's own experiment networks (§3): MLP, auto-encoders, AlexNet-ish,
-the forward half of ``repro/models/papernets.py``.
+the port's copy of ``repro/models/papernets.py``.
 
 The parameter trees are the reference's: dense weights (d_in, d_out) with a
 bias, conv kernels HWIO, activations NHWC, so ``bridge.from_jax_params``
@@ -10,10 +10,11 @@ carries a reference tree across unchanged.  Every ``dense`` takes a
 run as NCHW views of the NHWC tensors (``F.conv2d``, plain PyTorch, as the
 reference leaves them to XLA).
 
-Forward only: at ``act_levels > 0`` ``ffn_act`` refuses inputs that require
-grad (call under ``torch.no_grad``).  Dropout takes a ``torch.Generator``
-in place of the reference's ``jax.random`` key, whose bits no torch
-generator reproduces.
+Every net trains under autograd: at ``act_levels > 0`` the activations
+pass the underlying function's derivative (``core.activations``), as the
+paper trains them (§2.1).  Dropout takes a ``torch.Generator`` in place of
+the reference's ``jax.random`` key, whose bits no torch generator
+reproduces.
 """
 
 from __future__ import annotations

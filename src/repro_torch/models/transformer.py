@@ -1,9 +1,11 @@
 """Decoder LMs of the dense, mixture-of-experts, RWKV-6 and Mamba2/Zamba2
-hybrid families (the port's copy of the inference parts of
-``repro/models/transformer.py``): init, the trunk ``forward``, prefill and
-the decode step for every family; the speculative verify step and the
-paged KV cache's chunked prefill, decode step and verify step for the
-KV-cache families (dense, moe).  A ``moe`` model's blocks carry ``'moe'``
+hybrid families (the port's copy of ``repro/models/transformer.py``):
+init, the trunk ``forward``, prefill and the decode step for every family;
+the training loss ``loss_fn`` for the dense family (``forward`` runs under
+autograd there, each block checkpointed when ``cfg.remat`` is set, as the
+reference's ``jax.checkpoint``; the other families refuse training); the
+speculative verify step and the paged KV cache's chunked prefill, decode
+step and verify step for the KV-cache families (dense, moe).  A ``moe`` model's blocks carry ``'moe'``
 (``models/moe.py``) where a dense model's carry ``'mlp'``; every FFN site
 goes through ``_ffn``, which takes the routed FFN when the layer has one,
 as the reference's ``_dense_block`` does.
@@ -38,6 +40,7 @@ place.  The tied logits stay outside every frame, as in the reference.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch, probes
@@ -46,8 +49,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.models import ssm as S
+from repro_torch.tree import leaves
 
-__all__ = ["FAMILIES", "init_params", "forward", "prefill", "decode_step",
+__all__ = ["FAMILIES", "init_params", "forward", "loss_fn", "prefill",
+           "decode_step",
            "verify_step", "init_cache", "attn_cfg", "moe_cfg", "ssm_cfg",
            "rwkv_cfg", "init_paged_cache", "prefill_chunk"]
 
@@ -152,6 +157,34 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _training(params) -> bool:
+    """Autograd records this forward: grad mode is on and a parameter
+    requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in leaves(params))
+
+
+def _unbind(tree, n: int) -> list:
+    """The ``n`` layers of a stacked parameter dict, as ``_layer`` gives
+    them, by one ``torch.unbind`` a leaf: its backward stacks the layers'
+    gradients once (a ``v[i]`` view would add a full-size zero-filled
+    gradient a layer)."""
+    out = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else torch.unbind(v, 0)
+        for i in range(n):
+            out[i][k] = parts[i]
+    return out
+
+
+def _kv_block(p_l, x, acfg, cfg, backend):
+    """One pre-norm block of the KV-cache families over whole prompts."""
+    a, _ = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+                        backend)
+    x = x + a
+    return x + _ffn(p_l, x, cfg, backend)
+
+
 def _ffn(p_l, h, cfg, backend):
     """The layer's FFN on the residual ``h``: the routed experts when the
     layer has them (their products are plain, as the reference's; the
@@ -234,18 +267,29 @@ def _rwkv_trunk(params, cfg, x, backend):
 
 def forward(params, cfg, batch, backend=dispatch.DENSE):
     """The trunk over whole prompts, no cache: logits (B, L, padded_vocab)
-    f32 at every position.  batch: {'tokens': (B, L)}.  Inference only (no
-    autograd)."""
+    f32 at every position.  batch: {'tokens': (B, L)}.  Under autograd
+    (``_training``) for the dense family only: its layers are unbound once
+    and, with ``cfg.remat``, each block runs under
+    ``torch.utils.checkpoint`` (recomputed in the backward)."""
+    train = _training(params)
+    if train and cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet: the "
+            "port trains the dense family")
     x = L.embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
     blocks = params["blocks"]
     if cfg.family in _KV_FAMILIES:
         acfg = attn_cfg(cfg)
+        per_layer = _unbind(blocks, cfg.n_layers) if train else None
         for i in range(cfg.n_layers):
-            p_l = _layer(blocks, i)
-            a, _ = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
-                                backend)
-            x = x + a
-            x = x + _ffn(p_l, x, cfg, backend)
+            if not train:
+                x = _kv_block(_layer(blocks, i), x, acfg, cfg, backend)
+            elif cfg.remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    _kv_block, per_layer[i], x, acfg, cfg, backend,
+                    use_reentrant=False)
+            else:
+                x = _kv_block(per_layer[i], x, acfg, cfg, backend)
     elif cfg.family == "ssm_rwkv":
         x, _ = _rwkv_trunk(params, cfg, x, backend)
     elif cfg.family == "hybrid":
@@ -258,6 +302,28 @@ def forward(params, cfg, batch, backend=dispatch.DENSE):
     else:
         raise ValueError(cfg.family)
     return _logits(params, cfg, L.rms_norm(params["final_norm"], x), backend)
+
+
+def loss_fn(params, cfg, batch, backend=dispatch.DENSE):
+    """Next-token CE (teacher forcing) in f32, mean over real (non-pad)
+    targets (``batch['mask']``, optional): (loss, {'loss', 'ntokens'}).
+    Trains the dense family; the others raise ``NotImplementedError``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported yet: the "
+            "port trains the dense family")
+    logits = forward(params, cfg, batch, backend)
+    targets = batch["tokens"][:, 1:].long()
+    lg = logits[:, :-1]
+    lse = torch.logsumexp(lg, dim=-1)
+    true = torch.take_along_dim(lg, targets[..., None], dim=-1)[..., 0]
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, dtype=torch.float32,
+                       device=targets.device)
+            if mask is None else mask[:, 1:].to(torch.float32))
+    loss = torch.sum((lse - true) * mask) / torch.clamp(torch.sum(mask),
+                                                        min=1.0)
+    return loss, {"loss": loss.detach(), "ntokens": torch.sum(mask)}
 
 
 def _recurrent_init_cache(cfg, batch, max_len, dtype, dev):

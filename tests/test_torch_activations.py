@@ -204,11 +204,14 @@ def test_config_checks_and_continuous_path():
 
 
 def test_act_apply_refuses_grad_until_the_training_slice():
+    """Since the training slice act_apply takes grad through
+    (``tests/test_torch_grads.py``); what is still refused is a call for
+    the level index, which has no gradient: ``act_index``."""
     x = torch.randn(8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="gradient"):
-        TA.act_apply(TA.ActQuantConfig("relu6", 32), x)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        TA.act_index(TA.ActQuantConfig("relu6", 32), x)
     with torch.no_grad():
-        TA.act_apply(TA.ActQuantConfig("relu6", 32), x * 1.0)
+        TA.act_index(TA.ActQuantConfig("relu6", 32), x * 1.0)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -432,10 +432,25 @@ def test_to_codebook_params_with_reference_books(reduced, scope):
         assert len({want[p].tobytes() for p in books}) == len(books)
 
 
-def test_subsample_waits_for_the_training_slice():
+def test_subsample_waits_for_the_training_slice(monkeypatch):
+    """Since the training slice k-means subsamples (paper §3.3): a tensor
+    above the reference's 10⁶ values is clustered from m = int(n·0.02)
+    draws from the given generator, a smaller one from all its values,
+    and a subsample without a generator is refused."""
     wq = TQ.WeightQuantConfig(num_weights=16, method="kmeans",
                               subsample=0.02)
     small = {"w": torch.randn(64, 64)}
     TQ.cluster_params(small, wq, TQ.init_state(wq), 1000)    # not subsampled
-    with pytest.raises(NotImplementedError, match="subsample"):
-        TQ._centers(torch.randn(TQ._SUBSAMPLE_ABOVE + 1), wq, 16)
+    with pytest.raises(ValueError, match="Generator"):
+        TQ._centers(torch.randn(TQ._SUBSAMPLE_ABOVE + 1), wq, 16, None)
+    big = torch.randn(TQ._SUBSAMPLE_ABOVE + 1)
+    drawn = []
+    route = TC.kmeans1d
+
+    def spy(values, k, iters=50):
+        drawn.append(values)
+        return route(values, k, iters=iters)
+    monkeypatch.setattr(TC, "kmeans1d", spy)
+    centers = TQ._centers(big, wq, 16, torch.Generator().manual_seed(3))
+    assert drawn[0].shape == (int(big.numel() * 0.02),)
+    assert centers.shape == (16,)

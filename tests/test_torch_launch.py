@@ -371,4 +371,5 @@ def test_only_launch_reads_the_wall_clock():
                 with open(path) as f:
                     if pat.search(f.read()):
                         readers.add(os.path.relpath(path, pkg))
-    assert readers == {os.path.join("launch", "serve.py")}
+    assert readers == {os.path.join("launch", "serve.py"),
+                       os.path.join("launch", "train.py")}
