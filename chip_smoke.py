@@ -199,6 +199,26 @@ Phases, each of which raises on failure (the script then exits non-zero):
    forward's logits; codebook within 1 % of dense in f32 at act_levels 0;
    prefill/forward ms, decode step wall and device ms,
    idle share, tok/s and peak memory;
+   [families], the encoder-decoder (whisper-small: a non-causal encoder
+   over frame embeddings, decoder blocks with cross-attention) and the
+   M-RoPE vision-language family (qwen2-vl-7b: embeddings in, (3, B, L)
+   positions) through the model handle, which ServeEngine does not serve:
+   the reduced whisper-small and qwen2-vl-7b (|W| 256, act_levels 32)
+   through dense, codebook and lut, card tokens equal to the CPU's and
+   logits within 1e-3 (lut parted only at a snap tie); whisper-small at
+   full width and depth (12 + 12 layers, enc_len 1500), bf16, act_levels
+   32, |W| 1000 with ``exclude="enc_pos"`` (the compressed position table
+   raises ``KeyError``, as the reference's does), 4 rows of 1500 seeded
+   frames and a 32-token prompt, and qwen2-vl-7b at full width, 4 of 28
+   layers, 4 × 128 seeded embeddings with M-RoPE positions (8 text, an
+   8 × 12 grid, 24 text): on each backend the encoder's ms, prefill and
+   forward (last logits within 1e-3), 16 greedy decodes, launches of a
+   prefill, a forward and a decode step held exactly to the layer
+   structure, the decode step's wall and device ms, idle share, kernels
+   and tok/s, peak memory, memory_report's packed share; then each kernel
+   at each new shape of these paths (the encoder's 6000 rows, the
+   vocabulary-wide head, the vlm's gated FFN) held against its plain
+   version on the path's own inputs and timed beside its bound;
    [paper], the paper's §4 integer engine (``core/lut.py``,
    ``core/fixedpoint.py``) and its own nets (``models/papernets.py``, inputs
    from ``data/synthetic.py``): lut_matmul on the §4 table (33 × 1001
@@ -4594,20 +4614,20 @@ def recurrent_reduced(dev) -> list:
     return partings
 
 
-def rec_model(dev, name: str, n_layers: int, tag: str):
-    """``name`` at full width, ``n_layers`` of its layers, bf16, random
-    weights from a seeded generator, at act_levels 32, compressed as
-    ``launch/serve.py --compress`` does (laplacian_l1, |W| = N_BOOK,
-    global), and ``core/export.memory_report`` of its index form (packed
-    under a third of fp32): (model, config, index-form params, the norm
-    scales before clustering (``_norm_scales``), figures)."""
+def rec_model(dev, name: str, n_layers: int, tag: str, exclude: str = ""):
+    """``name`` at full width, ``n_layers`` of its (decoder) layers, bf16,
+    random weights from a seeded generator, at act_levels 32, compressed
+    as ``launch/serve.py --compress`` does (laplacian_l1, |W| = N_BOOK,
+    global; ``moe_compressed``, ``exclude`` kept out of clustering and the
+    index form), and ``core/export.memory_report`` of its index form
+    (packed under a third of fp32; the leaves kept float are not in it):
+    (model, config, index-form params, the norm scales before clustering
+    (``_norm_scales``), figures)."""
     import torch
     from repro_torch import configs
     from repro_torch.core.export import memory_report
-    from repro_torch.core.quantizer import (cluster_params, codebook_indices,
-                                            init_state)
+    from repro_torch.core.quantizer import codebook_indices, param_filter
     from repro_torch.models.model_zoo import build
-    from repro_torch.serving import to_codebook_params
     cfg = configs.get(name).replace(n_layers=n_layers, act_levels=ACT_LEVELS)
     model = build(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -4615,31 +4635,32 @@ def rec_model(dev, name: str, n_layers: int, tag: str):
         torch.Generator(device=dev).manual_seed(0), device=dev))
     n_params = sum(t.numel() for t in _leaves(params))
     norms = _norm_scales(params)
-    wq = cfg.quantized(n_weights=N_BOOK).wq
-    (pq, state), t_cl = timed(lambda: cluster_params(params, wq,
-                                                     init_state(wq),
-                                                     wq.interval))
+    (pq, cp, state, wq), t_cl = timed(lambda: moe_compressed(cfg, params,
+                                                             exclude))
+    keep = param_filter(wq)
+    n_kept = sum(t.numel() for p, t in _paths(params) if keep("/".join(p)))
     del params
-    cp = to_codebook_params(pq, wq, state)
     idx, _ = codebook_indices(pq, wq, state)
     del pq
     rep = memory_report(idx, wq.num_weights, ACT_LEVELS)
     del idx
-    if not (rep.n_params == n_params and rep.packed_bytes
+    if not (rep.n_params == n_kept and rep.packed_bytes
             < rep.fp32_bytes / 3):
         raise AssertionError(f"{tag} memory_report {rep.row()}: want "
-                             f"{n_params} params, packed under a third of "
+                             f"{n_kept} params, packed under a third of "
                              "fp32")
-    fig = {"params": n_params, "init_s": t_init, "cluster_s": t_cl,
-           "memory_row": rep.row(), "packed_bytes": rep.packed_bytes,
-           "fp32_bytes": rep.fp32_bytes,
+    fig = {"params": n_params, "clustered_params": n_kept, "init_s": t_init,
+           "cluster_s": t_cl, "memory_row": rep.row(),
+           "packed_bytes": rep.packed_bytes, "fp32_bytes": rep.fp32_bytes,
            "packed_share": rep.packed_bytes / rep.fp32_bytes,
            "build_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     log(f"{tag}: {n_layers} of {configs.get(name).n_layers} layers, "
         f"d={cfg.d_model}, d_ff={cfg.d_ff}, vocab {cfg.vocab}, "
-        f"{cfg.dtype}, act_levels {cfg.act_levels}: {n_params} params, init "
-        f"{t_init:.2f}s, cluster {t_cl:.2f}s; [memory] {rep.row()} (packed "
-        f"{fig['packed_share']:.3f} of fp32)")
+        f"{cfg.dtype}, act_levels {cfg.act_levels}: {n_params} params"
+        + (f" ({exclude!r}, {n_params - n_kept} of them, kept float)"
+           if exclude else "")
+        + f", init {t_init:.2f}s, compress {t_cl:.2f}s; [memory] "
+        f"{rep.row()} (packed {fig['packed_share']:.3f} of fp32)")
     return model, cfg, cp, norms, fig
 
 
@@ -4934,6 +4955,477 @@ def recurrent_path(dev, smi: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     log(f"[recurrent] {smi}: phase {stats['phase_s']:.1f}s (reduced against "
         f"the CPU {stats['reduced_s']:.1f}s); launches {launches}")
+    return stats, launches
+
+
+# --- [families]: the encoder-decoder (whisper) and the M-RoPE vlm ------------
+
+FAM_BATCH = 4                    # rows of a full-width run
+FAM_NEW = 16                     # greedy decodes a backend at full width
+FAM_PROMPT = 32                  # whisper's decoder prompt
+VLM_LAYERS = 4                   # qwen2-vl-7b's 28 layers, cut for memory
+VLM_LAYOUT = (8, (1, 8, 12), 24)  # text, a t × h × w patch grid, text
+VLM_PROMPT = 8 + 8 * 12 + 24     # 128 positions
+FAM_REDUCED_NEW = 8
+
+
+def mrope_positions(B: int, text: int, grid: tuple, tail: int, dev):
+    """(3, B, L) int32 M-RoPE positions as Qwen2-VL lays them out: ``text``
+    tokens at t = h = w = i, a t × h × w patch grid from the next position,
+    each stream stepping along its own axis, then ``tail`` text tokens from
+    one past the grid's largest position."""
+    import torch
+    rows = [(i, i, i) for i in range(text)]
+    rows += [(text + t, text + h, text + w) for t in range(grid[0])
+             for h in range(grid[1]) for w in range(grid[2])]
+    nxt = text + max(grid)
+    rows += [(nxt + j,) * 3 for j in range(tail)]
+    pos = torch.tensor(rows, dtype=torch.int32, device=dev).T      # (3, L)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+
+
+def fam_batch(cfg, B: int, S: int, seed: int, dev) -> dict:
+    """Seeded prompt inputs: tokens; whisper's (B, enc_len, d) frames (the
+    reference's stub of a conv front end); the vlm's (B, S, d) embeddings
+    and its M-RoPE positions (``VLM_LAYOUT`` at full width, 2 text tokens,
+    a 1 × 2 × 2 grid and text when reduced)."""
+    import torch
+    from repro_torch.models.transformer import _dtype
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = {"tokens": torch.randint(1, cfg.vocab, (B, S), generator=g,
+                                 device=dev)}
+    if cfg.family == "audio":
+        b["frames"] = torch.randn((B, cfg.enc_len, cfg.d_model), generator=g,
+                                  device=dev).to(_dtype(cfg))
+    if cfg.family == "vlm":
+        b["embeds"] = (torch.randn((B, S, cfg.d_model), generator=g,
+                                   device=dev) * 0.5).to(_dtype(cfg))
+        text, grid, tail = (VLM_LAYOUT if S == VLM_PROMPT
+                            else (2, (1, 2, 2), S - 6))
+        b["positions"] = mrope_positions(B, text, grid, tail, dev)
+    return b
+
+
+def fam_grow(cache: dict, n: int) -> dict:
+    """The prefill's cache with ``n`` free rows after the prompt's in its
+    K/V planes, as a cache of ``max_len`` holds them (a prefill's planes
+    end at the prompt)."""
+    import torch
+    return {**cache, "kv": {k: torch.cat(
+        [v, v.new_zeros(v.shape[:2] + (n,) + v.shape[3:])], dim=2)
+        for k, v in cache["kv"].items()}}
+
+
+def fam_greedy(model, params, bk, batch: dict, n_new: int):
+    """Prefill, then ``n_new`` greedy decodes on the cache grown to hold
+    them: (the (B, n_new) ids, [the prefill's and every decode's logits]),
+    on the host."""
+    import torch
+    logits, cache = model.prefill(params, batch, bk)
+    cache = fam_grow(cache, n_new)
+    ids, seen = [], [logits.float().cpu()]
+    for _ in range(n_new):
+        nxt = torch.argmax(logits[:, -1], dim=-1)
+        ids.append(nxt)
+        logits, cache = model.decode(params, nxt[:, None], cache, bk)
+        seen.append(logits.float().cpu())
+    return torch.stack(ids, dim=1).cpu(), seen
+
+
+def families_reduced(dev) -> list:
+    """The reduced whisper-small (2 + 2 layers, enc_len 16) and
+    qwen2-vl-7b (2 layers, sections (4, 6, 6)), f32, act_levels 32,
+    compressed on the CPU at |W| 256 (laplacian_l1, global), through
+    dense, codebook and lut: a 2 × 8 prompt by prefill and 8 greedy
+    decodes, card against CPU: tokens equal and every logit within 1e-3.
+    lut alone may part, where ``first_parting`` finds a half-way tie of its
+    activation snap first, as in [moe].  Returns the partings."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+    partings, worst = [], 0.0
+    for name in ("whisper-small", "qwen2-vl-7b"):
+        cfg = configs.get(name).reduced().replace(act_levels=ACT_LEVELS)
+        model = build(cfg)
+        params = model.init(torch.Generator().manual_seed(0), device="cpu")
+        wq = cfg.quantized(n_weights=256).wq
+        pq, state = cluster_params(params, wq, init_state(wq), wq.interval)
+        cp = to_codebook_params(pq, wq, state)
+        cp_dev = _to(cp, dev)
+        batch = fam_batch(cfg, 2, 8, 3, "cpu")
+        for be in BACKENDS:
+            run = {d: (lambda d=d, p=p: fam_greedy(
+                model, *rec_backend(p, be), _to(batch, d), FAM_REDUCED_NEW))
+                   for d, p in (("cpu", cp), (dev, cp_dev))}
+            (want, wl), (got, gl) = run["cpu"](), run[dev]()
+            gap = max(float((a - b).abs().max()) for a, b in zip(gl, wl))
+            if torch.equal(got, want) and gap <= 1e-3:
+                worst = max(worst, gap)
+                continue
+            tag = f"[families] reduced {name} {be}"
+            if be != "lut":
+                raise AssertionError(f"{tag}: card tokens {got.tolist()} "
+                                     f"(CPU {want.tolist()}), logits {gap} "
+                                     "apart")
+            part = first_parting(*(moe_decisions(run[d])
+                                   for d in ("cpu", dev)))
+            partings.append(f"{name} lut")
+            log(f"{tag}: card parts from the CPU (logits {gap:.2e}); the "
+                f"first decision the card takes otherwise is a tie: {part}")
+    log("[families] reduced whisper-small and qwen2-vl-7b, |W| 256, "
+        "act_levels 32: dense/codebook/lut greedy tokens on the card equal "
+        f"the CPU path's, every logit within {worst:.2e} (limit 1e-3)"
+        + (f", but where a lut snap tie parts them ({', '.join(partings)})"
+           if partings else ""))
+    return partings
+
+
+def fam_launches(cfg, be: str, what: str) -> dict:
+    """Kernel launches of one call at act_levels > 0, from the layer
+    structure.  whisper: an encoder layer's wq, wk, wv, wo, w1, w2 and one
+    act_quant (relu6 for gelu, no multiplier); a decoder layer's
+    self-attention (4), cross-attention (wq, wk and wv over the memory, wo)
+    and MLP (2), and one act_quant; the tied logits plain.  A prefill runs
+    the encoder and the decoder, a decode step the decoder.  qwen2-vl: a
+    layer's wq, wk, wv, wo, w2 and its w1/w3 as one gated launch on
+    codebook, else two matmuls and one act_quant with its multiplier; the
+    untied head one matmul."""
+    L = cfg.n_layers
+    if cfg.family == "audio":
+        enc = cfg.enc_layers if what == "prefill" else 0
+        mm, aq, gated = 6 * enc + 10 * L, enc + L, 0
+    else:
+        mm, aq, gated = 5 * L + 1, 0, L
+        if be != "codebook":
+            mm, aq, gated = mm + 2 * L, L, 0
+    out = {"act_quant": aq}
+    if be == "codebook":
+        out.update(codebook_matmul=mm, codebook_swiglu=gated)
+    elif be == "lut":
+        out["lut_matmul"] = mm
+    return {k: v for k, v in out.items() if v}
+
+
+# new shapes the kernels take on this phase's paths, each held against its
+# plain version on the path's own inputs (``fam_record``)
+def fam_new_shape(kernel: str, shape: tuple) -> bool:
+    """Rows of an encoder (B × enc_len), a vocabulary-wide head at decode
+    rows, or the vlm's gated FFN."""
+    M, K, N = shape
+    if kernel == "act_quant":
+        return M >= 1000
+    if kernel == "codebook_swiglu":
+        return K == 3584
+    return (M >= 1000 and N < 100_000) or (N >= 100_000 and M <= 16)
+
+
+@contextlib.contextmanager
+def fam_record(keep: dict):
+    """The first call of each kernel at each new shape (``fam_new_shape``)
+    through ``ops`` on card tensors: its inputs and its output, kept in
+    ``keep[(kernel, (M, K, N))]``.  The wrappers and their launch counts
+    stay the kernels' own."""
+    from repro_torch.kernels import ops
+    orig = {k: getattr(ops, k) for k in ("codebook_matmul", "lut_matmul",
+                                         "codebook_swiglu", "_act_quant")}
+
+    def spy(kernel, fn, shape_of):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            shape = shape_of(*args)
+            key = (kernel, shape)
+            if (args[0].is_cuda and key not in keep
+                    and fam_new_shape(kernel, shape)):
+                keep[key] = (args, kw, out)
+            return out
+        return call
+    ops.codebook_matmul = spy("codebook_matmul", orig["codebook_matmul"],
+                              lambda x, w, *_: (*x.shape, w.shape[1]))
+    ops.lut_matmul = spy("lut_matmul", orig["lut_matmul"],
+                         lambda a, w, *_: (*a.shape, w.shape[1]))
+    ops.codebook_swiglu = spy("codebook_swiglu", orig["codebook_swiglu"],
+                              lambda x, w1, *_: (*x.shape, w1.shape[1]))
+    ops._act_quant = spy("act_quant", orig["_act_quant"],
+                         lambda x, *_: (x.reshape(-1, x.shape[-1]).shape[0],
+                                        x.shape[-1], 0))
+    try:
+        yield
+    finally:
+        for k, f in orig.items():
+            setattr(ops, k, f)
+
+
+def fam_parity(keep: dict, peaks: dict) -> list:
+    """Each recorded call (``fam_record``) held against the plain version
+    on its own inputs, run again bit-identical, and timed: codebook_matmul
+    within ``parity_tolerance``; lut_matmul bit-exact; act_quant bit-equal
+    but for level-boundary ties (``parity_ties``); codebook_swiglu
+    bit-equal to the unfused chain of CUDA launches, relu6 to the plain
+    epilogue of its accumulators, and those accumulators within the
+    codebook limit of the plain product.  Kernel, plain and library ms by
+    CUDA events, the bound from the bytes each input read once and the
+    output written once, or the operations at the card's peak for their
+    type.  Returns a row for each."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import lut_matmul as lm
+    rows = []
+    for (kernel, shape), (args, kw, out) in sorted(keep.items()):
+        M, K, N = shape
+        tag = f"[families] {kernel} {M}×{K}×{N}"
+        lib = None
+        if kernel == "codebook_matmul":
+            x, wi, book = args
+            want = cm.codebook_matmul_plain(x, wi, book)
+            tol = cm.parity_tolerance(x, wi, book)
+            share = float(((out - want).abs() / tol).max())
+            again = cm.codebook_matmul_cuda(x, wi, book)
+            if share > 1 or not torch.equal(again, out):
+                raise AssertionError(f"{tag}: {share:.3f} of the limit, or "
+                                     "a second run differs")
+            err = float((out - want).abs().max())
+            ms = time_ms(lambda: cm.codebook_matmul_cuda(x, wi, book))
+            plain = time_ms(lambda: cm.codebook_matmul_plain(x, wi, book),
+                            reps=5)
+            w_deq = book[wi.long()].to(x.dtype)
+            lib = time_ms(lambda: torch.matmul(x, w_deq))
+            nbytes = (x.numel() * x.element_size() + wi.numel()
+                      * wi.element_size() + book.numel() * 4 + M * N * 4)
+            ops_ = 2 * M * K * N / peaks["bf16" if x.dtype == torch.bfloat16
+                                         else "f32"]
+            detail = f"share of the limit {share:.4f}"
+        elif kernel == "lut_matmul":
+            a, wi, tab = args
+            want = lm.lut_matmul_plain(a, wi, tab)
+            again = lm.lut_matmul_cuda(a, wi, tab)
+            if not (torch.equal(out, want) and torch.equal(again, out)):
+                raise AssertionError(f"{tag}: not bit-exact, or a second "
+                                     "run differs")
+            err = 0.0
+            slow = M * K * N > 1e10
+            ms = time_ms(lambda: lm.lut_matmul_cuda(a, wi, tab),
+                         reps=3 if slow else 10, warm=1)
+            plain = time_ms(lambda: lm.lut_matmul_plain(a, wi, tab), reps=1,
+                            warm=0)
+            # the table entries these inputs address (K chunks of 64 rows)
+            C = tab.shape[1]
+            touched = torch.zeros(tab.numel(), dtype=torch.bool,
+                                  device=a.device)
+            kc = max(1, (1 << 27) // (M * N))
+            for k0 in range(0, K, kc):
+                addr = (a[:, k0:k0 + kc, None].long() * C
+                        + wi[None, k0:k0 + kc, :].long() % C)
+                touched[addr.reshape(-1).clamp(0, tab.numel() - 1)] = True
+            nbytes = (a.numel() * 4 + wi.numel() * wi.element_size()
+                      + int(touched.sum()) * 4 + M * N * 4)
+            ops_ = 2 * M * K * N / peaks["int32"]
+            detail = "bit-exact"
+        elif kernel == "act_quant":
+            x, kind, levels, form, with_index = args[:5]
+            mul = args[5] if len(args) > 5 else kw.get("mul")
+            y, idx = out
+            if idx is None:
+                y2, idx = aq.act_quant_cuda(x, kind, levels, form=form,
+                                            mul=mul)
+                if not torch.equal(y2, y):
+                    raise AssertionError(f"{tag}: a second run differs")
+            ref = aq.act_quant_plain(x, kind, levels, form=form, mul=mul)
+            ties = aq.parity_ties(y, idx, *ref, kind, levels, mul=mul)
+            err = float((y.float() - ref[0].float()).abs().max())
+            ms = time_ms(lambda: aq.act_quant_cuda(
+                x, kind, levels, form=form, with_index=with_index, mul=mul))
+            plain = time_ms(lambda: aq.act_quant_plain(
+                x, kind, levels, form=form, with_index=with_index, mul=mul),
+                reps=5)
+            io = 3 if mul is not None else 2
+            nbytes = io * x.numel() * x.element_size() \
+                + (x.numel() * 4 if with_index else 0)
+            ops_ = 8 * x.numel() / peaks["f32"]
+            detail = f"{kind} |A| {levels}, {ties} ties"
+        else:
+            x, w1, b1, w3, b3, kind, levels = args
+            gs = cm.codebook_matmul_cuda(x, w1, b1)
+            us = cm.codebook_matmul_cuda(x, w3, b3)
+            chain = aq.act_quant_cuda(gs.to(x.dtype), kind, levels,
+                                      form="act_apply", with_index=False,
+                                      mul=us.to(x.dtype))[0]
+            again = cm.codebook_swiglu_cuda(x, w1, b1, w3, b3, kind, levels)
+            epi = cm.swiglu_epilogue_plain(gs, us, x.dtype, kind, levels)
+            share = max(float(((s - cm.codebook_matmul_plain(x, w, b)).abs()
+                               / cm.parity_tolerance(x, w, b)).max())
+                        for s, w, b in ((gs, w1, b1), (us, w3, b3)))
+            if not (torch.equal(out, chain) and torch.equal(again, out)
+                    and torch.equal(out, epi) and share <= 1):
+                raise AssertionError(f"{tag}: differs from the unfused "
+                                     "chain, the plain epilogue or a second "
+                                     f"run, or its sums {share:.3f} of the "
+                                     "limit")
+            err = float((out.float() - epi.float()).abs().max())
+            ms = time_ms(lambda: cm.codebook_swiglu_cuda(x, w1, b1, w3, b3,
+                                                          kind, levels))
+            plain = time_ms(lambda: cm.codebook_swiglu_plain(
+                x, w1, b1, w3, b3, kind, levels), reps=5)
+            nbytes = (x.numel() * x.element_size() + 2 * w1.numel()
+                      * w1.element_size() + 8 * b1.numel()
+                      + M * N * x.element_size())
+            ops_ = 4 * M * K * N / peaks["bf16"]
+            detail = (f"= the unfused chain and the plain epilogue, sums at "
+                      f"{share:.4f} of the limit")
+        b_bytes = nbytes / peaks["bytes"]
+        row = {"kernel": kernel, "M": M, "K": K, "N": N, "ms": ms,
+               "plain_ms": plain, "library_ms": lib, "max_abs_err": err,
+               "bound_ms": 1e3 * max(b_bytes, ops_),
+               "bound_by": "bytes" if b_bytes >= ops_ else "operations"}
+        rows.append(row)
+        log(f"{tag}: on the path's own inputs {detail}, max abs err "
+            f"{err:.3e}; kernel {ms:.4f} ms, plain {plain:.3f} ms"
+            + (f", torch.matmul {lib:.4f} ms" if lib is not None else "")
+            + f", bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    return rows
+
+
+def bf16_steps(a, b) -> int:
+    """The largest distance of two tensors, element by element, in steps
+    of bf16 at the larger magnitude of the pair."""
+    import torch
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0 ** -126)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return int(torch.ceil((a - b).abs() / step).max())
+
+
+def fam_full(dev, name: str, n_layers: int, exclude: str, S: int,
+             seed: int) -> dict:
+    """``name`` at full width (``rec_model``): FAM_BATCH prompts of ``S``
+    tokens (whisper: with 1500 seeded frames a row; the vlm: seeded
+    embeddings with ``VLM_LAYOUT``'s M-RoPE positions) on each backend:
+    the encoder alone (whisper), the prefill and ``forward``, their last
+    logits within 1e-3; FAM_NEW greedy decodes; the launches of each call
+    held exactly to ``fam_launches``; the decode step's figures, peak
+    memory; the prompt's last logits of codebook and lut against
+    dense's."""
+    import torch
+    from repro_torch.models import transformer as T
+    tag = f"[families] {name}"
+    model, cfg, cp, _, fig = rec_model(dev, name, n_layers, tag, exclude)
+    batch = fam_batch(cfg, FAM_BATCH, S, seed, dev)
+    first = {}
+    for be in BACKENDS:
+        params, bk = rec_backend(cp, be)
+        want_pre = fam_launches(cfg, be, "prefill")
+        want_step = fam_launches(cfg, be, "decode")
+        model.prefill(params, batch, bk)                     # warm
+        torch.cuda.reset_peak_memory_stats()
+        enc_s = None
+        if cfg.family == "audio":
+            _, enc_s = timed(lambda: T._encoder(params, cfg, batch["frames"],
+                                                bk))
+        ((logits, cache), pre_s), n = rec_counted(lambda: timed(
+            lambda: model.prefill(params, batch, bk)))
+        rec_check(f"{tag} {be} prefill", n, want_pre)
+        first[be] = logits[:, -1, :cfg.vocab].float()    # padding masked
+        (fwd, fwd_s), n = rec_counted(lambda: timed(
+            lambda: model.forward(params, batch, bk)))
+        rec_check(f"{tag} {be} forward", n, want_pre)
+        last = fwd[:, -1, :cfg.vocab]
+        fwd_gap = float((last - first[be]).abs().max())
+        # the tied logits are f32 products; an untied head gives bf16
+        # values, whose f32 sums over all positions (forward) and over the
+        # last ones (prefill) may round one bf16 step apart
+        steps = None if cfg.tie_embeddings else bf16_steps(last, first[be])
+        if not (fwd_gap <= 1e-3 if steps is None else steps <= 1):
+            raise AssertionError(f"{tag} {be}: forward's last logits "
+                                 f"{fwd_gap} ({steps} bf16 steps) from "
+                                 "prefill's")
+        del fwd, last
+        cache = fam_grow(cache, FAM_NEW + 1)
+        ids = []
+        t = time.perf_counter()
+        for _ in range(FAM_NEW):
+            nxt = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            ids.append(nxt)
+            (logits, cache), n = rec_counted(
+                lambda: model.decode(params, nxt, cache, bk))
+            rec_check(f"{tag} {be} decode", n, want_step)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+        if not bool(torch.isfinite(logits[..., :cfg.vocab]).all()):
+            raise AssertionError(f"{tag} {be}: logits not finite")
+        step = rec_step_figures(
+            lambda: model.decode(params, nxt, cache, bk), FAM_BATCH)
+        gap = float((first[be] - first["dense"]).abs().max())
+        rng_ = float(first["dense"].max() - first["dense"].min())
+        fig[be] = {"prefill_ms": pre_s * 1e3, "forward_ms": fwd_s * 1e3,
+                   "encoder_ms": None if enc_s is None else enc_s * 1e3,
+                   "launches_prefill": want_pre, "launches_step": want_step,
+                   "forward_gap": fwd_gap, "forward_gap_bf16_steps": steps,
+                   "loop_tok_s": FAM_BATCH * FAM_NEW / loop_s,
+                   "gap_to_dense": gap, "dense_range": rng_, "step": step,
+                   "tokens": torch.cat(ids, 1)[0].tolist(),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"{tag} {be}: "
+            + (f"encoder {FAM_BATCH} × {cfg.enc_len} {enc_s * 1e3:.1f} ms, "
+               if enc_s is not None else "")
+            + f"prefill {FAM_BATCH} × {S} {pre_s * 1e3:.1f} ms, forward "
+            f"{fwd_s * 1e3:.1f} ms; launches a prefill {want_pre} and a "
+            f"decode step {want_step}, exact; forward's last logits within "
+            f"{fwd_gap:.2e}" + ("" if steps is None else f" ({steps} bf16 "
+                                "steps)") + f" of prefill's; {FAM_NEW} "
+            f"greedy decodes "
+            f"{fig[be]['loop_tok_s']:.1f} tok/s; decode step wall "
+            f"{step['step_ms']:.2f} ms, device busy {step['device_ms']:.3f} "
+            f"ms (idle share {step['idle_share']:.3f}), {step['kernels']} "
+            f"kernels, {step['tok_s']:.1f} tok/s; prompt's last logits vs "
+            f"dense max |Δ| {gap:.4f} (dense range {rng_:.2f}); peak "
+            f"allocated {fig[be]['peak_gib']:.2f} GiB; top {step['top']}")
+        del params, cache, logits
+    return fig
+
+
+def families_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
+    """The [families] phase: ``families_reduced``, then ``fam_full`` of
+    whisper-small (12 + 12 layers, enc_len 1500, ``exclude="enc_pos"``: the
+    compressed table raises ``KeyError`` in the encoder, as the
+    reference's does) over 4 × 32 tokens and qwen2-vl-7b (4 of 28 layers)
+    over 4 × 128 embeddings, launches read; then each kernel at each new
+    shape these paths gave it held against its plain version on the
+    path's own inputs (``fam_parity``, not counted).  Returns the figures
+    and the phase's launches."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.time()
+    ops.reset_launch_counts()
+    keep = {}
+    with fam_record(keep):
+        stats = {"partings": families_reduced(dev),
+                 "reduced_s": time.time() - t0}
+        stats["whisper-small"] = fam_full(dev, "whisper-small", 12,
+                                          "enc_pos", FAM_PROMPT, 7)
+        freed("[families] whisper-small")
+        stats["qwen2-vl-7b"] = fam_full(dev, "qwen2-vl-7b", VLM_LAYERS, "",
+                                        VLM_PROMPT, 8)
+    launches = ops.launch_counts()
+    t1 = time.time()
+    stats["new_shapes"] = fam_parity(keep, peaks)
+    del keep
+    freed("[families] qwen2-vl-7b")
+    want = {("codebook_matmul", 6000), ("lut_matmul", 6000),
+            ("act_quant", 6000), ("codebook_matmul", 152064),
+            ("lut_matmul", 152064), ("codebook_swiglu", 18944)}
+    seen = {(r["kernel"], r["M"]) for r in stats["new_shapes"]} | {
+        (r["kernel"], r["N"]) for r in stats["new_shapes"]}
+    if not want <= seen:
+        raise AssertionError(f"[families] new shapes not seen: "
+                             f"{sorted(want - seen)}")
+    stats["parity_s"] = time.time() - t1
+    stats["phase_s"] = time.time() - t0
+    torch.cuda.empty_cache()
+    log(f"[families] {smi}: phase {stats['phase_s']:.1f}s (reduced against "
+        f"the CPU {stats['reduced_s']:.1f}s, new shapes "
+        f"{stats['parity_s']:.1f}s); launches {launches}")
     return stats, launches
 
 
@@ -6757,6 +7249,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     r_stats, r_launches = recurrent_path(dev, smi)
     torch.cuda.empty_cache()
+    fa_stats, fa_launches = families_path(dev, smi, peaks)
+    torch.cuda.empty_cache()
     pa_stats, pa_launches = paper_path(dev, smi, peaks)
     torch.cuda.empty_cache()
     tr_stats, tr_launches = train_path(dev, smi)
@@ -6781,6 +7275,7 @@ def main() -> int:
                    "launch": l_launches.get(k, 0),
                    "moe": m_launches.get(k, 0),
                    "recurrent": r_launches.get(k, 0),
+                   "families": fa_launches.get(k, 0),
                    "paper": pa_launches.get(k, 0),
                    "train": tr_launches.get(k, 0)}
                for k in TPU_KERNELS}
@@ -6850,6 +7345,7 @@ def main() -> int:
     log("[done] launch path " + json.dumps(l_stats))
     log("[done] moe path " + json.dumps(m_stats))
     log("[done] recurrent path " + json.dumps(r_stats))
+    log("[done] families path " + json.dumps(fa_stats))
     log("[done] paper path " + json.dumps(pa_stats))
     log("[done] train path " + json.dumps(tr_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))

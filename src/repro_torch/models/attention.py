@@ -1,6 +1,7 @@
-"""Attention: GQA + RoPE + qk-norm, flash-chunked prefill softmax, the
-contiguous KV-cache decode step and speculative verify, and the paged KV
-cache's chunked prefill, decode step and speculative verify with int8
+"""Attention: GQA + RoPE / M-RoPE + qk-norm, flash-chunked prefill softmax
+(causal, or not for an encoder; cross-attention over an encoder's memory),
+the contiguous KV-cache decode step and speculative verify, and the paged
+KV cache's chunked prefill, decode step and speculative verify with int8
 pages (the port's copy of the single-device parts of
 ``repro/models/attention.py``).
 
@@ -37,8 +38,9 @@ class AttnConfig:
     head_dim: int = 0                # 0 → d_model // n_heads
     qk_norm: bool = False            # qwen3 family
     rope_theta: float = 1e4
+    rope_sections: tuple = ()        # M-RoPE (qwen2-vl): head_dim split
     window: int = 0                  # sliding-window size; 0 = full
-    causal: bool = True
+    causal: bool = True              # False for encoder self-attn
     kv_block: int = 1024             # flash KV chunk
 
     @property
@@ -52,16 +54,38 @@ class AttnConfig:
 
 # --- rotary ------------------------------------------------------------------
 
-def rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e4) -> torch.Tensor:
+def _section_ids(sections: tuple, n: int) -> list:
+    """The position stream of each of the ``n`` frequency bands: band f
+    belongs to the section that covers it, cut at 2 (three streams), the
+    last id repeated where ``sections`` cover fewer than ``n`` bands and
+    the ids past ``n`` dropped, as ``jnp.repeat(...,
+    total_repeat_length=n)`` gives them."""
+    ids = [min(i, 2) for i, c in enumerate(sections) for _ in range(c)]
+    if not ids:
+        return [0] * n
+    return (ids + [ids[-1]] * n)[:n]
+
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float = 1e4,
+         sections: tuple = ()) -> torch.Tensor:
     """Rotary embedding over *interleaved* pairs (x[..., ::2], x[..., 1::2]).
 
-    x: (B, L, H, hd); pos: (B, L).  This is the JAX package's pairing, not
-    the half-split rotation of other code bases.
+    x: (B, L, H, hd); pos: (B, L), or (3, B, L) for M-RoPE (qwen2-vl): the
+    hd/2 frequency bands are split into ``sections`` driven by the
+    (temporal, height, width) streams (``_section_ids``).  A (B, L) pos
+    drives every band, which is standard RoPE whatever the sections.  This
+    is the JAX package's pairing, not the half-split rotation of other
+    code bases.
     """
     hd = x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                           device=x.device) / hd))
-    ang = pos.to(torch.float32)[..., None] * freqs          # (B, L, hd/2)
+    if pos.ndim == 3:
+        sec = torch.tensor(_section_ids(sections, hd // 2), device=x.device)
+        p_sel = pos.to(torch.float32)[sec].permute(1, 2, 0)  # (B, L, hd/2)
+        ang = p_sel * freqs
+    else:
+        ang = pos.to(torch.float32)[..., None] * freqs      # (B, L, hd/2)
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     xf1, xf2 = x[..., ::2].to(torch.float32), x[..., 1::2].to(torch.float32)
     out = torch.stack([xf1 * cos - xf2 * sin, xf1 * sin + xf2 * cos], dim=-1)
@@ -220,49 +244,63 @@ class _FlashAttention(torch.autograd.Function):
 
 # --- projections and the two serving forms -----------------------------------
 
-def _project_qkv(p, x, cfg: AttnConfig, pos, backend):
+def _project_qkv(p, x, cfg: AttnConfig, pos, backend, kv_src=None):
+    """q from x; k and v from ``kv_src`` (an encoder's memory, for
+    cross-attention), else from x.  RoPE (M-RoPE with ``cfg.rope_sections``)
+    rotates self-attention's q and k only."""
     B, L, _ = x.shape
     hd, KV, G = cfg.hd, cfg.n_kv, cfg.groups
+    src = x if kv_src is None else kv_src
+    Lk = src.shape[1]
     q = dense(p["wq"], x, backend).reshape(B, L, KV, G, hd)
-    k = dense(p["wk"], x, backend).reshape(B, L, KV, hd)
-    v = dense(p["wv"], x, backend).reshape(B, L, KV, hd)
+    k = dense(p["wk"], src, backend).reshape(B, Lk, KV, hd)
+    v = dense(p["wv"], src, backend).reshape(B, Lk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
-    q = rope(q.reshape(B, L, KV * G, hd), pos, cfg.rope_theta
-             ).reshape(B, L, KV, G, hd)
-    k = rope(k, pos, cfg.rope_theta)
+    if kv_src is None:
+        q = rope(q.reshape(B, L, KV * G, hd), pos, cfg.rope_theta,
+                 cfg.rope_sections).reshape(B, L, KV, G, hd)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_sections)
     return q, k, v
 
 
 def attn_apply(p, x, cfg: AttnConfig,
-               backend: dispatch.BackendSpec = dispatch.DENSE):
-    """Prefill self-attention over the whole (right-padded) prompt.
+               backend: dispatch.BackendSpec = dispatch.DENSE, *, pos=None,
+               kv_override=None):
+    """Attention over a whole (right-padded) prompt, no cache.
 
-    x: (B, L, D).  Returns (out, {'k', 'v'}): the layer's K/V planes
-    (B, L, KV, hd), which become the cache.  Causal masking keeps real
-    queries from seeing the padded tail.
+    x: (B, L, D); pos: RoPE positions (B, L) or (3, B, L), ``arange(L)``
+    when None.  ``kv_override``: (B, Lk, D) encoder memory for
+    cross-attention: K and V are projected from it, RoPE is skipped and
+    no query is masked.  Otherwise the mask is causal when ``cfg.causal``
+    is set (which keeps real queries from seeing a padded tail), full for
+    an encoder.  Returns (out, {'k', 'v'}): the K/V planes (B, Lk, KV,
+    hd), which become a decoder's cache.
     """
     B, L, _ = x.shape
-    pos = torch.arange(L, device=x.device)[None].expand(B, L)
-    q, k, v = _project_qkv(p, x, cfg, pos, backend)
-    out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                          kv_block=cfg.kv_block)
+    if pos is None:
+        pos = torch.arange(L, device=x.device)[None].expand(B, L)
+    q, k, v = _project_qkv(p, x, cfg, pos, backend, kv_override)
+    out = flash_attention(q, k, v, causal=cfg.causal and kv_override is None,
+                          window=cfg.window, kv_block=cfg.kv_block)
     out = dense(p["wo"], out.reshape(B, L, cfg.n_heads * cfg.hd), backend)
     return out, {"k": k, "v": v}
 
 
 def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
                        k_all, v_all, layer: int, scales=None,
-                       backend: dispatch.BackendSpec = dispatch.DENSE):
+                       backend: dispatch.BackendSpec = dispatch.DENSE,
+                       exclude=None):
     """One decode step of one layer against the stacked (L, B, S, KV, hd)
     cache.  pos: (B, 1) RoPE positions; insert_at/valid_len: (B,) per-slot
-    write position and attendable length; ``scales`` (ks_all, vs_all),
-    each (L, B, S, KV), when the cache is int8 (``quantize_kv``).
+    write position and attendable length; ``exclude``: the (B,) slot
+    masked, ``insert_at`` when None; ``scales`` (ks_all, vs_all), each (L,
+    B, S, KV), when the cache is int8 (``quantize_kv``).
 
     Attention reads the layer's cache *before* the write (dequantized when
-    ``scales`` are given; the insert slot masked, the fresh float K/V folded
-    in through ``extra_kv``), then the fresh K/V (quantized, with their
+    ``scales`` are given; the excluded slot masked, the fresh float K/V
+    folded in through ``extra_kv``), then the fresh K/V (quantized, with their
     scales) are written into ``k_all``/``v_all`` in place.  Returns the
     attention output (B, 1, D).
     """
@@ -274,7 +312,8 @@ def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
         v_att = dequantize_kv(v_l, scales[1][layer])
     else:
         k_att, v_att = k_l, v_l
-    out = decode_attention(q, k_att, v_att, valid_len, exclude=insert_at,
+    out = decode_attention(q, k_att, v_att, valid_len,
+                           exclude=insert_at if exclude is None else exclude,
                            extra_kv=(k, v))
     rows = torch.arange(B, device=x.device)
     k_new, v_new = k[:, 0], v[:, 0]

@@ -1,5 +1,5 @@
-"""Shared layers: quant-aware dense, norms, embeddings, SwiGLU (the port's
-copy of the decoder parts of ``repro/models/layers.py``).  All run under
+"""Shared layers: quant-aware dense, norms, embeddings, SwiGLU and the
+biased MLP (the port's copy of ``repro/models/layers.py``).  All run under
 autograd but the gated codebook launch (``ops.codebook_swiglu``, which has
 no gradient in the reference either) and the lut backend."""
 
@@ -13,8 +13,9 @@ from repro_torch.kernels import dispatch, ops, probes
 from repro_torch.kernels._common import canonical_idx
 
 __all__ = ["dense_init", "dense", "dequantize", "rms_norm_init", "rms_norm",
-           "embed_init", "embed_lookup", "embed_logits", "ffn_act",
-           "swiglu_init", "swiglu"]
+           "layer_norm_init", "layer_norm", "embed_init", "embed_lookup",
+           "embed_logits", "ffn_act", "swiglu_init", "swiglu", "mlp_init",
+           "mlp_block"]
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype, device,
@@ -69,6 +70,22 @@ def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * p["scale"].to(torch.float32)).to(x.dtype)
+
+
+def layer_norm_init(d: int, dtype, device, layers: tuple = ()):
+    return {"scale": torch.ones(layers + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(layers + (d,), dtype=dtype, device=device)}
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """(x − mean) · rsqrt(var + eps) · scale + bias in f32, the variance
+    biased as ``jnp.var``'s, cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].to(torch.float32)
+            + p["bias"].to(torch.float32)).to(x.dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int, dtype, device,
@@ -171,4 +188,21 @@ def swiglu(p, x: torch.Tensor, act_kind: str = "silu", act_levels: int = 0,
     else:
         h = (ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
              * dense(p["w3"], x, backend))
+    return dense(p["w2"], h, backend)
+
+
+def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device,
+             layers: tuple = (), bias: bool = True):
+    return {"w1": dense_init(gen, d, ff, dtype, device, layers=layers,
+                             bias=bias),
+            "w2": dense_init(gen, ff, d, dtype, device, layers=layers,
+                             bias=bias)}
+
+
+def mlp_block(p, x: torch.Tensor, act_kind: str = "gelu", act_levels: int = 0,
+              backend: dispatch.BackendSpec = dispatch.DENSE) -> torch.Tensor:
+    """w2 · act(x · w1), each product with its bias.  At ``act_levels > 0``
+    the activation is ``ffn_act``'s quantized relu6 (gelu swapped, no
+    multiplier: the ``act_quant`` kernel on the card)."""
+    h = ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
     return dense(p["w2"], h, backend)

@@ -41,7 +41,9 @@ class Model:
         return T.loss_fn(params, self.cfg, batch, backend)
 
     def forward(self, params, batch, backend=dispatch.DENSE):
-        """The trunk over whole prompts, no cache: (B, L, V) f32 logits."""
+        """The trunk over whole prompts, no cache: (B, L, V) f32 logits.
+        batch: 'tokens'; the vlm's 'embeds' and 'positions' (optional);
+        the encoder-decoder's 'frames'."""
         return T.forward(params, self.cfg, batch, backend)
 
     def prefill(self, params, batch, backend=dispatch.DENSE):
@@ -72,15 +74,11 @@ class Model:
 
 
 def build(cfg: ModelConfig) -> Model:
-    """The model handle of a ``dense``, ``moe``, ``ssm_rwkv`` or ``hybrid``
-    config; the paper's own nets are built through ``models.papernets``
-    (ValueError, as the reference's ``build`` refuses them), and the other
-    families are not ported yet and raise, naming the family."""
+    """The model handle of a ``dense``, ``moe``, ``vlm``, ``audio``,
+    ``ssm_rwkv`` or ``hybrid`` config.  The paper's own nets are built
+    through ``models.papernets`` (ValueError, as the reference's ``build``
+    refuses them)."""
     if cfg.family == "paper":
         raise ValueError("paper-family nets are built via repro_torch."
                          "models.papernets")
-    if cfg.family not in T.FAMILIES:
-        raise NotImplementedError(
-            f"the port builds {'/'.join(T.FAMILIES)}-family models; got "
-            f"family {cfg.family!r}")
     return Model(cfg)

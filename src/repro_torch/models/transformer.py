@@ -1,14 +1,25 @@
-"""Decoder LMs of the dense, mixture-of-experts, RWKV-6 and Mamba2/Zamba2
-hybrid families (the port's copy of ``repro/models/transformer.py``):
-init, the trunk ``forward``, prefill and the decode step for every family;
-the training loss ``loss_fn`` for the dense family (``forward`` runs under
-autograd there, each block checkpointed when ``cfg.remat`` is set, as the
-reference's ``jax.checkpoint``; the other families refuse training); the
-speculative verify step and the paged KV cache's chunked prefill, decode
-step and verify step for the KV-cache families (dense, moe).  A ``moe`` model's blocks carry ``'moe'``
-(``models/moe.py``) where a dense model's carry ``'mlp'``; every FFN site
-goes through ``_ffn``, which takes the routed FFN when the layer has one,
-as the reference's ``_dense_block`` does.
+"""Decoder LMs of the dense, mixture-of-experts, vision-language,
+encoder-decoder, RWKV-6 and Mamba2/Zamba2 hybrid families (the port's copy
+of ``repro/models/transformer.py``): init, the trunk ``forward``, prefill
+and the decode step for every family; the training loss ``loss_fn`` for
+the dense family (``forward`` runs under autograd there, each block
+checkpointed when ``cfg.remat`` is set, as the reference's
+``jax.checkpoint``; the other families refuse training); the speculative
+verify step and the paged KV cache's chunked prefill, decode step and
+verify step for the paged families (dense, moe).  A ``moe`` model's
+blocks carry ``'moe'`` (``models/moe.py``) where a dense model's carry
+``'mlp'``; every FFN site goes through ``_ffn``, which takes the routed
+FFN when the layer has one, as the reference's ``_dense_block`` does.
+
+The ``vlm`` family (qwen2-vl) is the dense tree; its prompts come in as
+precomputed embeddings with M-RoPE positions (3, B, L), its decode looks
+tokens up and rotates them with one position stream.  The ``audio``
+family (whisper) is an encoder-decoder: a non-causal encoder over frame
+embeddings (``_encoder``), and decoder blocks of layer norms, causal
+self-attention, cross-attention over the encoder's output and a biased
+MLP; its cache adds that output as ``memory``.  Both have the contiguous
+cache, ``lengths`` and per-slot positions of the dense family, and no
+paged cache or verify step, as in the reference.
 
 The recurrent families (``ssm_rwkv``: ``models/rwkv.py``; ``hybrid``: a
 stack of Mamba2 blocks, ``models/ssm.py``, with one shared attention block
@@ -56,8 +67,9 @@ __all__ = ["FAMILIES", "init_params", "forward", "loss_fn", "prefill",
            "verify_step", "init_cache", "attn_cfg", "moe_cfg", "ssm_cfg",
            "rwkv_cfg", "init_paged_cache", "prefill_chunk"]
 
-FAMILIES = ("dense", "moe", "ssm_rwkv", "hybrid")
-_KV_FAMILIES = ("dense", "moe")      # KV-cache LMs: paged cache, verify
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm_rwkv", "hybrid")
+_KV_FAMILIES = ("dense", "moe", "vlm", "audio")   # contiguous KV cache
+_PAGED_FAMILIES = ("dense", "moe")   # KV-cache LMs: paged cache, verify
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
@@ -66,11 +78,12 @@ def _dtype(cfg) -> torch.dtype:
     return _DTYPES[cfg.dtype]
 
 
-def attn_cfg(cfg) -> A.AttnConfig:
+def attn_cfg(cfg, *, causal: bool = True) -> A.AttnConfig:
     return A.AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         head_dim=cfg.hd, qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta,
-        window=cfg.window, causal=True, kv_block=cfg.kv_block)
+        rope_sections=cfg.rope_sections, window=cfg.window, causal=causal,
+        kv_block=cfg.kv_block)
 
 
 def moe_cfg(cfg) -> M.MoEConfig:
@@ -107,9 +120,10 @@ def _attn_init(gen, cfg, dt, dev, layers: tuple = ()):
 
 
 def init_params(gen: torch.Generator, cfg, device=None):
-    """Random parameters with the reference's initializers: embeddings N(0,
-    0.02²), every dense matrix N(0, 1/d_in), norm scales 1, and the
-    experts', RWKV-6's and Mamba2's own (``moe.moe_init``,
+    """Random parameters with the reference's initializers: embeddings and
+    the encoder's position table N(0, 0.02²), every dense matrix N(0,
+    1/d_in) with zero biases, norm scales 1 (and layer-norm biases 0), and
+    the experts', RWKV-6's and Mamba2's own (``moe.moe_init``,
     ``rwkv.rwkv_tm_init``/``rwkv_cm_init``, ``ssm.ssm_init``).  Drawn from
     ``gen`` (a ``torch.Generator`` on ``device``)."""
     if cfg.family not in FAMILIES:
@@ -121,6 +135,10 @@ def init_params(gen: torch.Generator, cfg, device=None):
     p = {"embed": L.embed_init(gen, cfg.padded_vocab, d, dt, dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = L.dense_init(gen, d, cfg.padded_vocab, dt, dev)
+    if cfg.family == "audio":
+        p["final_norm"] = L.layer_norm_init(d, dt, dev)
+        p.update(_audio_init(gen, cfg, dt, dev))
+        return p
     p["final_norm"] = L.rms_norm_init(d, dt, dev)
     norm = lambda: L.rms_norm_init(d, dt, dev, layers=n)  # noqa: E731
     if cfg.family == "ssm_rwkv":
@@ -151,6 +169,33 @@ def init_params(gen: torch.Generator, cfg, device=None):
     return p
 
 
+def _audio_init(gen, cfg, dt, dev):
+    """The encoder-decoder's own parameters: the encoder's position table
+    ``enc_pos`` (enc_len, d), its blocks (layer norms, non-causal
+    self-attention, the biased MLP) and final ``enc_norm``, and the
+    decoder's blocks, which add cross-attention (``ln_x``, ``xattn``)."""
+    d = cfg.d_model
+    enc, dec = (cfg.enc_layers,), (cfg.n_layers,)
+
+    def ln(n):
+        return L.layer_norm_init(d, dt, dev, layers=n)
+    table = torch.randn((cfg.enc_len, d), generator=gen, device=dev) * 0.02
+    return {"enc_pos": {"table": table.to(dt)},
+            "enc_blocks": {"ln1": ln(enc),
+                           "attn": _attn_init(gen, cfg, dt, dev, enc),
+                           "ln2": ln(enc),
+                           "mlp": L.mlp_init(gen, d, cfg.d_ff, dt, dev,
+                                             layers=enc)},
+            "blocks": {"ln1": ln(dec),
+                       "attn": _attn_init(gen, cfg, dt, dev, dec),
+                       "ln_x": ln(dec),
+                       "xattn": _attn_init(gen, cfg, dt, dev, dec),
+                       "ln2": ln(dec),
+                       "mlp": L.mlp_init(gen, d, cfg.d_ff, dt, dev,
+                                         layers=dec)},
+            "enc_norm": L.layer_norm_init(d, dt, dev)}
+
+
 def _layer(tree, i: int):
     """Views of layer ``i`` of a stacked parameter dict."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
@@ -177,12 +222,63 @@ def _unbind(tree, n: int) -> list:
     return out
 
 
-def _kv_block(p_l, x, acfg, cfg, backend):
-    """One pre-norm block of the KV-cache families over whole prompts."""
-    a, _ = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
-                        backend)
+def _norm(cfg):
+    """The decoder's norm: layer norm for the encoder-decoder, RMS norm for
+    every other family."""
+    return L.layer_norm if cfg.family == "audio" else L.rms_norm
+
+
+def _kv_block(p_l, x, cfg, backend, pos=None, memory=None):
+    """One pre-norm block of the KV-cache families over whole prompts:
+    (x, the layer's K/V planes).  ``pos``: RoPE positions (None: 0..L−1);
+    ``memory``: the encoder's output, which a decoder block of the
+    encoder-decoder attends after its self-attention."""
+    a, kv = A.attn_apply(p_l["attn"], _norm(cfg)(p_l["ln1"], x), attn_cfg(cfg),
+                         backend, pos=pos)
     x = x + a
-    return x + _ffn(p_l, x, cfg, backend)
+    if cfg.family == "audio":
+        return _dec_tail(p_l, x, memory, cfg, backend), kv
+    return x + _ffn(p_l, x, cfg, backend), kv
+
+
+def _dec_tail(p_l, x, memory, cfg, backend):
+    """A decoder block of the encoder-decoder after its self-attention:
+    cross-attention over ``memory`` (its K/V projected anew on every call,
+    as the reference's are), then the biased MLP."""
+    c, _ = A.attn_apply(p_l["xattn"], L.layer_norm(p_l["ln_x"], x),
+                        attn_cfg(cfg, causal=False), backend,
+                        kv_override=memory)
+    x = x + c
+    return x + L.mlp_block(p_l["mlp"], L.layer_norm(p_l["ln2"], x),
+                           cfg.act_kind, cfg.act_levels, backend)
+
+
+def _encoder(params, cfg, frames, backend):
+    """The encoder over (B, enc_len, d) frame embeddings (the reference's
+    stub of a conv front end): the position table added (read as
+    ``enc_pos['table']``, so a compressed table raises ``KeyError``, as
+    the reference's does), non-causal pre-norm blocks, ``enc_norm``."""
+    x = (frames.to(_dtype(cfg))
+         + params["enc_pos"]["table"][None, :frames.shape[1]])
+    acfg = attn_cfg(cfg, causal=False)
+    for i in range(cfg.enc_layers):
+        p_l = _layer(params["enc_blocks"], i)
+        a, _ = A.attn_apply(p_l["attn"], L.layer_norm(p_l["ln1"], x), acfg,
+                            backend)
+        x = x + a
+        x = x + L.mlp_block(p_l["mlp"], L.layer_norm(p_l["ln2"], x),
+                            cfg.act_kind, cfg.act_levels, backend)
+    return L.layer_norm(params["enc_norm"], x)
+
+
+def _embed_prompt(params, cfg, batch):
+    """(x, RoPE positions) of a prompt batch: the vlm takes precomputed
+    embeddings ``batch['embeds']`` (B, L, d) and ``batch['positions']``
+    (3, B, L) (optional), every other family looks its tokens up."""
+    if cfg.family == "vlm":
+        return batch["embeds"].to(_dtype(cfg)), batch.get("positions")
+    x = L.embed_lookup(params["embed"], batch["tokens"])
+    return x.to(_dtype(cfg)), None
 
 
 def _ffn(p_l, h, cfg, backend):
@@ -265,31 +361,40 @@ def _rwkv_trunk(params, cfg, x, backend):
     return x, states
 
 
+def _train_block(p_l, x, cfg, backend):
+    return _kv_block(p_l, x, cfg, backend)[0]
+
+
 def forward(params, cfg, batch, backend=dispatch.DENSE):
     """The trunk over whole prompts, no cache: logits (B, L, padded_vocab)
-    f32 at every position.  batch: {'tokens': (B, L)}.  Under autograd
-    (``_training``) for the dense family only: its layers are unbound once
-    and, with ``cfg.remat``, each block runs under
-    ``torch.utils.checkpoint`` (recomputed in the backward)."""
+    f32 at every position.  batch: {'tokens': (B, L)}; the vlm's
+    {'embeds': (B, L, d), 'positions': (3, B, L) (optional)} in place of
+    the token lookup; the encoder-decoder's {'frames': (B, enc_len, d)}
+    beside its tokens.  Under autograd (``_training``) for the dense
+    family only: its layers are unbound once and, with ``cfg.remat``, each
+    block runs under ``torch.utils.checkpoint`` (recomputed in the
+    backward)."""
     train = _training(params)
     if train and cfg.family != "dense":
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported yet: the "
             "port trains the dense family")
-    x = L.embed_lookup(params["embed"], batch["tokens"]).to(_dtype(cfg))
+    x, pos = _embed_prompt(params, cfg, batch)
     blocks = params["blocks"]
     if cfg.family in _KV_FAMILIES:
-        acfg = attn_cfg(cfg)
+        memory = (_encoder(params, cfg, batch["frames"], backend)
+                  if cfg.family == "audio" else None)
         per_layer = _unbind(blocks, cfg.n_layers) if train else None
         for i in range(cfg.n_layers):
             if not train:
-                x = _kv_block(_layer(blocks, i), x, acfg, cfg, backend)
+                x, _ = _kv_block(_layer(blocks, i), x, cfg, backend, pos,
+                                 memory)
             elif cfg.remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _kv_block, per_layer[i], x, acfg, cfg, backend,
+                    _train_block, per_layer[i], x, cfg, backend,
                     use_reentrant=False)
             else:
-                x = _kv_block(per_layer[i], x, acfg, cfg, backend)
+                x = _train_block(per_layer[i], x, cfg, backend)
     elif cfg.family == "ssm_rwkv":
         x, _ = _rwkv_trunk(params, cfg, x, backend)
     elif cfg.family == "hybrid":
@@ -301,7 +406,7 @@ def forward(params, cfg, batch, backend=dispatch.DENSE):
                                     backend)
     else:
         raise ValueError(cfg.family)
-    return _logits(params, cfg, L.rms_norm(params["final_norm"], x), backend)
+    return _logits(params, cfg, _norm(cfg)(params["final_norm"], x), backend)
 
 
 def loss_fn(params, cfg, batch, backend=dispatch.DENSE):
@@ -428,8 +533,9 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Contiguous decode cache with per-slot positions.  ``cfg.kv_quant``:
     int8 K/V planes with per-token-per-head bf16 scales (``dtype`` is then
-    not read), as the reference builds them.  The recurrent families'
-    caches are ``_recurrent_init_cache``'s."""
+    not read), as the reference builds them.  The encoder-decoder's adds
+    the encoder's output ``memory`` (B, enc_len, d) in ``dtype``.  The
+    recurrent families' caches are ``_recurrent_init_cache``'s."""
     dev = resolve_device(device)
     if cfg.family not in _KV_FAMILIES:
         return _recurrent_init_cache(cfg, batch, max_len, dtype, dev)
@@ -444,19 +550,26 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
     else:
         kv = {"k": torch.zeros(shape, dtype=dtype, device=dev),
               "v": torch.zeros(shape, dtype=dtype, device=dev)}
-    return {"kv": kv,
-            "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    cache = {"kv": kv,
+             "pos": torch.zeros((batch,), dtype=torch.int32, device=dev)}
+    if cfg.family == "audio":
+        cache["memory"] = torch.zeros((batch, cfg.enc_len, cfg.d_model),
+                                      dtype=dtype, device=dev)
+    return cache
 
 
 def prefill(params, cfg, batch, backend=dispatch.DENSE):
     """Forward over the right-padded prompt batch.
 
     batch: {'tokens': (B, S) int, 'lengths': (B,) int (optional),
-    'probes': the probe state (optional)}.
+    'probes': the probe state (optional)}, and the inputs ``forward``
+    names for the vlm ('embeds', 'positions') and the encoder-decoder
+    ('frames').
     Returns (logits (B, 1, V) at each row's last real position, cache with
     K/V planes (L, B, S, KV, hd), int8 with their scales (L, B, S, KV) when
-    ``cfg.kv_quant`` is set, and ``pos`` = lengths).  The recurrent
-    families take whole prompts only (``_recurrent_prefill``).
+    ``cfg.kv_quant`` is set, ``pos`` = lengths, and the encoder-decoder's
+    ``memory`` in the cache dtype).  The recurrent families take whole
+    prompts only (``_recurrent_prefill``).
     """
     dt = _dtype(cfg)
     cdt = torch.bfloat16 if cfg.dtype == "bfloat16" else dt
@@ -471,17 +584,15 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
         return _recurrent_prefill(params, cfg, tokens, backend)
     if lengths is None:
         lengths = torch.full((B,), Sq, dtype=torch.int32, device=tokens.device)
-    x = L.embed_lookup(params["embed"], tokens).to(dt)
-    acfg = attn_cfg(cfg)
+    x, pos = _embed_prompt(params, cfg, batch)
+    memory = (_encoder(params, cfg, batch["frames"], backend)
+              if cfg.family == "audio" else None)
     ps = batch.get("probes") or {}
     planes = []
     for i in range(cfg.n_layers):
         p_l = _layer(params["blocks"], i)
         with probes.layer(ps, i):
-            a, kv = A.attn_apply(p_l["attn"], L.rms_norm(p_l["ln1"], x),
-                                 acfg, backend)
-            x = x + a
-            x = x + _ffn(p_l, x, cfg, backend)
+            x, kv = _kv_block(p_l, x, cfg, backend, pos, memory)
             if cfg.kv_quant:
                 (kq, ksc), (vq, vsc) = (A.quantize_kv(kv["k"]),
                                         A.quantize_kv(kv["v"]))
@@ -494,9 +605,11 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
     cache = {"kv": {name: torch.stack([p[name] for p in planes])
                     for name in planes[0]},
              "pos": lengths.to(torch.int32)}
+    if memory is not None:
+        cache["memory"] = memory.to(cdt)
     last = torch.clamp(lengths.long() - 1, min=0)
     x_last = x[torch.arange(B, device=x.device), last][:, None]
-    x_last = L.rms_norm(params["final_norm"], x_last)
+    x_last = _norm(cfg)(params["final_norm"], x_last)
     return _logits(params, cfg, x_last, backend), cache
 
 
@@ -509,9 +622,9 @@ def init_paged_cache(cfg, n_pages: int, page_size: int, dtype=torch.bfloat16,
     Page 0 is the allocator's trash page (``serving/kvcache.py``).  The
     KV-cache families only.
     """
-    if cfg.family not in _KV_FAMILIES:
+    if cfg.family not in _PAGED_FAMILIES:
         raise NotImplementedError(
-            f"paged KV cache serves families {_KV_FAMILIES}; got "
+            f"paged KV cache serves families {_PAGED_FAMILIES}; got "
             f"{cfg.family!r}")
     dev = resolve_device(device)
     shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv, cfg.hd)
@@ -552,7 +665,7 @@ def prefill_chunk(params, cfg, batch, cache, backend=dispatch.DENSE):
     written in place, and may carry ``'probes'``.  Returns (logits (1, 1,
     V) at the chunk's last real position, the same pool).
     """
-    if cfg.family not in _KV_FAMILIES:
+    if cfg.family not in _PAGED_FAMILIES:
         raise NotImplementedError(cfg.family)
     dt = _dtype(cfg)
     tokens = batch["tokens"]
@@ -619,8 +732,14 @@ def _decode_step_paged(params, cfg, tokens, cache, backend):
 
 def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     """One decode step for every slot.  tokens: (B, 1).  ``cache['pos']``
-    is the (B,) vector of per-slot positions.  A cache carrying a
-    ``page_table`` is a page pool and takes the paged step.
+    is the (B,) vector of per-slot positions, or a 0-d position every row
+    is at (the reference's uniform batch: on a full cache the write lands
+    on its last row and nothing is masked, as there).  A cache carrying a
+    ``page_table`` is a page pool and takes the paged step.  The vlm looks
+    its tokens up in ``embed`` and decodes with one position stream
+    (standard RoPE, as the reference's); the encoder-decoder attends
+    ``cache['memory']`` in every layer, its K/V projected anew each step,
+    as the reference's.
 
     Retired slots keep decoding into ``min(pos, S-1)`` until the engine
     reuses them, and count as tokens for the probes, as the reference's
@@ -639,12 +758,18 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
                 f"{cfg.family!r} carries recurrent state")
         return _recurrent_decode(params, cfg, tokens, cache, backend)
     dt = _dtype(cfg)
-    pos_v = cache["pos"]
+    B = tokens.shape[0]
+    pos_c = cache["pos"]
+    pos_v = pos_c if pos_c.ndim == 1 else pos_c.reshape(1).expand(B)
     S = cache["kv"]["k"].shape[2]
     ins = torch.clamp(pos_v, max=S - 1).long()
-    vlen = torch.clamp(pos_v + 1, max=S)
+    if pos_c.ndim == 1:
+        vlen, excl = torch.clamp(pos_v + 1, max=S), ins
+    else:   # the reference's uniform batch: unclamped, past a full cache
+        vlen, excl = pos_v + 1, pos_v     # nothing masked, the write clamped
     x = L.embed_lookup(params["embed"], tokens).to(dt)
     acfg = attn_cfg(cfg)
+    norm = _norm(cfg)
     kv = cache["kv"]
     scales = (kv["k_scale"], kv["v_scale"]) if cfg.kv_quant else None
     ps = cache.get("probes") or {}
@@ -652,14 +777,17 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
         p_l = _layer(params["blocks"], i)
         with probes.layer(ps, i):
             x = x + A.attn_decode_cached(
-                p_l["attn"], L.rms_norm(p_l["ln1"], x), acfg,
+                p_l["attn"], norm(p_l["ln1"], x), acfg,
                 pos=pos_v[:, None], insert_at=ins, valid_len=vlen,
                 k_all=kv["k"], v_all=kv["v"], layer=i, scales=scales,
-                backend=backend)
-            x = x + _ffn(p_l, x, cfg, backend)
-    probes.bump(ps, "tokens", tokens.shape[0])
-    x = L.rms_norm(params["final_norm"], x)
-    return _logits(params, cfg, x, backend), {**cache, "pos": pos_v + 1}
+                backend=backend, exclude=excl)
+            if cfg.family == "audio":
+                x = _dec_tail(p_l, x, cache["memory"], cfg, backend)
+            else:
+                x = x + _ffn(p_l, x, cfg, backend)
+    probes.bump(ps, "tokens", B)
+    x = norm(params["final_norm"], x)
+    return _logits(params, cfg, x, backend), {**cache, "pos": pos_c + 1}
 
 
 def _verify_step_paged(params, cfg, tokens, cache, backend):
@@ -721,9 +849,9 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     """
     if "page_table" in cache:
         return _verify_step_paged(params, cfg, tokens, cache, backend)
-    if cfg.family not in _KV_FAMILIES:
+    if cfg.family not in _PAGED_FAMILIES:
         raise NotImplementedError(
-            f"verify_step serves KV-cache families {_KV_FAMILIES}; got "
+            f"verify_step serves KV-cache families {_PAGED_FAMILIES}; got "
             f"{cfg.family!r}")
     dt = _dtype(cfg)
     B, K1 = tokens.shape

@@ -19,9 +19,9 @@ reduced qwen3 with the reference's ``PRNGKey(0)`` weights (the port's
   reference's without the kernels section, the Perfetto trace exactly;
 * every refusal of the reference (``ap.error`` and its ``SystemExit``s)
   with the same exit code and message; ``--tp 2`` refused naming the
-  tensor-parallel slice; an ``--arch`` of a family the port does not build
-  yet (whisper-small) refused by ``build``, and the recurrent families
-  (rwkv6-7b, zamba2-2.7b) refused by ``ServeEngine`` with the reference's
+  tensor-parallel slice; the encoder-decoder and vision-language families
+  (whisper-small, qwen2-vl-7b) and the recurrent families (rwkv6-7b,
+  zamba2-2.7b) built and refused by ``ServeEngine`` with the reference's
   message;
 * the flags, defaults, choices and help of the reference's parser;
 * sampling (T = 0.8) held to the port itself: one seed, one output, and
@@ -288,12 +288,24 @@ def test_tp_refused_naming_the_tp_slice():
 
 
 def test_non_dense_arch_refused_by_build():
-    """A family the port does not build yet (whisper-small's ``audio``) is
-    refused by ``build``, naming the family; ``moe`` is served (the
-    ``moe_*`` cases above) and the recurrent families are built and then
-    refused by the engine (below)."""
-    with pytest.raises(NotImplementedError, match="'audio'"):
-        TS.main(["--arch", "whisper-small", "--reduced", "--device", "cpu"])
+    """``build`` refuses no LM family now: the encoder-decoder
+    (whisper-small's ``audio``) and the vision-language family
+    (qwen2-vl-7b's ``vlm``) are built, and ``ServeEngine`` refuses them
+    with the reference's exception and text, as the reference's launcher
+    does: it serves the ``dense`` and ``moe`` families (the ``moe_*``
+    cases above), and the recurrent families are refused the same way
+    (below)."""
+    for arch in ("whisper-small", "qwen2-vl-7b"):
+        argv = ["--arch", arch, "--reduced"]
+        with pytest.raises(NotImplementedError) as want, \
+                contextlib.redirect_stdout(io.StringIO()):
+            run_reference(argv)
+        with pytest.raises(NotImplementedError) as got, \
+                contextlib.redirect_stdout(io.StringIO()):
+            TS.main(argv + ["--device", "cpu"])
+        assert str(got.value) == str(want.value)
+        assert str(want.value).startswith(
+            "ServeEngine serves KV-cache token LMs")
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b"])
