@@ -254,6 +254,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    unfused chain and the library yardstick (kmeans_assign's are taken in
    phase 7, at the full n).
 
+[train] (before phase 8): the dense trainer (``launch/train.py``) at
+``--quant`` card against CPU, resumed after a failure, at full width,
+codebook_matmul's gradient, and the paper nets' training loops.
+[train_families] (after [train]): training of the moe, ssm_rwkv, hybrid,
+audio and vlm families.  (a) Each reduced model (qwen3-moe-30b-a3b,
+grok-1-314b with 2 token chunks, rwkv6-7b, zamba2-2.7b, whisper-small,
+qwen2-vl-7b) at ``--quant`` (|A| 32, |W| 1000, the event at step 3), 6
+steps on the CPU and on the card from one initial set of params, every
+FFN site and rwkv's bf16 WKV streams locked to the CPU run's (flips and
+ties counted): losses within 1e-4, every MoE dispatch's decisions equal.
+(b) qwen3-moe-30b-a3b (2 of 48 layers, 4 × 128 tokens in 4
+microbatches), rwkv6-7b (4 of 32, 2 × 128, a k-means event, so
+kmeans_assign runs), zamba2-2.7b (6 of 54, one group, 4 × 128 in 4
+microbatches), whisper-small (12 + 12, 2 × 1500 frames, 64 tokens) and
+qwen2-vl-7b (4 of 28, 2 × 128 embeddings with M-RoPE positions, then one
+step at 2 microbatches) at full width, bf16, act_levels 32, remat on, 4
+steps with the |W| 1000 event at step 2 (``launch.train.train`` for the
+token families, ``make_train_step`` for whisper and the vlm): losses and
+params finite, params moved, every weight on a center after the event,
+act_quant and kmeans_assign launches held exactly to the layer
+structure, the first act_quant launches and the k-means values against
+the plain versions; step ms, its gradient and update apart with busy ms
+and idle share, peak memory.  grok-1-314b at full width is left out, the
+reason logged (its experts' training state outgrows the card).
+
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when no CUDA device is present.
 """
@@ -6041,11 +6066,13 @@ def quant_cfg(cfg, interval: int):
 
 
 @contextlib.contextmanager
-def ffn_sites(records: list, stats: dict | None = None):
-    """Every FFN activation site (``layers.ffn_act``): without ``stats``
+def ffn_sites(records: list, stats: dict | None = None,
+              rel: float = TRAIN_LOCK_REL):
+    """Every FFN activation site (``ffn_act`` in ``layers``, ``moe``,
+    ``rwkv`` and ``ssm``): without ``stats``
     each call appends its input and output, on the host, to ``records``
     (the CPU run); with ``stats`` each call takes the next record, checks
-    its own input within ``TRAIN_LOCK_REL`` of the site's largest |x| and
+    its own input within ``rel`` of the site's largest |x| and
     its levels equal but where one flipped at a boundary tie (one level
     apart, both inputs within that bound of the boundary), counted, and
     goes on with the recorded output, straight through (the card run),
@@ -6054,6 +6081,10 @@ def ffn_sites(records: list, stats: dict | None = None):
     from repro_torch.core.activations import (ActQuantConfig,
                                               act_input_boundaries)
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import rwkv as R
+    from repro_torch.models import ssm as S
+    mods = (L, M, R, S)          # each binds ffn_act under its own name
     route = L.ffn_act
 
     def record(x, kind, levels, mul=None):
@@ -6067,7 +6098,7 @@ def ffn_sites(records: list, stats: dict | None = None):
         xp, yp = x.detach().float().cpu().numpy(), y.detach().float().cpu(
             ).numpy()
         xw, ywn = xw.float().numpy(), yw.float().numpy()
-        tol = TRAIN_LOCK_REL * max(1.0, float(np.abs(xw).max()))
+        tol = rel * max(1.0, float(np.abs(xw).max()))
         stats["max_input_gap"] = max(stats["max_input_gap"],
                                      float(np.abs(xp - xw).max()))
         if xp.shape != xw.shape or np.abs(xp - xw).max() > tol:
@@ -6093,11 +6124,13 @@ def ffn_sites(records: list, stats: dict | None = None):
         y = y + (yw.to(y.device, y.dtype) - y).detach()
         return y if mul is None else y * mul
 
-    L.ffn_act = record if stats is None else lock
+    for m in mods:
+        m.ffn_act = record if stats is None else lock
     try:
         yield
     finally:
-        L.ffn_act = route
+        for m in mods:
+            m.ffn_act = route
 
 
 def train_reduced(dev) -> dict:
@@ -6302,22 +6335,26 @@ def train_full(dev, acts: list) -> dict:
             "allocator": allocator}
 
 
-def train_step_split(cfg, params) -> dict:
+def train_step_split(cfg, params, batch=None) -> dict:
     """One more full-width step on the trained params, its two halves
     timed apart (each synchronized): the loss's forward and backward
-    (``value_and_grad``, remat included) and the optimizer's update
-    (``apply_updates``, adamw on f32 moments, fresh); then each half again
-    under the profiler: device busy ms, the idle share against the timed
-    call's wall, kernels launched, the largest kernels."""
+    (``value_and_grad``, remat included, the whole batch at once) and the
+    optimizer's update (``apply_updates``, adamw on f32 moments, fresh);
+    then each half again under the profiler: device busy ms, the idle
+    share against the timed call's wall, kernels launched, the largest
+    kernels.  ``batch``: the step's inputs (the next ``TokenPipeline``
+    batch of ``TRAIN_FULL`` when None)."""
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.model_zoo import build
     from repro_torch.optim import OptConfig, apply_updates, init_opt_state
     model = build(cfg)
     ocfg = OptConfig(name="adamw", lr=3e-3, moments_dtype=cfg.moments_dtype)
-    batch = TokenPipeline(vocab=cfg.vocab, batch=TRAIN_FULL["batch"],
-                          seq=TRAIN_FULL["seq"], device=params["embed"][
-                              "table"].device).batch_at(TRAIN_FULL["steps"])
+    if batch is None:
+        batch = TokenPipeline(
+            vocab=cfg.vocab, batch=TRAIN_FULL["batch"], seq=TRAIN_FULL["seq"],
+            device=params["embed"]["table"].device).batch_at(
+                TRAIN_FULL["steps"])
     opt = init_opt_state(params, ocfg)
 
     def grad():
@@ -6720,6 +6757,524 @@ def train_path(dev, smi: str) -> tuple[dict, dict]:
     log(f"[train] {smi}: phase {stats['phase_s']:.1f}s (reduced "
         f"{t_red:.1f}s, driven path {t_path:.1f}s of which full width "
         f"{t_full:.1f}s); launches {launches}")
+    return stats, launches
+
+
+TF_ARCHS = ("qwen3-moe-30b-a3b", "grok-1-314b", "rwkv6-7b", "zamba2-2.7b",
+            "whisper-small", "qwen2-vl-7b")
+TF_REDUCED = dict(B=2, S=16, steps=6)
+TF_REDUCED_EVENT = 3      # laplacian_l1 |W| 1000, global, at step 3
+# full width: layers, rows, tokens a row, the event's method.  qwen3-moe
+# keeps 1 of its 48 layers: at 2 (1.87e9 params, 1.21e9 of them experts)
+# its adamw update ran out of an H100 80GB HBM3's memory (65.6 GiB
+# allocated and 11.7 reserved, with the f32 gradient sum of its 4
+# microbatches, the old and new f32 moments and the largest leaf's f32
+# temporaries)
+TF_FULL = {"qwen3-moe-30b-a3b": (1, 4, 128, "laplacian_l1"),
+           "rwkv6-7b": (4, 2, 128, "kmeans"),
+           "zamba2-2.7b": (6, 4, 128, "laplacian_l1"),
+           "whisper-small": (12, 2, 64, "laplacian_l1"),
+           "qwen2-vl-7b": (4, 2, 128, "laplacian_l1")}
+TF_FULL_STEPS, TF_FULL_EVENT = 4, 2
+TF_VLM_MICROBATCHES = 2   # one more qwen2-vl step, positions split
+TF_ACT_RECORDS = 64       # act_quant launches a model held to the plain
+# locked sites and streams, card vs CPU, of the largest |x|: the two runs'
+# params part a little more each step where adam's normalized step turns
+# a noise-level gradient difference into a step of up to ±lr (qwen2-vl's
+# reduced model on an H100 80GB HBM3: 9.3e-5 by step 2, past [train]'s
+# 1e-5 of 4.0)
+TF_LOCK_REL = 1e-4
+def tf_sites(cfg) -> int:
+    """FFN activation sites (``ffn_act``, one act_quant launch each at
+    act_levels > 0) a forward: a SwiGLU a layer (dense, vlm); the experts'
+    buffer a layer and token chunk (moe); rwkv's gate and channel mix a
+    layer; the hybrid's conv and gate a Mamba2 block and the shared
+    block's SwiGLU a group; whisper's biased MLP an encoder and a decoder
+    layer."""
+    if cfg.family == "moe":
+        return cfg.n_layers * max(1, cfg.moe_token_chunks)
+    if cfg.family == "ssm_rwkv":
+        return 2 * cfg.n_layers
+    if cfg.family == "hybrid":
+        return 2 * cfg.n_layers + cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "audio":
+        return cfg.n_layers + cfg.enc_layers
+    return cfg.n_layers
+
+
+@contextlib.contextmanager
+def wkv_streams(records: dict, stats: dict | None = None):
+    """The WKV scan's bf16 streams (r, k and v in, y out,
+    ``rwkv._wkv_scan``) and their cotangents, bf16 too.  Without
+    ``stats`` each call appends its streams, on the host, to
+    ``records['fwd']``, and each cotangent, as the backward reaches it, to
+    ``records[name]`` (the CPU run).  With ``stats`` each call takes the
+    next record and holds its streams to it as
+    ``tests/recurrent_rig.lock_streams(straight=True)`` does (each
+    element within ``TF_LOCK_REL`` of the stream's largest |value|, as
+    ``ffn_sites``' inputs, or one bf16 step apart: a rounding tie,
+    counted), then goes on with the recorded values, straight through, so
+    the gradient still flows through the card's scan; each cotangent is
+    held to the CPU's in the backward's order the same way and replaced
+    by it (the card run)."""
+    import torch
+    from repro_torch.models import rwkv as R
+    route = R._wkv_scan
+
+    def close(got, want, name):
+        tol = TF_LOCK_REL * max(1.0 if len(name) == 1 else 0.0,
+                                   float(want.float().abs().max()))
+        far = (got.float() - want.float()).abs() > tol
+        if bool(far.any()):
+            if bf16_steps(got[far], want[far]) > 1:
+                raise AssertionError(f"[train_families] WKV stream {name}: "
+                                     "card and CPU part by more than a "
+                                     "bf16 step")
+            stats[name] += int(far.sum())
+
+    def keep(t, name):
+        if t.requires_grad:
+            t.register_hook(lambda g: records[name].append(g.detach().cpu()))
+        return t
+
+    def record(r, k, v, u, logw, cfg, s0=None):
+        r, k, v = (keep(a, n) for a, n in zip((r, k, v), "rkv"))
+        y, s = route(r, k, v, u, logw, cfg, s0)
+        records["fwd"].append([a.detach().cpu() for a in (r, k, v, y)])
+        return keep(y, "y"), s
+
+    def held(a, want, name):
+        close(a.detach(), want, name)
+        af = a.float()
+        out = (af + (want.float() - af).detach()).to(torch.bfloat16)
+
+        def hold(g):
+            w = records[name].pop(0).to(g.device)
+            close(g, w, "d" + name)
+            return w.to(g.dtype)
+        if out.requires_grad:
+            out.register_hook(hold)
+        return out
+
+    def lock(r, k, v, u, logw, cfg, s0=None):
+        want = [t.to(r.device) for t in records["fwd"].pop(0)]
+        r, k, v = (held(a, w, n) for a, w, n in zip((r, k, v), want, "rkv"))
+        y, s = route(r, k, v, u, logw, cfg, s0)
+        stats["scans"] += 1
+        return held(y, want[3], "y"), s
+
+    R._wkv_scan = record if stats is None else lock
+    try:
+        yield
+    finally:
+        R._wkv_scan = route
+
+
+@contextlib.contextmanager
+def moe_routes(out: list):
+    """Each MoE dispatch's decisions (``moe._dispatch_local``): the expert
+    ids, buffer slots and kept entries, on the host, appended to
+    ``out``."""
+    from repro_torch.models import moe as M
+    route = M._dispatch_local
+
+    def spy(x_flat, ids, n_experts, capacity):
+        buf, slot, keep = route(x_flat, ids, n_experts, capacity)
+        out.append([a.detach().cpu() for a in (ids, slot, keep)])
+        return buf, slot, keep
+
+    M._dispatch_local = spy
+    try:
+        yield
+    finally:
+        M._dispatch_local = route
+
+
+def tf_batch(cfg, B: int, S: int, dev) -> dict:
+    """The inputs of a family whose batches carry more than tokens
+    (whisper's frames, the vlm's embeddings and M-RoPE positions),
+    ``fam_batch``'s, drawn on the CPU and moved: the same on both
+    devices."""
+    return _to(fam_batch(cfg, B, S, 29, "cpu"), dev)
+
+
+def tf_loop(cfg, dev, params, batch: dict, steps: int, seed: int = 0):
+    """``launch/train.py``'s loop for the families whose batches
+    ``TokenPipeline`` cannot give (``train`` feeds tokens only and fails
+    on them, as the reference's does): each step the clustering event
+    when ``cfg.wq.due(step)`` (``train.cluster_params`` on a generator
+    folded from the seed and the step), then ``make_train_step`` (adamw,
+    lr 3e-3, ``warmup_cosine(20, steps)``) on ``batch``, synchronized and
+    timed.  Returns (params, quantizer state, history)."""
+    import torch
+    from repro_torch.core.quantizer import fold_in, init_state
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch import train as TT
+    from repro_torch.models.model_zoo import build
+    from repro_torch.optim import OptConfig, init_opt_state, warmup_cosine
+    dev = torch.device(dev)
+    ocfg = OptConfig(name="adamw", lr=3e-3, schedule=warmup_cosine(20, steps),
+                     moments_dtype=cfg.moments_dtype)
+    step_fn = ST.make_train_step(build(cfg), ocfg)
+    opt, qstate, hist = init_opt_state(params, ocfg), init_state(cfg.wq), []
+    for step in range(steps):
+        t = time.perf_counter()
+        if cfg.wq.due(step):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            params, qstate = TT.cluster_params(params, cfg.wq, qstate, step,
+                                               fold_in(gen, step))
+        params, opt, m = step_fn(params, opt, batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        hist.append({"step": step, "loss": float(m["loss"]),
+                     "sec": time.perf_counter() - t})
+    return params, qstate, hist
+
+
+def tf_train(cfg, dev, init, B: int, S: int, steps: int):
+    """Train ``cfg`` from the params ``init`` (on ``dev``): the token
+    families through ``launch.train.train`` (``Model.init`` answering
+    ``init``), whisper and the vlm through ``tf_loop`` on ``tf_batch``.
+    Returns (params, quantizer state, history)."""
+    from repro_torch.launch import train as TT
+    from repro_torch.models.model_zoo import Model
+    if cfg.family in ("audio", "vlm"):
+        return tf_loop(cfg, dev, init, tf_batch(cfg, B, S, dev), steps)
+    route = Model.init
+    Model.init = lambda self, gen, device=None: init
+    try:
+        return TT.train(cfg, TT.TrainLoopConfig(
+            steps=steps, batch=B, seq=S, log_every=1, device=str(dev)),
+            log=lambda *a: None)
+    finally:
+        Model.init = route
+
+
+@contextlib.contextmanager
+def tf_event_lock(records: list, stats: dict | None = None):
+    """The clustering event (``train.cluster_params``): without ``stats``
+    each event appends its snapped params and codebook, on the host, to
+    ``records`` (the CPU run); with ``stats`` the card's own event is held
+    to the next record (its codebook within ``KM_RTOL`` of the CPU's
+    largest |center|; a weight on another center than the CPU's only one
+    center apart: the centers' last bits move a weight lying near a
+    midpoint, counted) and the run goes on with the CPU's params and
+    codebook, moved (the card run), as ``ffn_sites`` goes on with the
+    CPU's activations."""
+    import torch
+    from repro_torch.core.quantizer import QuantizerState
+    from repro_torch.launch import train as TT
+    route = TT.cluster_params
+
+    def record(params, wq, qstate, step, gen):
+        out = route(params, wq, qstate, step, gen)
+        records.append((_to(out[0], "cpu"), out[1].codebooks[""].cpu()))
+        return out
+
+    def lock(params, wq, qstate, step, gen):
+        got, gq = route(params, wq, qstate, step, gen)
+        want, book = records.pop(0)
+        mine = gq.codebooks[""].cpu()
+        gap = float((mine - book).abs().max() / book.abs().max())
+        if mine.shape != book.shape or gap > KM_RTOL:
+            raise AssertionError(f"[train_families] the card's codebook is "
+                                 f"{gap:.3e} of the largest |center| from "
+                                 "the CPU's")
+        for g, w in zip(_leaves(got), _leaves(want)):
+            g = g.cpu()
+            far = g != w
+            if bool(far.any()):
+                ids = [torch.searchsorted(b, v.float().contiguous())
+                       for b, v in ((mine, g[far]), (book, w[far]))]
+                if bool(((ids[0] - ids[1]).abs() > 1).any()):
+                    raise AssertionError("[train_families] a weight the "
+                                         "card snaps two centers from the "
+                                         "CPU's")
+                stats["moved"] += int(far.sum())
+            stats["values"] += g.numel()
+        dev = next(_leaves(got)).device
+        return _to(want, dev), QuantizerState(
+            codebooks={"": book.to(dev)}, last_step=gq.last_step)
+
+    TT.cluster_params = record if stats is None else lock
+    try:
+        yield
+    finally:
+        TT.cluster_params = route
+
+
+def train_families_reduced(dev) -> dict:
+    """(a) Each family's reduced model (grok-1-314b with 2 token chunks,
+    as ``[moe]`` runs it) at ``quant_cfg`` (act_levels 32, laplacian_l1
+    |W| 1000, the event at step 3), 6 steps on the CPU, then on the card
+    from the same initial params (the CPU's, moved: a CUDA generator
+    draws other numbers), every FFN site locked to the CPU run's
+    (``ffn_sites``, inputs within ``TF_LOCK_REL``), rwkv's WKV streams (``wkv_streams``) and the event
+    (``tf_event_lock``) too: each logged loss within ``TRAIN_LOSS_TOL``,
+    flips, ties and weights snapped a center apart counted, every MoE
+    dispatch's decisions equal, the event run on both."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model_zoo import build
+    out = {}
+    for name in TF_ARCHS:
+        t0 = time.time()
+        cfg = quant_cfg(configs.get(name).reduced(), TF_REDUCED_EVENT)
+        if name == "grok-1-314b":
+            cfg = cfg.replace(moe_token_chunks=2)
+        init = build(cfg).init(torch.Generator().manual_seed(0), "cpu")
+        recs, routes = [], {"cpu": [], "card": []}
+        streams = {n: [] for n in ("fwd", "r", "k", "v", "y")}
+        evs, snap = [], {"moved": 0, "values": 0}
+        with ffn_sites(recs), wkv_streams(streams), tf_event_lock(evs), \
+                moe_routes(routes["cpu"]):
+            _, cq, cpu = tf_train(cfg, "cpu", init, **TF_REDUCED)
+        lock = {"sites": 0, "acts": 0, "flips": 0, "max_input_gap": 0.0}
+        ties = {n: 0 for n in ("r", "k", "v", "y", "dr", "dk", "dv", "dy",
+                               "scans")}
+        with ffn_sites(recs, lock, TF_LOCK_REL), \
+                wkv_streams(streams, ties), \
+                tf_event_lock(evs, snap), moe_routes(routes["card"]):
+            _, gq, card = tf_train(cfg, dev, _to(init, dev), **TF_REDUCED)
+        if recs or evs or any(streams.values()):
+            raise AssertionError(f"[train_families] {name}: the card ran "
+                                 "fewer FFN sites or scans than the CPU")
+        gap = max(abs(a["loss"] - b["loss"]) for a, b in zip(card, cpu))
+        if [h["step"] for h in card] != [h["step"] for h in cpu] or \
+                gap > TRAIN_LOSS_TOL:
+            raise AssertionError(f"[train_families] reduced {name} losses "
+                                 f"card vs CPU: {gap}")
+        if (gq.last_step, cq.last_step) != (TF_REDUCED_EVENT,) * 2:
+            raise AssertionError(f"[train_families] {name}: the clustering "
+                                 "event did not run")
+        if len(routes["card"]) != len(routes["cpu"]) or not all(
+                torch.equal(a, b) for ra, rb in zip(routes["card"],
+                                                    routes["cpu"])
+                for a, b in zip(ra, rb)):
+            raise AssertionError(f"[train_families] {name}: the card's MoE "
+                                 "routing differs from the CPU's")
+        dropped = sum(int((~r[2]).sum()) for r in routes["cpu"])
+        out[name] = {"loss_gap": gap, "lock": lock, "event": snap,
+                     "losses": [h["loss"] for h in card],
+                     "dispatches": len(routes["cpu"]), "dropped": dropped,
+                     "wkv_ties": ties if ties["scans"] else None,
+                     "s": time.time() - t0}
+        log(f"[train_families] (a) reduced {name} at --quant, "
+            f"{TF_REDUCED['steps']} steps, event at {TF_REDUCED_EVENT}: card "
+            f"vs CPU max |Δloss| {gap:.3e} (gate {TRAIN_LOSS_TOL}); "
+            f"{lock['sites']} FFN sites locked, {lock['flips']} flips at "
+            f"boundary ties in {lock['acts']} activations, inputs within "
+            f"{lock['max_input_gap']:.3e}; the event held to the CPU's, "
+            f"{snap['moved']} of {snap['values']} weights one center apart"
+            + (f"; {len(routes['cpu'])} MoE dispatches equal ({dropped} "
+               "entries dropped at capacity)" if routes["cpu"] else "")
+            + (f"; WKV streams {ties}" if ties["scans"] else "")
+            + f"; {out[name]['s']:.1f}s")
+    return out
+
+
+@contextlib.contextmanager
+def tf_events(events: list):
+    """Each clustering event through ``train.cluster_params``, timed and
+    checked as it returns: every weight against the codebook's centers in
+    the weight's own dtype (the f32 MoE router's in f32), the ones off
+    every center counted."""
+    import torch
+    from repro_torch.launch import train as TT
+    route = TT.cluster_params
+
+    def event(params, wq, qstate, step, gen):
+        out, secs = timed(lambda: route(params, wq, qstate, step, gen))
+        books, off, n = {}, 0, 0
+        for leaf in _leaves(out[0]):
+            if leaf.dtype not in books:
+                books[leaf.dtype] = torch.unique(
+                    out[1].codebooks[""].to(leaf.dtype)).float()
+            book = books[leaf.dtype]
+            v = leaf.reshape(-1).float()
+            i = torch.searchsorted(book, v).clamp(max=book.numel() - 1)
+            off += int((book[i] != v).sum())
+            n += v.numel()
+        events.append({"step": step, "s": secs, "values": n,
+                       "off_center": off, "method": wq.method,
+                       "book": int(out[1].codebooks[""].numel())})
+        return out
+
+    TT.cluster_params = event
+    try:
+        yield
+    finally:
+        TT.cluster_params = route
+
+
+@contextlib.contextmanager
+def tf_records(acts: list, kms: list, cap: int):
+    """The first ``cap`` act_quant launches of the run, as
+    ``record_act_quant`` records them, and its first kmeans_stats call
+    (the values and centers), to hold against the plain versions
+    afterwards.  The wrappers and their launch counts stay the kernels'
+    own."""
+    from repro_torch.kernels import ops
+    aq, km = ops._act_quant, ops.kmeans_stats
+
+    def act(x, kind, levels, form, with_index, mul=None):
+        got = aq(x, kind, levels, form, with_index, mul)
+        if len(acts) < cap and ops._route(x) == "cuda":
+            acts.append((x, kind, levels, form, mul, got))
+        return got
+
+    def stats(values, centers, extremes=None):
+        if not kms:
+            kms.append((values.reshape(-1).float(), centers.float().clone()))
+        return km(values, centers, extremes)
+
+    ops._act_quant, ops.kmeans_stats = act, stats
+    try:
+        yield
+    finally:
+        ops._act_quant, ops.kmeans_stats = aq, km
+
+
+def tf_full(dev, name: str) -> dict:
+    """(b) ``name`` at full width, ``TF_FULL``'s layers, bf16, remat on,
+    act_levels 32, its own ``microbatches``, random weights from a seeded
+    CUDA generator: ``TF_FULL_STEPS`` steps (``launch.train.train`` for
+    the token families, ``tf_loop`` for whisper and the vlm) with the
+    |W| 1000 event of ``TF_FULL``'s method at step ``TF_FULL_EVENT``;
+    the vlm then one step at ``TF_VLM_MICROBATCHES``.  Launch counts set
+    to 0 before the run and read after it, held to the layer structure:
+    act_quant 2 × ``tf_sites`` (a forward and its remat recompute) × the
+    microbatches × the steps, kmeans_assign 2 × ``kmeans_iters`` for the
+    k-means event; the first act_quant launches and the k-means values
+    held to the plain versions; then one more step split into its
+    gradient and its update (``train_step_split``)."""
+    import dataclasses
+    import statistics
+    import torch
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as ST
+    from repro_torch.models.model_zoo import Model, build
+    from repro_torch.optim import OptConfig, init_opt_state
+    n_layers, B, S, method = TF_FULL[name]
+    base = configs.get(name)
+    cfg = quant_cfg(base.replace(n_layers=n_layers), TF_FULL_EVENT)
+    cfg = cfg.replace(wq=dataclasses.replace(cfg.wq, method=method))
+    nmb = max(1, cfg.microbatches)
+    events, acts, kms, fp = [], [], [], {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    init = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
+    n_params = sum(t.numel() for t in _leaves(init))
+    fp = [float(t.float().sum()) for t in _leaves(init)]
+    t_init = time.time() - t0
+    ops.reset_launch_counts()
+    with tf_events(events), tf_records(acts, kms, TF_ACT_RECORDS):
+        params, qstate, hist = tf_train(cfg, dev, init, B, S, TF_FULL_STEPS)
+        del init
+        want = {"act_quant": 2 * tf_sites(cfg) * nmb * TF_FULL_STEPS}
+        batch = tf_batch(cfg, B, S, dev) if cfg.family in (
+            "audio", "vlm") else None
+        mb_loss = None
+        if cfg.family == "vlm":
+            mcfg = cfg.replace(microbatches=TF_VLM_MICROBATCHES)
+            ocfg = OptConfig(name="adamw", lr=3e-3)
+            step_fn = ST.make_train_step(build(mcfg), ocfg)
+            params, _, m = step_fn(params, init_opt_state(params, ocfg),
+                                   batch)
+            mb_loss = float(m["loss"])
+            want["act_quant"] += 2 * tf_sites(cfg) * TF_VLM_MICROBATCHES
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    if method == "kmeans":
+        want["kmeans_assign"] = 2 * cfg.wq.kmeans_iters
+    rec_check(f"[train_families] (b) {name}", launches, want)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = list(_leaves(params))
+    finite = all(bool(torch.isfinite(t).all()) for t in leaves)
+    moved = sum(float(t.float().sum()) != f for t, f in zip(leaves, fp))
+    losses = [h["loss"] for h in hist] + ([mb_loss] if mb_loss is not None
+                                          else [])
+    ev = events
+    if not finite or not all(math_finite(x) for x in losses) or not moved:
+        raise AssertionError(f"[train_families] {name}: losses {losses}, "
+                             f"params finite {finite}, {moved} leaves moved")
+    if len(ev) != 1 or ev[0]["step"] != TF_FULL_EVENT or \
+            ev[0]["off_center"] or ev[0]["values"] != n_params or \
+            ev[0]["book"] != cfg.wq.num_weights:
+        raise AssertionError(f"[train_families] {name} event: {ev}")
+    act_par = paper_act_parity(acts)
+    del acts
+    km = kmeans_case(*kms[0]) if kms else None
+    del kms
+    step_ms = statistics.median(h["sec"] for h in hist[1:]) * 1e3
+    split = train_step_split(cfg, params, batch)
+    del params
+    out = {"layers": n_layers, "of": base.n_layers, "params": n_params,
+           "batch": [B, S], "microbatches": nmb, "losses": losses,
+           "step_ms": step_ms, "first_step_ms": hist[0]["sec"] * 1e3,
+           "event_step_ms": hist[TF_FULL_EVENT]["sec"] * 1e3,
+           "tokens_per_s": B * S / step_ms * 1e3, "peak_gib": peak / 2 ** 30,
+           "event": ev[0], "launches": launches, "init_s": t_init,
+           "act_quant_vs_plain": {k: act_par[k] for k in
+                                  ("launches", "ties", "max_abs_err")},
+           "kmeans_vs_plain": km, "split": split,
+           "moved_leaves": moved, "leaves": len(fp),
+           "s": time.time() - t0}
+    log(f"[train_families] (b) {name}: {n_layers} of {base.n_layers} layers "
+        f"at full width, {n_params} params, {cfg.dtype}, remat {cfg.remat}, "
+        f"act_levels {cfg.act_levels}, {B} × {S} tokens, microbatches {nmb}"
+        f", {TF_FULL_STEPS} steps: losses {[round(x, 4) for x in losses]}; "
+        f"step {step_ms:.1f} ms (median after the first; first "
+        f"{out['first_step_ms']:.1f}, the event's {out['event_step_ms']:.1f})"
+        f"; a step apart: forward and backward {split['grad_ms']:.1f} ms "
+        f"wall, {split['grad']['busy_ms']:.1f} busy, idle "
+        f"{split['grad']['idle_share']:.3f}, {split['grad']['kernels']} "
+        f"kernels; update {split['update_ms']:.1f} ms wall, "
+        f"{split['update']['busy_ms']:.1f} busy, idle "
+        f"{split['update']['idle_share']:.3f}; peak {out['peak_gib']:.2f} "
+        f"GiB; event ({ev[0]['method']}) at step {ev[0]['step']} "
+        f"{ev[0]['s']:.2f}s, every one of {ev[0]['values']} weights on one "
+        f"of the {ev[0]['book']} centers; launches {launches} (held); "
+        f"act_quant against the plain version on {act_par['launches']} of "
+        f"the path's launches: {act_par['ties']} ties, max abs err "
+        f"{act_par['max_abs_err']:.3e}"
+        + (f"; kmeans_assign at the event's n against the plain version "
+           f"{json.dumps(km)}" if km else "")
+        + f"; {out['s']:.1f}s")
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_families_path(dev, smi: str) -> tuple[dict, dict]:
+    """The [train_families] phase: (a) the reduced families card against
+    CPU, uncounted; then (b) each family at full width (``tf_full``, its
+    launch counts set to 0 before it and read after it); grok-1-314b at
+    full width left out, the reason logged.  Returns (stats, the driven
+    path's launches)."""
+    from repro_torch import configs
+    t0 = time.time()
+    red = train_families_reduced(dev)
+    t_red = time.time() - t0
+    full, launches = {}, {}
+    for name in TF_FULL:
+        full[name] = tf_full(dev, name)
+        for k, v in full[name]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    g = configs.get("grok-1-314b")
+    mat = g.n_experts * g.d_model * g.d_ff       # one layer's w1, w3 or w2
+    log(f"[train_families] grok-1-314b left out at full width: one layer "
+        f"holds {3 * mat:.3e} expert weights; bf16 params, gradients and "
+        f"{g.moments_dtype} adam moments, the update's new moments beside "
+        f"the old (10 bytes a weight), come to {30 * mat / 1e9:.1f} GB, "
+        f"and the update's f32 temporaries of one expert matrix "
+        f"({mat:.3e} values) {4 * mat / 1e9:.1f} GB each, before any "
+        f"activation; its reduced model runs in (a)")
+    stats = {"reduced": red, "full": full, "reduced_s": t_red,
+             "phase_s": time.time() - t0}
+    log(f"[train_families] {smi}: phase {stats['phase_s']:.1f}s (reduced "
+        f"{t_red:.1f}s); launches {launches}")
     return stats, launches
 
 
@@ -7254,6 +7809,8 @@ def main() -> int:
     pa_stats, pa_launches = paper_path(dev, smi, peaks)
     torch.cuda.empty_cache()
     tr_stats, tr_launches = train_path(dev, smi)
+    torch.cuda.empty_cache()
+    tf_stats, tf_launches = train_families_path(dev, smi)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -7277,7 +7834,8 @@ def main() -> int:
                    "recurrent": r_launches.get(k, 0),
                    "families": fa_launches.get(k, 0),
                    "paper": pa_launches.get(k, 0),
-                   "train": tr_launches.get(k, 0)}
+                   "train": tr_launches.get(k, 0),
+                   "train_families": tf_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -7348,6 +7906,7 @@ def main() -> int:
     log("[done] families path " + json.dumps(fa_stats))
     log("[done] paper path " + json.dumps(pa_stats))
     log("[done] train path " + json.dumps(tr_stats))
+    log("[done] train_families path " + json.dumps(tf_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

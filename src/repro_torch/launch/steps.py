@@ -20,11 +20,31 @@ def value_and_grad(loss_fn, params, *args):
     """((loss, aux), grads): ``loss_fn(params, *args)`` returns (scalar
     loss, aux); its gradient is taken on detached copies of the params
     that require grad (the params themselves never do), a tree of their
-    structure.  ``jax.value_and_grad(..., has_aux=True)``'s counterpart."""
+    structure.  A leaf the loss does not read (the vlm's ``embed``, whose
+    prompts come in as embeddings under an untied head) gets zeros in its
+    dtype, as ``jax.grad`` gives it.  ``jax.value_and_grad(...,
+    has_aux=True)``'s counterpart."""
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss, aux = loss_fn(p, *args)
-    grads = torch.autograd.grad(loss, list(leaves(p)))
+    ps = list(leaves(p))
+    grads = torch.autograd.grad(loss, ps, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, ps)]
     return (loss.detach(), aux), unflatten(p, grads)
+
+
+def _microbatch(batch: dict, nmb: int, i: int) -> dict:
+    """Slice ``i`` of ``nmb`` of a batch, as the reference's ``split_mb``
+    cuts it: every leaf on its first dim, the vlm's (3, B, L)
+    ``positions`` on its batch dim."""
+    out = {}
+    for k, x in batch.items():
+        if k == "positions":
+            out[k] = x.reshape((3, nmb, x.shape[1] // nmb)
+                               + x.shape[2:])[:, i]
+        else:
+            out[k] = x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
+    return out
 
 
 def make_train_step(model: Model, ocfg: OptConfig):
@@ -32,7 +52,7 @@ def make_train_step(model: Model, ocfg: OptConfig):
 
     ``model.loss``'s gradient (``value_and_grad``), then ``apply_updates``
     returns new trees.  With ``cfg.microbatches`` N > 1 the batch is
-    processed in N sequential slices of its first dim, bounding activation
+    processed in N sequential slices (``_microbatch``), bounding activation
     memory at 1/N while keeping the same update: the grads are averaged
     in the moments dtype, the metrics are the slices' mean."""
     cfg = model.cfg
@@ -49,14 +69,13 @@ def make_train_step(model: Model, ocfg: OptConfig):
             acc_dt = _ACC_DTYPES[cfg.moments_dtype]
             grads, ms = None, []
             for i in range(nmb):
-                mb = {k: x.reshape((nmb, x.shape[0] // nmb) + x.shape[1:])[i]
-                      for k, x in batch.items()}
-                m_i, g = grad_fn(params, mb)
+                m_i, g = grad_fn(params, _microbatch(batch, nmb, i))
                 div = torch.full((), nmb, dtype=acc_dt,
                                  device=next(leaves(params)).device)
                 g = tree_map(lambda b: b.to(acc_dt) / div, g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
                 ms.append(m_i)
+            del g       # the last slice's gradients: not held over the update
             metrics = {k: torch.mean(torch.stack([m[k] for m in ms]), dim=0)
                        for k in ms[0]}
         params, opt_state, om = apply_updates(params, grads, opt_state, ocfg)

@@ -36,8 +36,8 @@ class Model:
         return T.init_params(gen, self.cfg, device)
 
     def loss(self, params, batch, backend=dispatch.DENSE):
-        """Next-token CE and its metrics (dense family; the others raise
-        ``NotImplementedError``)."""
+        """Next-token CE and its metrics, every family; differentiable in
+        the params (``launch/steps.value_and_grad``)."""
         return T.loss_fn(params, self.cfg, batch, backend)
 
     def forward(self, params, batch, backend=dispatch.DENSE):

@@ -7,9 +7,10 @@ Per head (dim P), state S ∈ R^{P×P}:
 with w_t = exp(−exp(w0 + LoRA(x_t))) the data-dependent decay.  Token-shift
 mixes x_t with x_{t−1}.
 
-Prefill runs the exact recurrence token by token (``_wkv_scan``; the
-reference's chunked ``lax.scan`` computes the same steps), decode its O(1)
-step.  The casts are the reference's: the scan takes r, k and v as bf16
+Prefill and training run the exact recurrence token by token
+(``_wkv_scan``; the reference's chunked ``lax.scan`` computes the same
+steps, checkpointed per chunk under autograd on both sides), decode its
+O(1) step.  The casts are the reference's: the scan takes r, k and v as bf16
 streams and the decay in f32, keeps its state in f32 and rounds each
 step's output to bf16; the decode step keeps r, k and v in f32.  Every
 projection goes through ``layers.dense`` with the caller's ``backend`` and
@@ -22,6 +23,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dispatch
@@ -97,15 +99,35 @@ def _tm_projections(p, x, x_prev, backend):
     # the data-dependent decay (Finch): w = exp(-exp(w0 + lora(x)))
     dd = dense(p["w_lora_b"], torch.tanh(dense(p["w_lora_a"], lerp(4),
                                                backend)), backend)
-    logw = -torch.exp(torch.clamp(
+    logw = -torch.exp(_clip(
         p["w0"].to(torch.float32)[None, None, :] + dd.to(torch.float32),
         -8.0, 4.0))
     return r, k, v, g, logw             # logw = log decay ∈ (−∞, 0)
 
 
+def _clip(x, lo: float, hi: float):
+    """``jnp.clip``: minimum(maximum(x, lo), hi), whose gradient is half
+    at a tie with a bound, as JAX's ``max``/``min`` rules give it
+    (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
 def _bonus(r, u, k, v):
     """einsum('bhp,hp,bhp,bhq->bhq', r, u, k, v): (Σ_p r·u·k) v."""
     return torch.einsum("bhp,bhq->bhq", r * u * k, v)
+
+
+def _wkv_steps(r, k, v, u, logw, s):
+    """The recurrence over the tokens of one chunk from state ``s``: (y
+    bf16, the last state)."""
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = (a[:, t].to(torch.float32) for a in (r, k, v))
+        y = torch.einsum("bhp,bhpq->bhq", rt, s) + _bonus(rt, u, kt, vt)
+        s = s * torch.exp(logw[:, t].to(torch.float32))[..., None] + \
+            torch.einsum("bhp,bhq->bhpq", kt, vt)
+        ys.append(y.to(torch.bfloat16))
+    return torch.stack(ys, dim=1), s
 
 
 def _wkv_scan(r, k, v, u, logw, cfg: RWKVConfig, s0=None):
@@ -115,8 +137,12 @@ def _wkv_scan(r, k, v, u, logw, cfg: RWKVConfig, s0=None):
     f32; s0: (B, H, P, P) or None.  The state stays f32 and each step's
     output is rounded to bf16, as the reference's chunked scan rounds it.
     L must be a whole number of chunks of ``min(cfg.chunk, L)`` tokens, as
-    the reference asserts.  Returns (y (B, L, H, P) bf16, s_last (B, H, P,
-    P) f32).
+    the reference asserts.  Under autograd each chunk runs under
+    ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    per chunk: the backward keeps the states at chunk boundaries and
+    recomputes one chunk's steps at a time, where the token loop would
+    keep every step's (B, H, P, P) state.  Returns (y (B, L, H, P) bf16,
+    s_last (B, H, P, P) f32).
     """
     B, L, H, P = r.shape
     Q = min(cfg.chunk, L)
@@ -125,14 +151,19 @@ def _wkv_scan(r, k, v, u, logw, cfg: RWKVConfig, s0=None):
                          f"multiple of the chunk {Q}")
     s = (torch.zeros((B, H, P, P), dtype=torch.float32, device=r.device)
          if s0 is None else s0.to(torch.float32))
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (r, k, v, u, logw, s))
     ys = []
-    for t in range(L):
-        rt, kt, vt = (a[:, t].to(torch.float32) for a in (r, k, v))
-        y = torch.einsum("bhp,bhpq->bhq", rt, s) + _bonus(rt, u, kt, vt)
-        s = s * torch.exp(logw[:, t].to(torch.float32))[..., None] + \
-            torch.einsum("bhp,bhq->bhpq", kt, vt)
-        ys.append(y.to(torch.bfloat16))
-    return torch.stack(ys, dim=1), s
+    for c in range(0, L, Q):
+        args = tuple(a[:, c:c + Q] for a in (r, k, v)) + (
+            u, logw[:, c:c + Q], s)
+        if remat:
+            y, s = torch.utils.checkpoint.checkpoint(_wkv_steps, *args,
+                                                     use_reentrant=False)
+        else:
+            y, s = _wkv_steps(*args)
+        ys.append(y)
+    return torch.cat(ys, dim=1), s
 
 
 def _gate(y, g, cfg: RWKVConfig):

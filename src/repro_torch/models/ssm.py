@@ -97,6 +97,32 @@ def _causal_conv(x, w, state=None):
     return out, xp[:, -(K - 1):, :]
 
 
+class _Cumsum(torch.autograd.Function):
+    """Cumulative sum along ``dim`` in XLA's order: the forward a running
+    sum from the first element, the backward each output's sum Σ_{j≥i}
+    g_j taken from g_i upwards (``jnp.cumsum``'s transpose).  The chunk's
+    log decays are summed so, which keeps the SSD scan's cancelling
+    gradient sums (``A_log``'s) in the reference's rounding."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int):
+        ctx.dim = dim
+        parts = x.unbind(dim)
+        acc, out = parts[0], [parts[0]]
+        for p in parts[1:]:
+            acc = acc + p
+            out.append(acc)
+        return torch.stack(out, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, n = ctx.dim, g.shape[ctx.dim]
+        y = g.clone()
+        for k in range(1, n):
+            y.narrow(dim, 0, n - k).add_(g.narrow(dim, k, n - k))
+        return y, None
+
+
 def _ssd_chunked(xh, dt, A, B, C, cfg: SSMConfig, h0=None):
     """Chunked SSD scan.
 
@@ -119,7 +145,7 @@ def _ssd_chunked(xh, dt, A, B, C, cfg: SSMConfig, h0=None):
     Cc = C.reshape(Bt, nC, Q, G, N)
 
     g = dtc * A[None, None, None, :]                  # per-step log decay
-    gcum = torch.cumsum(g, dim=2)
+    gcum = _Cumsum.apply(g, 2)
     gtot = gcum[:, :, -1, :]                          # (Bt, nC, H)
 
     # intra-chunk: y_i += Σ_{j<=i} C_i·B_j exp(gcum_i − gcum_j) dt_j x_j.

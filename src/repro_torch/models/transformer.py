@@ -2,11 +2,11 @@
 encoder-decoder, RWKV-6 and Mamba2/Zamba2 hybrid families (the port's copy
 of ``repro/models/transformer.py``): init, the trunk ``forward``, prefill
 and the decode step for every family; the training loss ``loss_fn`` for
-the dense family (``forward`` runs under autograd there, each block
-checkpointed when ``cfg.remat`` is set, as the reference's
-``jax.checkpoint``; the other families refuse training); the speculative
-verify step and the paged KV cache's chunked prefill, decode step and
-verify step for the paged families (dense, moe).  A ``moe`` model's
+every family (``forward`` runs under autograd, each block, the
+encoder's included, and each of the hybrid's groups checkpointed when
+``cfg.remat`` is set, as the reference's ``jax.checkpoint``); the
+speculative verify step and the paged KV cache's chunked prefill, decode
+step and verify step for the paged families (dense, moe).  A ``moe`` model's
 blocks carry ``'moe'`` (``models/moe.py``) where a dense model's carry
 ``'mlp'``; every FFN site goes through ``_ffn``, which takes the routed
 FFN when the layer has one, as the reference's ``_dense_block`` does.
@@ -222,6 +222,22 @@ def _unbind(tree, n: int) -> list:
     return out
 
 
+def _layers(tree, n: int, train: bool) -> list:
+    """The ``n`` layers of a stacked parameter dict: unbound once under
+    autograd (``_unbind``), views (``_layer``) otherwise."""
+    return _unbind(tree, n) if train else [_layer(tree, i) for i in range(n)]
+
+
+def _remat(on: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``on`` (its
+    activations recomputed in the backward, as the reference's
+    ``jax.checkpoint``)."""
+    if on:
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
 def _norm(cfg):
     """The decoder's norm: layer norm for the encoder-decoder, RMS norm for
     every other family."""
@@ -253,21 +269,26 @@ def _dec_tail(p_l, x, memory, cfg, backend):
                            cfg.act_kind, cfg.act_levels, backend)
 
 
+def _enc_block(p_l, x, cfg, backend):
+    """A non-causal pre-norm block of the encoder."""
+    a, _ = A.attn_apply(p_l["attn"], L.layer_norm(p_l["ln1"], x),
+                        attn_cfg(cfg, causal=False), backend)
+    x = x + a
+    return x + L.mlp_block(p_l["mlp"], L.layer_norm(p_l["ln2"], x),
+                           cfg.act_kind, cfg.act_levels, backend)
+
+
 def _encoder(params, cfg, frames, backend):
     """The encoder over (B, enc_len, d) frame embeddings (the reference's
     stub of a conv front end): the position table added (read as
     ``enc_pos['table']``, so a compressed table raises ``KeyError``, as
-    the reference's does), non-causal pre-norm blocks, ``enc_norm``."""
+    the reference's does), non-causal pre-norm blocks (``_remat``'d under
+    autograd), ``enc_norm``."""
+    train = _training(params)
     x = (frames.to(_dtype(cfg))
          + params["enc_pos"]["table"][None, :frames.shape[1]])
-    acfg = attn_cfg(cfg, causal=False)
-    for i in range(cfg.enc_layers):
-        p_l = _layer(params["enc_blocks"], i)
-        a, _ = A.attn_apply(p_l["attn"], L.layer_norm(p_l["ln1"], x), acfg,
-                            backend)
-        x = x + a
-        x = x + L.mlp_block(p_l["mlp"], L.layer_norm(p_l["ln2"], x),
-                            cfg.act_kind, cfg.act_levels, backend)
+    for p_l in _layers(params["enc_blocks"], cfg.enc_layers, train):
+        x = _remat(train and cfg.remat, _enc_block, p_l, x, cfg, backend)
     return L.layer_norm(params["enc_norm"], x)
 
 
@@ -361,8 +382,23 @@ def _rwkv_trunk(params, cfg, x, backend):
     return x, states
 
 
-def _train_block(p_l, x, cfg, backend):
-    return _kv_block(p_l, x, cfg, backend)[0]
+def _kv_block_x(p_l, x, cfg, backend, pos=None, memory=None):
+    """``_kv_block``'s x alone (a forward keeps no K/V)."""
+    return _kv_block(p_l, x, cfg, backend, pos, memory)[0]
+
+
+def _rwkv_block_x(p_l, x, cfg, backend):
+    """``_rwkv_block``'s x alone (a forward keeps no state)."""
+    return _rwkv_block(p_l, x, cfg, backend)[0]
+
+
+def _hybrid_group(shared, group, x, x0, cfg, backend):
+    """One of the hybrid's groups: the shared block, then its
+    ``shared_attn_every`` Mamba2 blocks (``group``: their layers)."""
+    x = _shared_block(shared, x, x0, cfg, backend)
+    for p_l in group:
+        x, _ = _mamba_block(p_l, x, cfg, backend)
+    return x
 
 
 def forward(params, cfg, batch, backend=dispatch.DENSE):
@@ -370,40 +406,30 @@ def forward(params, cfg, batch, backend=dispatch.DENSE):
     f32 at every position.  batch: {'tokens': (B, L)}; the vlm's
     {'embeds': (B, L, d), 'positions': (3, B, L) (optional)} in place of
     the token lookup; the encoder-decoder's {'frames': (B, enc_len, d)}
-    beside its tokens.  Under autograd (``_training``) for the dense
-    family only: its layers are unbound once and, with ``cfg.remat``, each
-    block runs under ``torch.utils.checkpoint`` (recomputed in the
-    backward)."""
+    beside its tokens.  Under autograd (``_training``) the layers are
+    unbound once and, with ``cfg.remat``, each block (the encoder's too)
+    runs under ``torch.utils.checkpoint``, recomputed in the backward; the
+    hybrid checkpoints each group (its shared block and its Mamba2
+    blocks), as the reference's ``jax.checkpoint(group)``: the shared
+    parameters and the embeddings ``x0`` gather gradient from every
+    group."""
     train = _training(params)
-    if train and cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: the "
-            "port trains the dense family")
+    remat = train and cfg.remat
     x, pos = _embed_prompt(params, cfg, batch)
-    blocks = params["blocks"]
+    per_layer = _layers(params["blocks"], cfg.n_layers, train)
     if cfg.family in _KV_FAMILIES:
         memory = (_encoder(params, cfg, batch["frames"], backend)
                   if cfg.family == "audio" else None)
-        per_layer = _unbind(blocks, cfg.n_layers) if train else None
-        for i in range(cfg.n_layers):
-            if not train:
-                x, _ = _kv_block(_layer(blocks, i), x, cfg, backend, pos,
-                                 memory)
-            elif cfg.remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    _train_block, per_layer[i], x, cfg, backend,
-                    use_reentrant=False)
-            else:
-                x = _train_block(per_layer[i], x, cfg, backend)
+        for p_l in per_layer:
+            x = _remat(remat, _kv_block_x, p_l, x, cfg, backend, pos, memory)
     elif cfg.family == "ssm_rwkv":
-        x, _ = _rwkv_trunk(params, cfg, x, backend)
+        for p_l in per_layer:
+            x = _remat(remat, _rwkv_block_x, p_l, x, cfg, backend)
     elif cfg.family == "hybrid":
         G, x0 = cfg.shared_attn_every, x
         for g in range(_groups(cfg)):
-            x = _shared_block(params["shared"], x, x0, cfg, backend)
-            for j in range(G):
-                x, _ = _mamba_block(_layer(blocks, g * G + j), x, cfg,
-                                    backend)
+            x = _remat(remat, _hybrid_group, params["shared"],
+                       per_layer[g * G:(g + 1) * G], x, x0, cfg, backend)
     else:
         raise ValueError(cfg.family)
     return _logits(params, cfg, _norm(cfg)(params["final_norm"], x), backend)
@@ -412,11 +438,7 @@ def forward(params, cfg, batch, backend=dispatch.DENSE):
 def loss_fn(params, cfg, batch, backend=dispatch.DENSE):
     """Next-token CE (teacher forcing) in f32, mean over real (non-pad)
     targets (``batch['mask']``, optional): (loss, {'loss', 'ntokens'}).
-    Trains the dense family; the others raise ``NotImplementedError``."""
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family is not ported yet: the "
-            "port trains the dense family")
+    batch as ``forward`` takes it."""
     logits = forward(params, cfg, batch, backend)
     targets = batch["tokens"][:, 1:].long()
     lg = logits[:, :-1]

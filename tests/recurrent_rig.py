@@ -95,7 +95,8 @@ def bf16_ties(got: np.ndarray, want: np.ndarray, atol: float = 0.0) -> int:
     return int(far.sum())
 
 
-def lock_streams(JR, TR, monkeypatch, atol: float = 1e-5) -> dict:
+def lock_streams(JR, TR, monkeypatch, atol: float = 1e-5,
+                 straight: bool = False) -> dict:
     """Hold the WKV scan's bf16 streams of the port to the reference's.
 
     The scan takes r, k and v as bf16 and rounds each step's output y to
@@ -108,32 +109,79 @@ def lock_streams(JR, TR, monkeypatch, atol: float = 1e-5) -> dict:
     near zero the f32 values' own difference may span several steps within
     ``atol``), then runs on the
     reference's r, k and v and returns the reference's y.  Everything else
-    in the model is then compared on equal streams.  The reference must
-    run before the port."""
+    in the model is then compared on equal streams.
+
+    With ``straight`` (for gradients) the reference's values enter
+    straight through (the port's own r, k, v and y plus a detached
+    difference), so the gradient flows through the port's scan, and the
+    streams' cotangents, which are bf16 too and tie the same way, are
+    held as well: each cotangent of the reference's r, k, v and y is
+    recorded (an identity with a custom VJP around each), and the port's,
+    stream by stream in the backward's order, is held to it (``atol``
+    taken of the cotangent's largest |g|; ties counted as ``dr``, ``dk``,
+    ``dv``, ``dy``) and replaced by it.  The reference
+    must run before the port."""
     import jax
     import jax.numpy as jnp
 
     recorded, ties = [], {"r": 0, "k": 0, "v": 0, "y": 0, "scans": 0}
+    cots = {name: [] for name in "rkvy"}
+    if straight:
+        ties.update({"dr": 0, "dk": 0, "dv": 0, "dy": 0})
     jscan, tscan = JR._wkv_scan, TR._wkv_scan
 
     def record(*streams):
         recorded.append([np.array(a, np.float32) for a in streams])
 
+    def tap(name):
+        @jax.custom_vjp
+        def ident(x):
+            return x
+
+        def keep(g):
+            cots[name].append(np.array(g, np.float32))
+
+        def bwd(_, g):
+            jax.debug.callback(keep, g.astype(jnp.float32), ordered=True)
+            return (g,)
+        ident.defvjp(lambda x: (x, None), bwd)
+        return ident
+
+    taps = {name: tap(name) for name in "rkvy"} if straight else None
+
     def reference(r, k, v, u, logw, cfg, s0=None):
+        if straight:
+            r, k, v = (taps[n](a) for n, a in zip("rkv", (r, k, v)))
         y, s = jscan(r, k, v, u, logw, cfg, s0)
         jax.debug.callback(record, *(a.astype(jnp.float32)
                                      for a in (r, k, v, y)), ordered=True)
-        return y, s
+        return (taps["y"](y) if straight else y), s
+
+    def held(a, want, name):
+        w = torch.from_numpy(want)
+        if not straight:
+            return w.to(torch.bfloat16)
+        af = a.to(torch.float32)          # exact: the sum gives w's bits
+        out = (af + (w - af).detach()).to(torch.bfloat16)
+
+        def hold(g):
+            want_g = cots[name].pop(0)
+            scale = float(np.abs(want_g).max(initial=0.0))
+            ties["d" + name] += bf16_ties(g.float().numpy(), want_g,
+                                          atol * scale)
+            return torch.from_numpy(want_g).to(g.dtype)
+        out.register_hook(hold)
+        return out
 
     def port(r, k, v, u, logw, cfg, s0=None):
         want = recorded.pop(0)
         for name, a, b in zip("rkv", (r, k, v), want):
-            ties[name] += bf16_ties(a.float().numpy(), b, atol)
-        r, k, v = (torch.from_numpy(b).to(torch.bfloat16) for b in want[:3])
+            ties[name] += bf16_ties(a.detach().float().numpy(), b, atol)
+        r, k, v = (held(a, b, n) for a, b, n in zip((r, k, v), want, "rkv"))
         y, s = tscan(r, k, v, u, logw, cfg, s0)
-        ties["y"] += bf16_ties(y.float().numpy(), want[3], atol)
+        ties["y"] += bf16_ties(y.detach().float().numpy(), want[3], atol)
         ties["scans"] += 1
-        return torch.from_numpy(want[3]).to(torch.bfloat16), s
+        return held(y, want[3], "y"), s
 
     monkeypatch.setattr(JR, "_wkv_scan", reference)
     monkeypatch.setattr(TR, "_wkv_scan", port)

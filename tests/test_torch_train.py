@@ -5,8 +5,8 @@ from the reference's params carried across by ``bridge.from_jax_params``;
 (``--quant``: |A| 32, |W| 1000, laplacian_l1, global) with the clustering
 event at step 5, from the reference's initial params, losses within 1e-4
 of the reference's ``train`` history; one microbatched step; remat; k-means
-on a subsample; the launcher's JSON line; and the families that do not
-train yet refusing.
+on a subsample; the launcher's JSON line; and what still refuses a
+gradient (the activation's level index, the gated codebook launch).
 
 The reference runs jitted, as its trainer runs, with remat off on both
 sides, so that each FFN site runs once a forward.  ``lock_ffn`` then holds
@@ -282,15 +282,28 @@ def test_launcher_prints_the_reference_keys(capsys):
 @pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "rwkv6-7b",
                                   "zamba2-2.7b"])
 def test_other_families_refuse_training(arch):
+    """Every LM family trains; what still refuses a gradient, as the
+    reference defines none: the quantized activation's level index (the
+    §4 engine's) and the codebook backend's gated FFN launch, each on the
+    family's first FFN input under its loss (zamba2's gated launch
+    through its own forward at act_levels 32); and ``build`` refuses the
+    paper's nets."""
+    from repro_torch.kernels import dispatch as TD
+    from train_rig import (first_ffn_input, index_form_with_grad,
+                           refused_gated_ffn, refused_level_index)
     cfg = TC.get(arch).reduced()
     m = TZ.build(cfg)
     p = m.init(torch.Generator().manual_seed(0), "cpu")
     toks = torch.zeros(1, 16, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        m.loss(p, {"tokens": toks})
-    p = jax.tree.map(lambda t: t.requires_grad_(True) if t.is_floating_point()
-                     else t, p)
-    with pytest.raises(NotImplementedError, match="training"):
-        m.forward(p, {"tokens": toks})
+    x = first_ffn_input(m, p, {"tokens": toks})
+    refused_level_index(x)
+    if cfg.family == "hybrid":
+        quantized = TZ.build(cfg.replace(act_levels=32))
+        with pytest.raises(RuntimeError,
+                           match="codebook_swiglu has no gradient"):
+            quantized.forward(index_form_with_grad(p), {"tokens": toks},
+                              TD.BackendSpec("codebook"))
+    else:
+        refused_gated_ffn(x)
     with pytest.raises(ValueError, match="papernets"):
         TZ.build(TC.get("paper-mnist"))

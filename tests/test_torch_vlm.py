@@ -172,22 +172,29 @@ def test_positions_matter():
 
 
 def test_refusals():
-    """Training refuses the family (``loss_fn``; ``forward`` with a
-    parameter that requires grad); the paged cache and the verify step
-    refuse it with the reference's text."""
+    """The family trains; what still refuses a gradient, as the
+    reference defines none: the quantized activation's level index (the
+    §4 engine's) of the first FFN input under the loss, and at act_levels
+    32 the codebook backend's gated FFN launch (``codebook_swiglu``) in
+    ``forward`` of the compressed tree whose codebooks require grad; the
+    paged cache and the verify step refuse the family with the
+    reference's text."""
     pytest.importorskip("jax")
     import jax.numpy as jnp
+    from repro_torch.kernels import dispatch as TD
+    from repro_torch.models.model_zoo import build
+    from train_rig import (first_ffn_input, index_form_with_grad,
+                           refused_level_index)
     ns = reference_model(NAME)
     batch = inputs(ns.cfg, 2, 10, 2)
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     tb["tokens"] = tb["tokens"].long()
-    with pytest.raises(NotImplementedError, match="'vlm'"):
-        ns.tmodel.loss(ns.tparams, tb)
-    grad = {**ns.tparams, "lm_head": {
-        k: v.clone().requires_grad_() for k, v in
-        ns.tparams["lm_head"].items()}}
-    with pytest.raises(NotImplementedError, match="training the 'vlm'"):
-        ns.tmodel.forward(grad, tb)
+    refused_level_index(first_ffn_input(ns.tmodel, ns.tparams, tb))
+    quantized = build(ns.tmodel.cfg.replace(act_levels=32))
+    with pytest.raises(RuntimeError,
+                       match="codebook_swiglu has no gradient"):
+        quantized.forward(index_form_with_grad(ns.tparams), tb,
+                          TD.BackendSpec("codebook"))
     assert refusal(lambda: ns.tmodel.init_paged_cache(4, 8, device="cpu")) \
         == refusal(lambda: ns.model.init_paged_cache(4, 8))
     jcache = ns.model.init_cache(2, 8, dtype=jnp.float32)
