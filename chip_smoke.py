@@ -277,7 +277,24 @@ act_quant and kmeans_assign launches held exactly to the layer
 structure, the first act_quant launches and the k-means values against
 the plain versions; step ms, its gradient and update apart with busy ms
 and idle share, peak memory.  grok-1-314b at full width is left out, the
-reason logged (its experts' training state outgrows the card).
+reason logged (its experts' training state outgrows the card).  Every
+training run of [train] and [train_families] takes the donated step
+(``make_train_step(..., donate=True)``, as ``launch.train.train``): the
+params and moments are written in place, so a tree that is used again
+after a run is handed to it as a copy.
+[examples] (after [train_families]): with the launch counts set to 0,
+the port's four examples (``examples/*_torch.py``) through their
+``main`` in this process at the reference's defaults, stdout captured
+and logged: the serving example (its spec line says identical tokens,
+every probe figure finite, the paged pool clean, codebook_matmul on the
+codebook run, lut_matmul on the lut run, neither on dense, page_gather
+on the paged run, both in the spec serve), the quickstart (its last loss
+below the first, 12 tokens served), the MNIST table (continuous above
+0.85, |A| 32 + |W| 1000 within 0.05 of it), and the 93.6M-param model
+(the count from ``abstract_params`` equal to the trained tree's, losses
+finite, a checkpoint at step 200; the same argv with ``--steps 210`` on
+the same directory resumes from step 200); wall seconds, step ms, peak
+memory and launches of each.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when no CUDA device is present.
@@ -1221,6 +1238,13 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _clone(tree):
+    """A copy of every leaf: what a donated training run may write."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def _to_f32(tree):
@@ -5949,6 +5973,15 @@ def km_text(e: dict) -> str:
             f" of the fixed-point bound")
 
 
+def _detached(got: tuple) -> tuple:
+    """A launch's outputs without their autograd history: inside
+    ``_ActApply.forward`` the output is the tensor autograd hands back, so
+    a record of it would hold the step's graph, and through its saved
+    tensors the weights of that step, after a clustering event replaced
+    them."""
+    return tuple(t if t is None else t.detach() for t in got)
+
+
 @contextlib.contextmanager
 def record_act_quant(out: list):
     """Each act_quant launch through ``ops`` appends (x, kind, levels,
@@ -5961,7 +5994,7 @@ def record_act_quant(out: list):
     def spy(x, kind, levels, form, with_index, mul=None):
         got = route(x, kind, levels, form, with_index, mul)
         if ops._route(x) == "cuda":
-            out.append((x, kind, levels, form, mul, got))
+            out.append((x, kind, levels, form, mul, _detached(got)))
         return got
 
     ops._act_quant = spy
@@ -6342,12 +6375,15 @@ def train_step_split(cfg, params, batch=None) -> dict:
     optimizer's update (``apply_updates``, adamw on f32 moments, fresh);
     then each half again under the profiler: device busy ms, the idle
     share against the timed call's wall, kernels launched, the largest
-    kernels.  ``batch``: the step's inputs (the next ``TokenPipeline``
-    batch of ``TRAIN_FULL`` when None)."""
+    kernels.  The update is donated, as the trainer's: each call writes
+    ``params`` and the moments in place (and consumes a shallow copy of
+    the gradient tree).  ``batch``: the step's inputs (the next
+    ``TokenPipeline`` batch of ``TRAIN_FULL`` when None)."""
     from repro_torch.data.synthetic import TokenPipeline
     from repro_torch.launch.steps import value_and_grad
     from repro_torch.models.model_zoo import build
-    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
+    from repro_torch.optim import OptConfig, apply_updates_, init_opt_state
+    from repro_torch.tree import tree_map
     model = build(cfg)
     ocfg = OptConfig(name="adamw", lr=3e-3, moments_dtype=cfg.moments_dtype)
     if batch is None:
@@ -6362,7 +6398,8 @@ def train_step_split(cfg, params, batch=None) -> dict:
     (_, grads), t_grad = timed(grad)
 
     def update():
-        return apply_updates(params, grads, opt, ocfg)
+        return apply_updates_(params, tree_map(lambda g: g, grads), opt,
+                              ocfg)
     _, t_upd = timed(update)
     out = {"grad_ms": t_grad * 1e3, "update_ms": t_upd * 1e3}
     for name, fn, wall in (("grad", grad, t_grad), ("update", update,
@@ -6419,41 +6456,20 @@ def math_finite(v: float) -> bool:
     return v == v and abs(v) != float("inf")
 
 
-def mlp_ce(params, x, y, levels):
-    import torch
-    from repro_torch.models import papernets as PN
-    logits = PN.mlp_apply(params, x, "tanh", levels)
-    loss = torch.mean(torch.logsumexp(logits, -1) - torch.take_along_dim(
-        logits, y[:, None].long(), -1)[:, 0])
-    return loss, loss
-
-
 def train_mlp(dev, levels: int, n_weights: int, steps: int, hidden):
-    """The reference's ``_train_mlp`` (tests/test_papernets_integration):
-    adam lr 2e-3 on pseudo-MNIST batches of 64, laplacian_l1 events every
-    50 steps and a final snap."""
-    import torch
-    from repro_torch.core.quantizer import (WeightQuantConfig,
-                                            cluster_params, init_state)
+    """The reference's ``_train_mlp`` (tests/test_papernets_integration)
+    through ``launch/paper_loops.train_classifier``: adam lr 2e-3 on
+    pseudo-MNIST batches of 64, laplacian_l1 events every 50 steps and a
+    final snap.  Returns (params, qstate)."""
     from repro_torch.data.synthetic import pseudo_mnist_batch
-    from repro_torch.launch.steps import value_and_grad
+    from repro_torch.launch.paper_loops import train_classifier
     from repro_torch.models import papernets as PN
-    from repro_torch.optim import OptConfig, apply_updates, init_opt_state
-    params = PN.mlp_init(torch.Generator(device=dev).manual_seed(0), 784,
-                         list(hidden), 10, device=dev)
-    ocfg = OptConfig(name="adam", lr=2e-3)
-    opt = init_opt_state(params, ocfg)
-    wq = WeightQuantConfig(num_weights=n_weights, method="laplacian_l1",
-                           interval=50) if n_weights else WeightQuantConfig()
-    qstate = init_state(wq)
-    for s in range(steps):
-        if wq.due(s):
-            params, qstate = cluster_params(params, wq, qstate, s)
-        b = pseudo_mnist_batch(s, 64, device=dev)
-        _, g = value_and_grad(mlp_ce, params, b["x"], b["y"], levels)
-        params, opt, _ = apply_updates(params, g, opt, ocfg)
-    if wq.enabled:
-        params, qstate = cluster_params(params, wq, qstate, steps)
+    params, qstate, _ = train_classifier(
+        lambda gen: PN.mlp_init(gen, 784, list(hidden), 10, device=dev),
+        lambda p, x, lv, gen: PN.mlp_apply(p, x, "tanh", lv),
+        lambda s: pseudo_mnist_batch(s, 64, device=dev), steps=steps,
+        act_levels=levels, n_weights=n_weights, cluster_every=50,
+        device=dev)
     return params, qstate
 
 
@@ -6765,12 +6781,12 @@ TF_ARCHS = ("qwen3-moe-30b-a3b", "grok-1-314b", "rwkv6-7b", "zamba2-2.7b",
 TF_REDUCED = dict(B=2, S=16, steps=6)
 TF_REDUCED_EVENT = 3      # laplacian_l1 |W| 1000, global, at step 3
 # full width: layers, rows, tokens a row, the event's method.  qwen3-moe
-# keeps 1 of its 48 layers: at 2 (1.87e9 params, 1.21e9 of them experts)
-# its adamw update ran out of an H100 80GB HBM3's memory (65.6 GiB
-# allocated and 11.7 reserved, with the f32 gradient sum of its 4
-# microbatches, the old and new f32 moments and the largest leaf's f32
-# temporaries)
-TF_FULL = {"qwen3-moe-30b-a3b": (1, 4, 128, "laplacian_l1"),
+# runs 2 of its 48 layers (1.87e9 params, 1.21e9 of them experts) with
+# the donated step; without donation its adamw update ran out of an H100
+# 80GB HBM3's memory there (65.6 GiB allocated and 11.7 reserved: the new
+# params and f32 moments built beside the old ones, which the trainer's
+# frame also held), so 1 layer ran until the trainer donated
+TF_FULL = {"qwen3-moe-30b-a3b": (2, 4, 128, "laplacian_l1"),
            "rwkv6-7b": (4, 2, 128, "kmeans"),
            "zamba2-2.7b": (6, 4, 128, "laplacian_l1"),
            "whisper-small": (12, 2, 64, "laplacian_l1"),
@@ -6904,8 +6920,9 @@ def tf_loop(cfg, dev, params, batch: dict, steps: int, seed: int = 0):
     on them, as the reference's does): each step the clustering event
     when ``cfg.wq.due(step)`` (``train.cluster_params`` on a generator
     folded from the seed and the step), then ``make_train_step`` (adamw,
-    lr 3e-3, ``warmup_cosine(20, steps)``) on ``batch``, synchronized and
-    timed.  Returns (params, quantizer state, history)."""
+    lr 3e-3, ``warmup_cosine(20, steps)``, donated as the trainer's: the
+    params given are written) on ``batch``, synchronized and timed.
+    Returns (params, quantizer state, history)."""
     import torch
     from repro_torch.core.quantizer import fold_in, init_state
     from repro_torch.launch import steps as ST
@@ -6915,7 +6932,7 @@ def tf_loop(cfg, dev, params, batch: dict, steps: int, seed: int = 0):
     dev = torch.device(dev)
     ocfg = OptConfig(name="adamw", lr=3e-3, schedule=warmup_cosine(20, steps),
                      moments_dtype=cfg.moments_dtype)
-    step_fn = ST.make_train_step(build(cfg), ocfg)
+    step_fn = ST.make_train_step(build(cfg), ocfg, donate=True)
     opt, qstate, hist = init_opt_state(params, ocfg), init_state(cfg.wq), []
     for step in range(steps):
         t = time.perf_counter()
@@ -6931,17 +6948,20 @@ def tf_loop(cfg, dev, params, batch: dict, steps: int, seed: int = 0):
     return params, qstate, hist
 
 
-def tf_train(cfg, dev, init, B: int, S: int, steps: int):
-    """Train ``cfg`` from the params ``init`` (on ``dev``): the token
-    families through ``launch.train.train`` (``Model.init`` answering
-    ``init``), whisper and the vlm through ``tf_loop`` on ``tf_batch``.
+def tf_train(cfg, dev, box: list, B: int, S: int, steps: int):
+    """Train ``cfg`` from the params in the one-element list ``box`` (on
+    ``dev``): the token families through ``launch.train.train``
+    (``Model.init`` answering them), whisper and the vlm through
+    ``tf_loop`` on ``tf_batch``.  Both donate, so the tree is trained in
+    place; it is taken out of ``box``, so that no frame but the loop's
+    holds it and a clustering event's input is freed, as in the trainer.
     Returns (params, quantizer state, history)."""
     from repro_torch.launch import train as TT
     from repro_torch.models.model_zoo import Model
     if cfg.family in ("audio", "vlm"):
-        return tf_loop(cfg, dev, init, tf_batch(cfg, B, S, dev), steps)
+        return tf_loop(cfg, dev, box.pop(), tf_batch(cfg, B, S, dev), steps)
     route = Model.init
-    Model.init = lambda self, gen, device=None: init
+    Model.init = lambda self, gen, device=None: box.pop()
     try:
         return TT.train(cfg, TT.TrainLoopConfig(
             steps=steps, batch=B, seq=S, log_every=1, device=str(dev)),
@@ -6968,7 +6988,9 @@ def tf_event_lock(records: list, stats: dict | None = None):
 
     def record(params, wq, qstate, step, gen):
         out = route(params, wq, qstate, step, gen)
-        records.append((_to(out[0], "cpu"), out[1].codebooks[""].cpu()))
+        # a copy (the CPU run's tree): the donated steps after the event
+        # write ``out[0]``
+        records.append((_clone(out[0]), out[1].codebooks[""].cpu()))
         return out
 
     def lock(params, wq, qstate, step, gen):
@@ -7028,14 +7050,16 @@ def train_families_reduced(dev) -> dict:
         evs, snap = [], {"moved": 0, "values": 0}
         with ffn_sites(recs), wkv_streams(streams), tf_event_lock(evs), \
                 moe_routes(routes["cpu"]):
-            _, cq, cpu = tf_train(cfg, "cpu", init, **TF_REDUCED)
+            # a copy: the donated CPU run writes it, and the card starts
+            # from ``init``
+            _, cq, cpu = tf_train(cfg, "cpu", [_clone(init)], **TF_REDUCED)
         lock = {"sites": 0, "acts": 0, "flips": 0, "max_input_gap": 0.0}
         ties = {n: 0 for n in ("r", "k", "v", "y", "dr", "dk", "dv", "dy",
                                "scans")}
         with ffn_sites(recs, lock, TF_LOCK_REL), \
                 wkv_streams(streams, ties), \
                 tf_event_lock(evs, snap), moe_routes(routes["card"]):
-            _, gq, card = tf_train(cfg, dev, _to(init, dev), **TF_REDUCED)
+            _, gq, card = tf_train(cfg, dev, [_to(init, dev)], **TF_REDUCED)
         if recs or evs or any(streams.values()):
             raise AssertionError(f"[train_families] {name}: the card ran "
                                  "fewer FFN sites or scans than the CPU")
@@ -7120,7 +7144,7 @@ def tf_records(acts: list, kms: list, cap: int):
     def act(x, kind, levels, form, with_index, mul=None):
         got = aq(x, kind, levels, form, with_index, mul)
         if len(acts) < cap and ops._route(x) == "cuda":
-            acts.append((x, kind, levels, form, mul, got))
+            acts.append((x, kind, levels, form, mul, _detached(got)))
         return got
 
     def stats(values, centers, extremes=None):
@@ -7165,14 +7189,13 @@ def tf_full(dev, name: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    init = build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)
-    n_params = sum(t.numel() for t in _leaves(init))
-    fp = [float(t.float().sum()) for t in _leaves(init)]
+    box = [build(cfg).init(torch.Generator(device=dev).manual_seed(0), dev)]
+    n_params = sum(t.numel() for t in _leaves(box[0]))
+    fp = [float(t.float().sum()) for t in _leaves(box[0])]
     t_init = time.time() - t0
     ops.reset_launch_counts()
     with tf_events(events), tf_records(acts, kms, TF_ACT_RECORDS):
-        params, qstate, hist = tf_train(cfg, dev, init, B, S, TF_FULL_STEPS)
-        del init
+        params, qstate, hist = tf_train(cfg, dev, box, B, S, TF_FULL_STEPS)
         want = {"act_quant": 2 * tf_sites(cfg) * nmb * TF_FULL_STEPS}
         batch = tf_batch(cfg, B, S, dev) if cfg.family in (
             "audio", "vlm") else None
@@ -7180,7 +7203,7 @@ def tf_full(dev, name: str) -> dict:
         if cfg.family == "vlm":
             mcfg = cfg.replace(microbatches=TF_VLM_MICROBATCHES)
             ocfg = OptConfig(name="adamw", lr=3e-3)
-            step_fn = ST.make_train_step(build(mcfg), ocfg)
+            step_fn = ST.make_train_step(build(mcfg), ocfg, donate=True)
             params, _, m = step_fn(params, init_opt_state(params, ocfg),
                                    batch)
             mb_loss = float(m["loss"])
@@ -7275,6 +7298,173 @@ def train_families_path(dev, smi: str) -> tuple[dict, dict]:
              "phase_s": time.time() - t0}
     log(f"[train_families] {smi}: phase {stats['phase_s']:.1f}s (reduced "
         f"{t_red:.1f}s); launches {launches}")
+    return stats, launches
+
+
+# --- [examples] --------------------------------------------------------------
+
+# the port's examples, each run through its main(argv) at the reference's
+# defaults; the 100m example then once more on the same checkpoint
+# directory, EX_LM_RESUME steps in all: its last EX_LM_RESUME - 200 steps
+# after the resume
+EX_SERVE, EX_QUICK = "serve_quantized_lm_torch", "quickstart_torch"
+EX_MNIST, EX_LM = "train_mnist_quantized_torch", "train_lm_100m_torch"
+EX_LM_STEPS, EX_LM_RESUME = 200, 210
+EX_MNIST_STEPS = 5 * 300        # five variants of 300 steps
+EX_MNIST_FLOOR, EX_MNIST_GAP = 0.85, 0.05   # tests/test_torch_papernets_train
+
+
+def example_module(name: str):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list) -> dict:
+    """``main(argv)`` of the example in this process, stdout captured (and
+    echoed to the log): its result, lines, wall seconds, peak memory
+    allocated and the kernel launches it made."""
+    import io
+    import torch
+    mod = example_module(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+
+    def call():
+        with contextlib.redirect_stdout(buf):
+            return mod.main(argv)
+    (res, wall), launches = rec_counted(lambda: timed(call))
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        log(f"[examples] {name} | {ln}")
+    return {"result": res, "lines": lines, "s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": launches}
+
+
+def _finite_numerics(num: dict) -> bool:
+    vals = [v for v in num.values() if isinstance(v, (int, float))]
+    vals += [x for v in num.values() if isinstance(v, list) for x in v]
+    return bool(vals) and all(math_finite(float(x)) for x in vals)
+
+
+def examples_serving(r: dict) -> dict:
+    """The spec line says identical tokens; every probe figure finite; the
+    paged pool clean; each backend launched its own kernel and no other
+    backend's (dense none), page_gather on the paged run, both matmul
+    kernels in the spec serve (codebook target, lut draft)."""
+    res, launches = r["result"], r["result"]["launches"]
+    spec = next(ln for ln in r["lines"] if ln.startswith("[    spec]"))
+    mm = {"dense": set(), "codebook": {"codebook_matmul"},
+          "lut": {"lut_matmul"}, "paged": set(),
+          "spec": {"codebook_matmul", "lut_matmul"}}
+    bad = [k for k, want in mm.items()
+           if {n for n in launches.get(k, {}) if n.endswith("_matmul")}
+           != want]
+    if "identical tokens" not in spec or not res["spec_identical"] or bad \
+            or not launches["paged"].get("page_gather") \
+            or not all(_finite_numerics(n) for n in res["numerics"].values()) \
+            or not _pool_clean(res["paged"].pool):
+        raise AssertionError(f"[examples] {EX_SERVE}: {spec}; launches "
+                             f"{launches}; pool clean "
+                             f"{_pool_clean(res['paged'].pool)}")
+    return {"launches_by_run": launches,
+            "headroom_bits_min": {k: min(n["headroom_bits"] or [31.0])
+                                  for k, n in res["numerics"].items()},
+            "kv_err_max": {k: max(n["kv_err_max"] or [0.0])
+                           for k, n in res["numerics"].items()}}
+
+
+def examples_quickstart(r: dict) -> dict:
+    hist, toks = r["result"]["history"], r["result"]["tokens"]
+    if not hist[-1]["loss"] < hist[0]["loss"] or len(toks) != 12:
+        raise AssertionError(f"[examples] {EX_QUICK}: losses "
+                             f"{hist[0]['loss']} -> {hist[-1]['loss']}, "
+                             f"{len(toks)} tokens")
+    return {"losses": [hist[0]["loss"], hist[-1]["loss"]],
+            "step_ms": step_median_ms(hist), "tokens": toks}
+
+
+def examples_mnist(r: dict) -> dict:
+    acc = r["result"]
+    base, both = acc["continuous tanh"], acc["tanhD(32) + |W|=1000"]
+    if not base > EX_MNIST_FLOOR or abs(both - base) > EX_MNIST_GAP:
+        raise AssertionError(f"[examples] {EX_MNIST}: accuracies {acc}")
+    return {"accuracy": acc}
+
+
+def examples_lm(r: dict, again: dict, ckpt: str) -> dict:
+    """The count printed from ``abstract_params`` is the trained tree's;
+    the losses finite; a checkpoint at the last step; the resumed run
+    starts there."""
+    from repro_torch import checkpoint as CKPT
+    res, hist = r["result"], r["result"]["history"]
+    n = sum(t.numel() for t in _leaves(res["params"]))
+    first = again["result"]["history"][0]["step"]
+    if res["n_params"] != n or not all(math_finite(h["loss"]) for h in
+                                       hist + again["result"]["history"]) \
+            or again["lines"][1] != f"[resume] from step {EX_LM_STEPS}" \
+            or first != EX_LM_STEPS or CKPT.latest_step(ckpt) != EX_LM_RESUME:
+        raise AssertionError(f"[examples] {EX_LM}: {res['n_params']} params "
+                             f"counted, {n} trained; resume "
+                             f"{again['lines'][:2]}, first step {first}")
+    return {"params": n, "losses": [h["loss"] for h in hist],
+            "step_ms": step_median_ms(hist),
+            "resume_step_ms": step_median_ms(again["result"]["history"]),
+            "resumed_from": first}
+
+
+def step_median_ms(hist: list) -> float:
+    """The median of the logged steps' seconds after the first, in ms."""
+    import statistics
+    return statistics.median(h["sec"] for h in hist[1:]) * 1e3
+
+
+def examples_path(dev, smi: str) -> tuple[dict, dict]:
+    """The [examples] phase: with every launch count set to 0, the four
+    examples through their ``main`` on the card at the reference's
+    defaults (the 100m one twice on one checkpoint directory, the second
+    run resuming), their launches read after; then each held to its
+    checks.  Returns (stats, launches)."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.time()
+    ops.reset_launch_counts()
+    runs = {EX_SERVE: run_example(EX_SERVE, []),
+            EX_QUICK: run_example(EX_QUICK, []),
+            EX_MNIST: run_example(EX_MNIST, [])}
+    with tempfile.TemporaryDirectory(prefix="lm100m_") as ckpt:
+        runs[EX_LM] = run_example(EX_LM, ["--ckpt-dir", ckpt])
+        again = run_example(EX_LM, ["--ckpt-dir", ckpt, "--steps",
+                                    str(EX_LM_RESUME)])
+        lm = examples_lm(runs[EX_LM], again, ckpt)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    checks = {EX_SERVE: examples_serving(runs[EX_SERVE]),
+              EX_QUICK: examples_quickstart(runs[EX_QUICK]),
+              EX_MNIST: examples_mnist(runs[EX_MNIST]), EX_LM: lm}
+    stats = {}
+    for name, r in runs.items():
+        st = {"s": r["s"], "peak_gib": r["peak_gib"],
+              "launches": r["launches"], **checks[name]}
+        if name == EX_MNIST:    # no per-step clock: the wall over the steps
+            st["wall_ms_a_step"] = r["s"] * 1e3 / EX_MNIST_STEPS
+        stats[name] = st
+        log(f"[examples] {smi}: {name}: {r['s']:.1f}s wall, peak "
+            f"{r['peak_gib']:.2f} GiB allocated, launches {r['launches']}; "
+            + json.dumps({k: v for k, v in st.items()
+                          if k not in ("s", "peak_gib", "launches")}))
+    stats[EX_LM]["resume"] = {"s": again["s"], "peak_gib": again["peak_gib"],
+                              "launches": again["launches"]}
+    stats["phase_s"] = time.time() - t0
+    log(f"[examples] {smi}: phase {stats['phase_s']:.1f}s; launches "
+        f"{launches}")
     return stats, launches
 
 
@@ -7811,6 +8001,8 @@ def main() -> int:
     tr_stats, tr_launches = train_path(dev, smi)
     torch.cuda.empty_cache()
     tf_stats, tf_launches = train_families_path(dev, smi)
+    torch.cuda.empty_cache()
+    ex_stats, ex_launches = examples_path(dev, smi)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -7835,7 +8027,8 @@ def main() -> int:
                    "families": fa_launches.get(k, 0),
                    "paper": pa_launches.get(k, 0),
                    "train": tr_launches.get(k, 0),
-                   "train_families": tf_launches.get(k, 0)}
+                   "train_families": tf_launches.get(k, 0),
+                   "examples": ex_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -7907,6 +8100,7 @@ def main() -> int:
     log("[done] paper path " + json.dumps(pa_stats))
     log("[done] train path " + json.dumps(tr_stats))
     log("[done] train_families path " + json.dumps(tf_stats))
+    log("[done] examples path " + json.dumps(ex_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

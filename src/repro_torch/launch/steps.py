@@ -1,6 +1,7 @@
 """The training step, the port's copy of ``make_train_step`` from
-``repro/launch/steps.py``, on one device: the reference's mesh, its
-sharding specs and its abstract-shape helpers wait for tensor parallelism.
+``repro/launch/steps.py``, on one device, and ``abstract_params``: the
+reference's mesh, its sharding specs and its other abstract-shape helpers
+wait for tensor parallelism.
 """
 
 from __future__ import annotations
@@ -8,12 +9,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.model_zoo import Model
-from repro_torch.optim import OptConfig, apply_updates
+from repro_torch.optim import OptConfig, apply_updates, apply_updates_
 from repro_torch.tree import leaves, tree_map, unflatten
 
-__all__ = ["make_train_step", "value_and_grad"]
+__all__ = ["make_train_step", "value_and_grad", "abstract_params"]
 
 _ACC_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def abstract_params(model: Model):
+    """The params' shapes and dtypes as a tree of ``meta`` tensors: the
+    reference's ``jax.eval_shape`` of ``init``.  The meta device draws no
+    random numbers and allocates nothing."""
+    return model.init(torch.Generator(), "meta")
 
 
 def value_and_grad(loss_fn, params, *args):
@@ -47,14 +55,17 @@ def _microbatch(batch: dict, nmb: int, i: int) -> dict:
     return out
 
 
-def make_train_step(model: Model, ocfg: OptConfig):
+def make_train_step(model: Model, ocfg: OptConfig, donate: bool = False):
     """step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     ``model.loss``'s gradient (``value_and_grad``), then ``apply_updates``
-    returns new trees.  With ``cfg.microbatches`` N > 1 the batch is
-    processed in N sequential slices (``_microbatch``), bounding activation
-    memory at 1/N while keeping the same update: the grads are averaged
-    in the moments dtype, the metrics are the slices' mean."""
+    returns new trees, or with ``donate`` (the reference trainer's
+    ``donate_argnums=(0, 1)``) ``apply_updates_`` writes them into
+    ``params`` and ``opt_state`` and returns those same tensors.  With
+    ``cfg.microbatches`` N > 1 the batch is processed in N sequential
+    slices (``_microbatch``), bounding activation memory at 1/N while
+    keeping the same update: the grads are averaged in the moments dtype,
+    the metrics are the slices' mean."""
     cfg = model.cfg
     nmb = max(1, cfg.microbatches)
 
@@ -78,7 +89,8 @@ def make_train_step(model: Model, ocfg: OptConfig):
             del g       # the last slice's gradients: not held over the update
             metrics = {k: torch.mean(torch.stack([m[k] for m in ms]), dim=0)
                        for k in ms[0]}
-        params, opt_state, om = apply_updates(params, grads, opt_state, ocfg)
+        update = apply_updates_ if donate else apply_updates
+        params, opt_state, om = update(params, grads, opt_state, ocfg)
         return params, opt_state, {**metrics, **om}
 
     return step

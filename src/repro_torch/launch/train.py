@@ -13,9 +13,12 @@ The same argv without ``--reduced`` and ``--device`` trains the full-width
 model on the card.  Each step: the failure injector, the clustering event
 when it is due (``cfg.wq.due(step)``, on a generator folded from the seed
 and the step), the step's batch from ``TokenPipeline``, the train step
-(``launch/steps.py``), the straggler check, the log line and, every
-``ckpt_every`` steps, an async checkpoint; a run resumes from the latest
-complete checkpoint in ``ckpt_dir``.  On the card each step ends with a
+(``launch/steps.py``, donated as the reference's ``jax.jit(...,
+donate_argnums=(0, 1))``: the params and moments are updated in place),
+the straggler check, the log line and, every ``ckpt_every`` steps, an
+async checkpoint (copied to the host before the next step writes the
+tensors); a run resumes from the latest complete checkpoint in
+``ckpt_dir``.  On the card each step ends with a
 synchronize, so its seconds are the step's and not its launches'.
 """
 
@@ -70,30 +73,13 @@ def train(cfg, loop: TrainLoopConfig, injector=None, log=print):
     injector = injector or FailureInjector()
     monitor = StragglerMonitor(factor=loop.straggler_factor)
 
-    params = model.init(torch.Generator(device=dev).manual_seed(loop.seed),
-                        dev)
-    opt_state = init_opt_state(params, ocfg)
-    qstate = init_state(cfg.wq)
-    start_step = 0
-
+    state, qstate, start_step = _start(model, ocfg, loop, dev, log)
     ckpt = CKPT.AsyncCheckpointer(loop.ckpt_dir) if loop.ckpt_dir else None
-    if loop.ckpt_dir:
-        latest = CKPT.latest_step(loop.ckpt_dir)
-        if latest is not None:
-            tree = {"params": params, "opt": opt_state,
-                    "codebooks": qstate.codebooks}
-            restored, extra = CKPT.restore(loop.ckpt_dir, latest, tree)
-            params, opt_state = restored["params"], restored["opt"]
-            qstate = QuantizerState(codebooks=restored["codebooks"],
-                                    last_step=extra.get("cluster_step", -1))
-            start_step = extra["step"]
-            log(f"[resume] from step {start_step}")
-
-    step_fn = ST.make_train_step(model, ocfg)
+    step_fn = ST.make_train_step(model, ocfg, donate=True)
     history = []
     try:
-        return _loop(cfg, loop, dev, step_fn, params, opt_state, qstate,
-                     start_step, pipe, injector, monitor, ckpt, history, log)
+        return _loop(cfg, loop, dev, step_fn, state, qstate, start_step,
+                     pipe, injector, monitor, ckpt, history, log)
     finally:
         if ckpt:
             # a crash mid-flight must not leave a half-written snapshot
@@ -102,8 +88,30 @@ def train(cfg, loop: TrainLoopConfig, injector=None, log=print):
             ckpt.wait()
 
 
-def _loop(cfg, loop, dev, step_fn, params, opt_state, qstate, start_step,
-          pipe, injector, monitor, ckpt, history, log):
+def _start(model, ocfg, loop, dev, log):
+    """({"params", "opt"}, quantizer state, first step): from the seed, or
+    from the latest complete checkpoint in ``loop.ckpt_dir``."""
+    params = model.init(torch.Generator(device=dev).manual_seed(loop.seed),
+                        dev)
+    state = {"params": params, "opt": init_opt_state(params, ocfg)}
+    qstate = init_state(model.cfg.wq)
+    latest = CKPT.latest_step(loop.ckpt_dir) if loop.ckpt_dir else None
+    if latest is None:
+        return state, qstate, 0
+    restored, extra = CKPT.restore(loop.ckpt_dir, latest,
+                                   {**state, "codebooks": qstate.codebooks})
+    qstate = QuantizerState(codebooks=restored.pop("codebooks"),
+                            last_step=extra.get("cluster_step", -1))
+    log(f"[resume] from step {extra['step']}")
+    return restored, qstate, extra["step"]
+
+
+def _loop(cfg, loop, dev, step_fn, state, qstate, start_step, pipe,
+          injector, monitor, ckpt, history, log):
+    # the params and moments are taken out of ``state``, so that no frame
+    # but this one holds them: a clustering event's input is freed as
+    # ``params`` is rebound
+    params, opt_state = state.pop("params"), state.pop("opt")
     for step in range(start_step, loop.steps):
         injector.maybe_fail(step)
         with StragglerMonitor.timer(monitor, time.monotonic) as t:

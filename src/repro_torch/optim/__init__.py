@@ -1,3 +1,4 @@
 from repro_torch.optim.optimizers import (OptConfig, init_opt_state,
-                                          apply_updates, global_norm)
+                                          apply_updates, apply_updates_,
+                                          global_norm)
 from repro_torch.optim.schedules import warmup_cosine, step_decay, constant
