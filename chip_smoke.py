@@ -295,6 +295,23 @@ below the first, 12 tokens served), the MNIST table (continuous above
 finite, a checkpoint at step 200; the same argv with ``--steps 210`` on
 the same directory resumes from step 200); wall seconds, step ms, peak
 memory and launches of each.
+[tp] (after [examples]): tensor-parallel serving (``ServeEngine(mesh=)``)
+of qwen3-1.7b at full width, 2 layers, |W| 256 (int8 ids), compressed
+once and handed to two ranks by file; the ranks share cuda:0 over gloo
+(``launch/mesh.run_ranks``).  Through dense, codebook and lut on the
+contiguous cache, plain and n-gram spec, codebook and lut at act_levels
+32, codebook with the int8 cache, and lut in f32: each rank's tokens
+equal the other's; against the mesh-less engine on the same card, lut in
+f32 equal; every bf16 run equal to the mesh-less engine computing as the
+two ranks do in one process (the witness that a parting from tp=1 is the
+sums' order and rounding alone), and dense and codebook at act_levels 0
+with their decision logits within a bound fixed from tp=1's logit scale
+before any parting and every parting at a top-2 gap within twice it; the w2
+row product's int32 accumulator summed over the ranks bit-equal to one
+device's; each rank's kernels at its sharded shapes against their plain
+versions; launches a forward held exactly on each rank and printed; the
+eager decode step of tp=2 and tp=1, the collectives' share, and each
+kernel at one rank's shapes against its bound.
 
 The last two lines are the kernels JSON and ``{"ok": true, "device": ...}``.
 Exits non-zero without printing a result when no CUDA device is present.
@@ -7468,6 +7485,674 @@ def examples_path(dev, smi: str) -> tuple[dict, dict]:
     return stats, launches
 
 
+# --- [tp]: tensor-parallel serving ---------------------------------------------
+
+TP_WORLD = 2                 # ranks, both on cuda:0, over gloo
+TP_LAYERS = 2                # the main path's depth (ROADMAP), at full width
+TP_BOOK = 256                # |W|: int8 ids
+TP_REQS = 4                  # requests a run, all in flight (max_batch 4)
+TP_NEW = 8                   # tokens a request
+TP_K = 4                     # n-gram draft tokens a round
+TP_MAX_LEN = 64              # a multiple of TP_WORLD
+TP_STEPS = 10                # decode steps a step timing
+TP_SUMS = 4                  # sums a layer tp=2 rounds apart (tp_bound)
+# (backend, act_levels, n-gram spec, int8 cache, f32 model); bf16 but the
+# two f32 lut runs; each held to tp=1 as ``tp_checks`` says
+TP_RUNS = (("dense", 0, False, False, False),
+           ("codebook", 0, False, False, False),
+           ("lut", 0, False, False, False), ("dense", 0, True, False, False),
+           ("codebook", 0, True, False, False),
+           ("lut", 0, True, False, False),
+           ("codebook", 32, False, False, False),
+           ("lut", 32, False, False, False),
+           ("codebook", 0, False, True, False),
+           ("lut", 0, False, False, True), ("lut", 0, True, False, True))
+TP_LUT = ("lut", 0, False, False, False)     # the w2 accumulator's run
+TP_CODEBOOK = ("codebook", 0, False, False, False)   # the parity's run
+# the block matmuls of one rank at TP_WORLD = 2, as (site, K, N)
+TP_SITES = (("wq", 2048, 1024), ("wk", 2048, 512), ("wv", 2048, 512),
+            ("w1", 2048, 3072), ("w3", 2048, 3072), ("wo", 1024, 2048),
+            ("w2", 3072, 2048))
+TP_ROWS = (TP_REQS, TP_REQS * (TP_K + 1))    # decode, verify
+
+
+def tp_name(run) -> str:
+    be, levels, spec, int8, f32 = run
+    return (f"{be}{'/a32' if levels else ''}{'/ngram' if spec else ''}"
+            f"{'/int8' if int8 else ''}{'/f32' if f32 else ''}")
+
+
+def tp_model(dev):
+    """qwen3-1.7b at full width, TP_LAYERS layers, seeded random weights
+    compressed once to |W| = TP_BOOK (laplacian_l1, global, int8 ids):
+    (cfg, index-form params)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.quantizer import cluster_params, init_state
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import to_codebook_params
+
+    cfg = configs.get("qwen3-1.7b").replace(n_layers=TP_LAYERS)
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    wq = cfg.quantized(n_weights=TP_BOOK).wq
+    pq, state = cluster_params(params, wq, init_state(wq), wq.interval)
+    del params
+    cp = to_codebook_params(pq, wq, state)
+    assert cp["blocks"]["mlp"]["w1"]["w_idx"].dtype == torch.int8
+    return cfg, cp
+
+
+def tp_engine(cfg, cp, run, dev, mesh=None):
+    """The engine of one [tp] run, on the eager route (as a mesh runs)."""
+    from repro_torch.models.model_zoo import build
+    from repro_torch.serving import ServeEngine, SpecConfig
+
+    be, levels, spec, int8, f32 = run
+    if f32:
+        cfg = cfg.replace(dtype="float32")
+    e = ServeEngine(build(cfg.replace(act_levels=levels, kv_quant=int8)), cp,
+                    max_len=TP_MAX_LEN, max_batch=TP_REQS, backend=be,
+                    device=dev, mesh=mesh,
+                    spec=SpecConfig(draft="ngram", k=TP_K) if spec else None)
+    e._graphs = False
+    return e
+
+
+def tp_record(e, out: list) -> None:
+    """Record each decision of engine ``e``: every ``_sample`` call's f32
+    logits (B, V) and every verify forward's (B, K + 1, V), each beside
+    the active flags of its slots (all rows of an admission's prefill)."""
+    import torch
+    V = e.model.cfg.vocab
+    fwd, sample, verify = e._forward, e._sample, e._verify_forward
+    box = {}
+
+    def forward(st):
+        box["act"] = st.active.clone()
+        try:
+            return fwd(st)
+        finally:
+            box.pop("act")
+
+    def samp(logits):
+        lg = logits[:, -1, :V].float()
+        act = box.get("act", torch.ones(lg.shape[0], dtype=torch.bool,
+                                        device=lg.device))
+        out.append((lg.cpu(), act.cpu()))
+        return sample(logits)
+
+    def ver(st):
+        act = st.active.clone()
+        lg = verify(st)
+        out.append((lg[..., :V].float().cpu(), act.cpu()[:, None].expand(
+            -1, lg.shape[1])))
+        return lg
+
+    e._forward, e._sample, e._verify_forward = forward, samp, ver
+
+
+def tp_step_ms(e, mesh=None) -> dict:
+    """Wall ms of an eager decode step of ``e`` (4 slots at position 32,
+    synchronized), and under a mesh the same with each collective timed
+    (``CollectiveStats.clock``; each then bracketed by synchronizations):
+    its ms and the collectives' share of it."""
+    import torch
+    cache = e._contiguous_cache(TP_REQS)
+    cache["pos"].fill_(32)
+    toks = torch.zeros((TP_REQS, 1), dtype=torch.int64, device=e.device)
+
+    def steps():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TP_STEPS):
+            e.model.decode(e.params, toks, cache, e.bk)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / TP_STEPS * 1e3
+
+    steps()
+    out = {"step_ms": steps()}
+    if mesh is not None:
+        mesh.stats.clock = time.perf_counter
+        mesh.stats.reset()
+        out["timed_step_ms"] = steps()
+        out["collective_ms"] = sum(mesh.stats.seconds.values()) * 1e3 \
+            / TP_STEPS
+        out["collective_share"] = out["collective_ms"] / out["timed_step_ms"]
+        out["calls"] = {k: v // TP_STEPS for k, v in mesh.stats.calls.items()}
+        out["step_largest"] = mesh.stats.largest()
+        mesh.stats.clock = None
+    return out
+
+
+def tp_per_forward(run, L: int) -> dict:
+    """Launches a forward of a [tp] run on each rank, as on one device."""
+    be, levels = run[:2]
+    if be == "codebook":
+        if levels:
+            return {"codebook_matmul": 5 * L, "codebook_swiglu": L}
+        return {"codebook_matmul": 7 * L}
+    if be == "lut":
+        return {"lut_matmul": 7 * L, **({"act_quant": L} if levels else {})}
+    return {}
+
+
+def tp_lut_case(dev, e, w_idx, x2, mesh=None):
+    """The w2 site's int32 accumulator on ``e``'s full-fan-in spec and
+    layer 0's table: on this rank's K-slice psummed under a mesh."""
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import dispatch
+    site = e.params["blocks"]["mlp"]["w2"]
+    book, table = site["codebook"][0], site["lut_table"][0]
+    if mesh is None:
+        return dispatch.lut_acc(x2, w_idx, book, e.lut_spec, table)
+    m, k_loc = mesh.coords["model"], w_idx.shape[0]
+    xl = x2[:, m * k_loc:(m + 1) * k_loc].contiguous()
+    return collectives.psum(dispatch.lut_acc(xl, w_idx, book, e.lut_spec,
+                                             table), mesh)
+
+
+def tp_parity(e, dev) -> dict:
+    """This rank's kernels at its sharded shapes against their plain
+    versions: codebook_matmul (within its parity limit) and lut_matmul
+    (bit-exact) on layer 0's own shards of every site at the decode and
+    verify row counts, codebook_swiglu on the w1/w3 shards (bit-equal to
+    the unfused chain and to the plain epilogue of its accumulators) and
+    act_quant with its multiplier at the hidden shard (bit-equal but for
+    counted ties).  Returns each kernel's largest |difference|."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import dispatch
+    blocks = e.params["blocks"]
+    g = torch.Generator(device=dev).manual_seed(5)
+    worst = {"codebook_matmul": 0.0, "lut_matmul": 0.0,
+             "codebook_swiglu": 0.0, "act_quant": 0.0}
+    shards = {}
+    for site, K, N in TP_SITES:
+        p = blocks["attn" if site in ("wq", "wk", "wv", "wo") else "mlp"][site]
+        wi, book = p["w_idx"][0], p["codebook"][0]
+        if tuple(wi.shape) != (K, N):
+            raise AssertionError(f"[tp] {site} shard {tuple(wi.shape)}, "
+                                 f"want {(K, N)}")
+        shards[site] = (wi, book)
+        table = dispatch.build_lut_table(book, dispatch.make_lut_spec(
+            book.cpu().numpy(), fan_in=K))
+        for M in TP_ROWS:
+            x = torch.randn((M, K), generator=g, device=dev).to(
+                torch.bfloat16)
+            got = cm.codebook_matmul_cuda(x, wi, book)
+            want = cm.codebook_matmul_plain(x, wi, book)
+            if not bool(((got - want).abs()
+                         <= cm.parity_tolerance(x, wi, book)).all()):
+                raise AssertionError(f"[tp] codebook_matmul {site} M={M} "
+                                     "beyond its parity limit")
+            worst["codebook_matmul"] = max(worst["codebook_matmul"],
+                                           (got - want).abs().max().item())
+            a = torch.randint(0, LEVELS, (M, K), generator=g, device=dev,
+                              dtype=torch.int32)
+            if not torch.equal(lm.lut_matmul_cuda(a, wi, table),
+                               lm.lut_matmul_plain(a, wi, table)):
+                raise AssertionError(f"[tp] lut_matmul {site} M={M} not "
+                                     "bit-exact")
+    (w1, b1), (w3, b3) = shards["w1"], shards["w3"]
+    for M in TP_ROWS:
+        x = torch.randn((M, 2048), generator=g, device=dev).to(torch.bfloat16)
+        got = cm.codebook_swiglu_cuda(x, w1, b1, w3, b3, "relu6", ACT_LEVELS)
+        gate, up = cm.codebook_matmul_cuda(x, w1, b1), \
+            cm.codebook_matmul_cuda(x, w3, b3)
+        chain = aq.act_quant_cuda(gate.to(x.dtype), "relu6", ACT_LEVELS,
+                                  form="act_apply", with_index=False,
+                                  mul=up.to(x.dtype))[0]
+        plain = cm.swiglu_epilogue_plain(gate, up, x.dtype, "relu6",
+                                         ACT_LEVELS)
+        for want in (chain, plain):
+            if not torch.equal(got.view(torch.int16), want.view(torch.int16)):
+                raise AssertionError(f"[tp] codebook_swiglu M={M} not "
+                                     "bit-equal")
+        h = (gate * 0.25).to(x.dtype)
+        kq = aq.act_quant_cuda(h, "relu6", ACT_LEVELS, form="act_apply",
+                               mul=up.to(x.dtype))
+        kp = aq.act_quant_plain(h, "relu6", ACT_LEVELS, form="act_apply",
+                                mul=up.to(x.dtype))
+        aq.parity_ties(*kq, *kp, "relu6", ACT_LEVELS, mul=up.to(x.dtype))
+        worst["act_quant"] = max(worst["act_quant"], (
+            kq[0].float() - kp[0].float()).abs().max().item())
+    torch.cuda.synchronize()
+    return worst
+
+
+def tp_rank(rank: int, path: str, cfg, prompts, x2) -> dict:
+    """One rank of [tp] (spawned by ``run_ranks``): every run of TP_RUNS
+    on a tensor-parallel engine on cuda:0, launches counted from 0 around
+    each serve; rank 0 records the decisions.  Then the step times, the
+    w2 accumulator case and the kernels at this rank's shapes."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    mesh = make_local_mesh(1, TP_WORLD)
+    cp = torch.load(path, map_location=dev, weights_only=True)
+    out = {"runs": {}, "rec": {}}
+    for run in TP_RUNS:
+        name = tp_name(run)
+        e = tp_engine(cfg, cp, run, dev, mesh)
+        rec = []
+        if rank == 0:
+            tp_record(e, rec)
+        mesh.stats.reset()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks = e.serve(prompts, max_new=TP_NEW)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        check_launches(f"[tp] rank {rank} {name}", ops.launch_counts(),
+                       tp_per_forward(run, cfg.n_layers), e.n_forwards)
+        r = {"tokens": toks, "launches": launches, "serve_s": serve_s,
+             "forwards": e.n_forwards, "largest": mesh.stats.largest(),
+             **tp_step_ms(e, mesh)}
+        if run == TP_LUT:
+            w = e.params["blocks"]["mlp"]["w2"]["w_idx"][0]
+            r["acc"] = tp_lut_case(dev, e, w, x2.to(dev), mesh).cpu()
+        if run == TP_CODEBOOK:
+            out["parity"] = tp_parity(e, dev)
+        out["runs"][name] = r
+        if rank == 0:
+            out["rec"][name] = rec
+        del e
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_bound(rec1: list, n_layers: int) -> tuple[float, float]:
+    """The tie bound of a bf16 run on dense or codebook, fixed by tp=1's
+    records alone: (bound, scale).  Against tp=1, tp=2 rounds TP_SUMS sums
+    a layer apart (the wo and w2 row psums, the join's denominator and
+    partial output, the last in bf16 after q is rounded to the cache's
+    dtype); each is taken to move a decision logit by at most one bf16
+    step at the logits' scale, 2^(⌊log2 max |logit|⌋ − 7) (bf16 keeps 7
+    bits past the point), so the runs' decision logits may differ by
+    bound = TP_SUMS · layers such steps, and a decision may flip only at
+    a top-2 gap within 2 · bound."""
+    import math
+    scale = max(float(a.abs().amax(-1)[act].max()) for a, act in rec1
+                if act.any())
+    return TP_SUMS * n_layers * 2.0 ** (math.floor(math.log2(scale)) - 7), \
+        scale
+
+
+def tp_parting(rec1: list, rec2: list):
+    """(δ, row): δ the largest |difference| of two runs' decision logits
+    over the active rows of the records before the first record where a
+    decision parts (all of them when none does), and that parting row of
+    ``rec1`` (None: no decision parts)."""
+    delta = 0.0
+    for (a, act), (b, _) in zip(rec1, rec2):
+        if a.shape != b.shape:
+            break
+        part = (a.argmax(-1) != b.argmax(-1)) & act
+        if part.any():
+            return delta, a[tuple(part.nonzero()[0].tolist())]
+        if act.any():
+            delta = max(delta, float((a - b).abs().amax(-1)[act].max()))
+    return delta, None
+
+
+def tp_agreement(name: str, one: dict, two: dict, checks: tuple,
+                 n_layers: int) -> dict:
+    """tp=2's tokens and decision records (``two``) against tp=1's
+    (``one``), by ``checks`` (``tp_checks``):
+
+    'equal'   tokens equal tp=1's (lut in f32: integer products, and the
+              join's f32 reorder far below the activation grid's step).
+    'witness' tokens equal, and no decision parts from, ``one``'s witness:
+              the mesh-less engine computing as the two ranks do, in one
+              process (``tp_one_process``), so that where tp=2 parts from
+              tp=1 the parting is the sums' order and rounding alone.
+    'bound'   (dense and codebook at act_levels 0) δ, the largest
+              difference of the decision logits before the first parting,
+              within ``tp_bound``'s bound (fixed from tp=1's logits before
+              tp=2's are read), every parting's tp=1 top-2 gap within
+              twice the bound, and tokens part only where a decision does.
+
+    Without 'bound' a bf16 run may part from tp=1 at any gap: an
+    activation snapped to a grid (lut's, act_levels 32's) moves by a grid
+    step when a sum's rounding moves it across a boundary."""
+    import torch
+    bound, scale = tp_bound(one["rec"], n_layers)
+    delta, first = tp_parting(one["rec"], two["rec"])
+    res = {"checks": checks, "equal": two["tokens"] == one["tokens"],
+           "delta": delta, "bound": bound, "logit_scale": scale}
+    if first is not None:
+        top = torch.topk(first, 2).values
+        res["gap"] = float(top[0] - top[1])
+    if "equal" in checks and not res["equal"]:
+        raise AssertionError(f"[tp] {name}: tp=2 tokens part from tp=1's "
+                             f"(top-2 gap {res.get('gap')}, δ {delta:.4g})")
+    if "witness" in checks:
+        res["witness_delta"], wrow = tp_parting(one["split_rec"], two["rec"])
+        res["witness_bitequal"] = len(one["split_rec"]) == len(two["rec"]) \
+            and all(torch.equal(a, b) for (a, _), (b, _)
+                    in zip(one["split_rec"], two["rec"]))
+        if two["tokens"] != one["split_tokens"] or wrow is not None:
+            raise AssertionError(f"[tp] {name}: tp=2 parts from the ranks' "
+                                 f"sums computed in one process (δ "
+                                 f"{res['witness_delta']:.4g} before)")
+    if "bound" in checks:
+        if delta > bound:
+            raise AssertionError(f"[tp] {name}: decision logits {delta:.4g} "
+                                 f"from tp=1's before any parting > the "
+                                 f"bound {bound:.4g}")
+        if first is None and not res["equal"]:
+            raise AssertionError(f"[tp] {name}: tokens part, no decision does")
+        if first is not None and res["gap"] > 2 * bound:
+            raise AssertionError(f"[tp] {name}: parted at a top-2 gap of "
+                                 f"{res['gap']:.4g} > 2 · bound = "
+                                 f"{2 * bound:.4g}")
+    return res
+
+
+@contextlib.contextmanager
+def tp_one_process(dtype):
+    """Within: the mesh-less engine of a ``dtype`` model computes as
+    TP_WORLD = 2 ranks do, in this process (the witness of
+    ``tp_agreement``).  Each block product
+    runs on the two ranks' shards of its weights: 'col' the two column
+    blocks side by side, 'row' the two K-blocks' products summed once
+    (f32 on codebook, the int32 accumulators on lut, decoded after, x's
+    dtype for the dense backend's plain matmul); the gated codebook launch
+    on the two column blocks; the decode and verify attention over the
+    cache cut into two S-slices (an int8 cache dequantized to ``dtype``,
+    as a rank does), each slice's scores and partials by the
+    port's ``_slice_scores`` and ``_slice_partials``, joined as gloo joins
+    two ranks (the larger row max, one sum of the denominators, one of the
+    partial outputs in their pay dtype), then ``_join_fresh``."""
+    import torch
+    from repro_torch.kernels import dispatch as D
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers
+    assert TP_WORLD == 2          # gloo sums more ranks in a ring's order
+    orig = (D.backend_matmul, layers._plain_matmul, ops.codebook_swiglu,
+            A.decode_attention, A.chunk_attention, A.dequantize_kv)
+
+    def halves(t, dim):
+        n = t.shape[dim] // 2
+        return [t.narrow(dim, r * n, n).contiguous() for r in range(2)]
+
+    def matmul(x, w_idx, book, backend, table=None, kind=None):
+        if kind not in ("col", "row"):
+            return orig[0](x, w_idx, book, backend, table=table, kind=kind)
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        if kind == "col":
+            y = torch.cat([D._local_matmul(x2, w, book, backend, table)
+                           for w in halves(w_idx, 1)], -1)
+        elif backend.name == "lut":
+            a0, a1 = (D.lut_acc(xs, w, book, backend.lut_spec, table)
+                      for xs, w in zip(halves(x2, 1), halves(w_idx, 0)))
+            y = D._lut_decode(a0 + a1, backend.lut_spec)
+        else:
+            y0, y1 = (D._local_matmul(xs, w, book, backend)
+                      for xs, w in zip(halves(x2, 1), halves(w_idx, 0)))
+            y = y0 + y1
+        return y.reshape(*x.shape[:-1], -1).to(x.dtype)
+
+    def plain(x, w, backend, kind):
+        if kind == "col":
+            return torch.cat([x @ wb for wb in halves(w, 1)], -1)
+        if kind == "row":
+            y0, y1 = (xs @ wb for xs, wb in zip(halves(x, -1), halves(w, 0)))
+            return y0 + y1
+        return x @ w
+
+    def swiglu(x, w1, b1, w3, b3, kind, levels):
+        return torch.cat([orig[2](x, a, b1, c, b3, kind, levels) for a, c
+                          in zip(halves(w1, 1), halves(w3, 1))], -1)
+
+    def attend(q, k, v, vlen, excl, k_new, v_new):
+        n = k.shape[1] // 2
+        s = [A._slice_scores(q, kl, r * n, vlen, excl)
+             for r, kl in enumerate(halves(k, 1))]
+        m = torch.clamp(torch.maximum(s[0].amax(-1), s[1].amax(-1)),
+                        min=A.NEG_INF / 10)
+        (d0, p0), (d1, p1) = (A._slice_partials(x, m, vl)
+                              for x, vl in zip(s, halves(v, 1)))
+        return A._join_fresh(q, k_new, v_new, (p0 + p1).to(torch.float32),
+                             d0 + d1, m)
+
+    D.backend_matmul, layers._plain_matmul, ops.codebook_swiglu = \
+        matmul, plain, swiglu
+    A.decode_attention = lambda q, k, v, kv_len, exclude=None, \
+        extra_kv=None: attend(q, k, v, kv_len, exclude, *extra_kv)
+    A.chunk_attention = lambda q, k, v, past_len, k_new, v_new: attend(
+        q, k, v, past_len, None, k_new, v_new)
+    # a rank dequantizes its int8 slice to the model's dtype
+    A.dequantize_kv = lambda q, scale: orig[5](q, scale).to(dtype)
+    try:
+        yield
+    finally:
+        (D.backend_matmul, layers._plain_matmul, ops.codebook_swiglu,
+         A.decode_attention, A.chunk_attention, A.dequantize_kv) = orig
+
+
+def tp_checks(run) -> tuple:
+    """What a [tp] run's tokens are held to (``tp_agreement``): lut in
+    f32 equal to tp=1; every bf16 run the witness, and dense and codebook
+    at act_levels 0 the bound as well."""
+    be, levels, spec, int8, f32 = run
+    if f32:
+        return ("equal",)
+    return ("witness",) + (("bound",) if be != "lut" and not levels else ())
+
+
+def tp_times(dev, peaks: dict) -> list:
+    """Each kernel at one rank's shapes (M = 4, decode), beside its bound
+    and its plain version's and library call's times."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import codebook_matmul as cm
+    from repro_torch.kernels import lut_matmul as lm
+    g = torch.Generator(device=dev).manual_seed(6)
+    M, rows = TP_REQS, []
+    book = torch.randn(TP_BOOK, generator=g, device=dev) * 0.05
+    tab = torch.randint(-(1 << 20), 1 << 20, (LEVELS, TP_BOOK), generator=g,
+                        device=dev, dtype=torch.int32)
+
+    def row(kernel, site, shape, ms, plain_ms, lib_ms, nbytes, ops_,
+            peak):
+        b_bytes, b_ops = nbytes / peaks["bytes"], ops_ / peaks[peak]
+        rows.append({"kernel": kernel, "site": site, "shape": shape,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": 1e3 * max(b_bytes, b_ops),
+                     "bound_by": "bytes" if b_bytes >= b_ops
+                     else "operations"})
+
+    for site, K, N in TP_SITES[:4] + TP_SITES[5:]:
+        wi = torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                           dtype=torch.int8)
+        x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+        a = torch.randint(0, LEVELS, (M, K), generator=g, device=dev,
+                          dtype=torch.int32)
+        w_deq = book[wi.long() % TP_BOOK].to(torch.bfloat16)
+        row("codebook_matmul", site, (M, K, N),
+            time_ms(lambda: cm.codebook_matmul_cuda(x, wi, book)),
+            time_ms(lambda: cm.codebook_matmul_plain(x, wi, book), reps=5),
+            time_ms(lambda: torch.matmul(x, w_deq)),
+            M * K * 2 + K * N + TP_BOOK * 4 + M * N * 4, 2 * M * K * N,
+            "bf16")
+        touched = torch.zeros(LEVELS * TP_BOOK, dtype=torch.bool, device=dev)
+        addr = a[:, :, None] * TP_BOOK + (wi.to(torch.int32) % TP_BOOK)[None]
+        touched[addr.reshape(-1).long()] = True
+        row("lut_matmul", site, (M, K, N),
+            time_ms(lambda: lm.lut_matmul_cuda(a, wi, tab)),
+            time_ms(lambda: lm.lut_matmul_plain(a, wi, tab), reps=3),
+            None, M * K * 4 + K * N + int(touched.sum()) * 4 + M * N * 4,
+            2 * M * K * N, "int32")
+    K, N = 2048, 3072
+    x = torch.randn((M, K), generator=g, device=dev).to(torch.bfloat16)
+    w1, w3 = (torch.randint(-128, 128, (K, N), generator=g, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    d1, d3 = (book[w.long() % TP_BOOK].to(torch.bfloat16) for w in (w1, w3))
+
+    def lib_swiglu():
+        h = torch.fake_quantize_per_tensor_affine(
+            torch.clamp(torch.matmul(x, d1), 0, 6), 6 / (ACT_LEVELS - 1), 0,
+            0, ACT_LEVELS - 1)
+        return h * torch.matmul(x, d3)
+
+    row("codebook_swiglu", "w1/w3", (M, K, N),
+        time_ms(lambda: cm.codebook_swiglu_cuda(x, w1, book, w3, book,
+                                                "relu6", ACT_LEVELS)),
+        time_ms(lambda: cm.codebook_swiglu_plain(x, w1, book, w3, book,
+                                                 "relu6", ACT_LEVELS), reps=5),
+        time_ms(lib_swiglu), M * K * 2 + 2 * K * N + 2 * TP_BOOK * 4
+        + M * N * 2, 4 * M * K * N, "bf16")
+    h = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+    u = torch.randn((M, N), generator=g, device=dev).to(torch.bfloat16)
+    # as act_quant_times: 2 B read and 2 B written an element, 2 B more
+    # read for mul; 8 operations an element
+    row("act_quant", "hidden", (M, N),
+        time_ms(lambda: aq.act_quant_cuda(h, "relu6", ACT_LEVELS,
+                                          form="act_apply", with_index=False,
+                                          mul=u)),
+        time_ms(lambda: aq.act_quant_plain(h, "relu6", ACT_LEVELS,
+                                           form="act_apply", with_index=False,
+                                           mul=u), reps=5),
+        time_ms(lambda: torch.fake_quantize_per_tensor_affine(
+            h, 6 / (ACT_LEVELS - 1), 0, 0, ACT_LEVELS - 1) * u),
+        6 * M * N, 8 * M * N, "f32")
+    return rows
+
+
+def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
+    """The [tp] phase: tensor-parallel serving of qwen3-1.7b (full width,
+    TP_LAYERS layers, |W| = TP_BOOK) on TP_WORLD ranks that share cuda:0
+    over gloo (a one-card machine: NCCL refuses two
+    ranks on one card), against the mesh-less engine on the same card.
+    Checks: (a) each run's tp=2 tokens held to tp=1's as ``tp_checks``
+    and ``tp_agreement`` say (lut in f32 equal; every bf16 run equal to
+    the ranks' sums computed in one process, dense and codebook at
+    act_levels 0 also within ``tp_bound``); (b) the w2 row
+    product's int32 accumulator summed over the ranks bit-equal to one
+    device's; (c) the ranks' tokens equal; (d) each rank's kernels at its
+    sharded shapes against their plain versions (``tp_parity``); (e) each
+    rank's launches held exactly a forward and printed.  Prints the eager
+    decode step of tp=2 and tp=1 and the collectives' share: two ranks
+    sharing one card over gloo, a correctness run's times and not the
+    speed of a TP deployment.  Returns (stats, launches summed over the
+    ranks)."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import FileFunction, run_ranks
+    t_start = time.time()
+    cfg, cp = tp_model(dev)
+    vocab = cfg.vocab
+    prompts = spec_prompts(prompts_for(TP_REQS, vocab), vocab)[:TP_REQS]
+    x2 = (torch.randn((TP_REQS, cfg.d_ff),
+                      generator=torch.Generator().manual_seed(42)) * 2.0)
+    one, stats = {}, {"runs": {}}
+    for run in TP_RUNS:
+        name = tp_name(run)
+        e = tp_engine(cfg, cp, run, dev)
+        rec = []
+        tp_record(e, rec)
+        toks = e.serve(prompts, max_new=TP_NEW)
+        one[name] = {"tokens": toks, "rec": rec, **tp_step_ms(e)}
+        if run == TP_LUT:
+            one["acc"] = tp_lut_case(
+                dev, e, cp["blocks"]["mlp"]["w2"]["w_idx"][0],
+                x2.to(dev)).cpu()
+        del e
+        if "witness" in tp_checks(run):
+            e, rec = tp_engine(cfg, cp, run, dev), []
+            tp_record(e, rec)
+            with tp_one_process(torch.float32 if run[4] else torch.bfloat16):
+                one[name]["split_tokens"] = e.serve(prompts, max_new=TP_NEW)
+            one[name]["split_rec"] = rec
+            del e
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        path = os.path.join(tmp, "cp.pt")
+        torch.save(_to(cp, "cpu"), path)
+        t = time.time()
+        ranks = run_ranks(FileFunction(os.path.abspath(__file__), "tp_rank"),
+                          TP_WORLD, (path, cfg, prompts, x2), tmp_dir=tmp)
+        stats["ranks_s"] = time.time() - t
+    launches: dict = {}
+    for run in TP_RUNS:
+        name = tp_name(run)
+        got = [r["runs"][name] for r in ranks]
+        if got[1]["tokens"] != got[0]["tokens"]:
+            raise AssertionError(f"[tp] {name}: the ranks' tokens differ")
+        agree = tp_agreement(name, one[name], {
+            "tokens": got[0]["tokens"], "rec": ranks[0]["rec"][name]},
+            tp_checks(run), cfg.n_layers)
+        for r in got:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        st = {"tp1_step_ms": one[name]["step_ms"],
+              "tp2_step_ms": got[0]["step_ms"],
+              "tp2_timed_step_ms": got[0]["timed_step_ms"],
+              "collective_ms": got[0]["collective_ms"],
+              "collective_share": got[0]["collective_share"],
+              "calls_a_step": got[0]["calls"],
+              "largest_payload_bytes": got[0]["largest"],
+              "step_largest_payload_bytes": got[0]["step_largest"],
+              "serve_s": got[0]["serve_s"], "forwards": got[0]["forwards"],
+              "launches_by_rank": [r["launches"] for r in got], **agree}
+        stats["runs"][name] = st
+        log(f"[tp] {smi}: {name}: tokens "
+            + ("equal to tp=1" if agree["equal"] else
+               f"part from tp=1 at a top-2 gap of "
+               f"{agree.get('gap', float('nan')):.4g}")
+            + f" (decision logits within {agree['delta']:.4g} of tp=1's "
+            f"before any parting; max |logit| {agree['logit_scale']:.4g}, "
+            f"bound {agree['bound']:.4g}; held {'/'.join(agree['checks'])}"
+            + (f"; equal to the ranks' sums in one process, decision "
+               f"logits within {agree['witness_delta']:.4g} (bit-equal "
+               f"{agree['witness_bitequal']})" if "witness" in agree["checks"]
+               else "")
+            + f"), ranks equal; eager decode step tp=2 "
+            f"{st['tp2_step_ms']:.2f} ms, tp=1 {st['tp1_step_ms']:.2f} ms; "
+            f"collectives {st['collective_ms']:.2f} of "
+            f"{st['tp2_timed_step_ms']:.2f} ms timed "
+            f"({100 * st['collective_share']:.1f} %), calls a step "
+            f"{st['calls_a_step']}, largest payload a step "
+            f"{st['step_largest_payload_bytes']} B (a serve, prefills "
+            f"included, {st['largest_payload_bytes']} B); launches rank 0 "
+            f"{st['launches_by_rank'][0]}, rank 1 {st['launches_by_rank'][1]}"
+            f" over {st['forwards']} forwards each")
+    for r in ranks:
+        acc = r["runs"][tp_name(TP_LUT)]["acc"]
+        if not torch.equal(acc, one["acc"]):
+            raise AssertionError("[tp] the w2 int32 accumulator summed over "
+                                 "the ranks differs from one device's")
+    stats["parity"] = [r["parity"] for r in ranks]
+    log(f"[tp] w2 row psum: int32 accumulators {tuple(one['acc'].shape)} "
+        f"bit-equal to one device's on both ranks; kernels at the sharded "
+        f"shapes against plain, largest |difference| by rank "
+        f"{stats['parity']}")
+    stats["times"] = tp_times(dev, peaks)
+    for r in stats["times"]:
+        log(f"[tp] {smi}: {r['kernel']} {r['site']} {r['shape']}: "
+            f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}, "
+            f"plain {r['plain_ms']:.4f}"
+            + (f", library {r['library_ms']:.4f}" if r["library_ms"]
+               is not None else "") + ")")
+    stats["phase_s"] = time.time() - t_start
+    log(f"[tp] {smi}: phase {stats['phase_s']:.1f}s (ranks "
+        f"{stats['ranks_s']:.1f}s); launches {launches}")
+    del cp
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
 def unfused_step(dev, e, L) -> dict:
     """The working-point codebook decode step (4 slots at 40) with the
     gated launch, and with the FFN as the port ran it before that launch
@@ -8003,6 +8688,8 @@ def main() -> int:
     tf_stats, tf_launches = train_families_path(dev, smi)
     torch.cuda.empty_cache()
     ex_stats, ex_launches = examples_path(dev, smi)
+    torch.cuda.empty_cache()
+    tp_stats, tp_launches = tp_path(dev, smi, peaks)
     s_stats["kvq_ngram"] = q_stats.pop("spec")
     for k, v in qs_launches.items():
         s_launches[k] = s_launches.get(k, 0) + v
@@ -8028,7 +8715,8 @@ def main() -> int:
                    "paper": pa_launches.get(k, 0),
                    "train": tr_launches.get(k, 0),
                    "train_families": tf_launches.get(k, 0),
-                   "examples": ex_launches.get(k, 0)}
+                   "examples": ex_launches.get(k, 0),
+                   "tp": tp_launches.get(k, 0)}
                for k in TPU_KERNELS}
     kernels = []
     for kname in TPU_KERNELS:
@@ -8101,6 +8789,7 @@ def main() -> int:
     log("[done] train path " + json.dumps(tr_stats))
     log("[done] train_families path " + json.dumps(tf_stats))
     log("[done] examples path " + json.dumps(ex_stats))
+    log("[done] tp path " + json.dumps(tp_stats))
     log("[done] codebook_swiglu parity " + json.dumps(sw_counts))
     print(smi)
     line = json.dumps({"kernels": kernels})

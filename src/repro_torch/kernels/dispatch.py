@@ -13,21 +13,37 @@ port's copy of ``repro/kernels/dispatch.py``, single device).
 In JAX the backend is trace-time global state (``use_backend``,
 ``bind_backend``) because of jit caching.  Here it is a ``BackendSpec``
 value that the engine holds and passes down to every ``dense`` call.
+
+**Tensor parallelism**: a ``BackendSpec`` whose ``mesh``
+(``launch/mesh.Mesh``) has a ``model`` axis of more than one rank runs
+each contraction on this rank's shard (``_sharded_matmul``), by the
+layer's ``kind``: ``'col'`` (wq/wk/wv/w1/w3) takes the rank's (K, N/tp)
+ids and leaves the output N-sharded; ``'row'`` (wo/w2) takes the rank's
+K/tp slice of x and its (K/tp, N) ids and sums the partial products over
+the ``model`` group, on the lut backend the **int32 accumulators**
+(exact: integer addition is associative), decoded once with the engine's
+full-fan-in ``LutSpec``; anything else is the replicated product.  Only
+the integer ids shard; codebooks and lut tables replicate.  ``ROUTES``
+counts the contractions a route ran, as the reference's
+``MATMUL_CALLS``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from collections import Counter
 
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import ops, probes
 
 __all__ = ["BACKENDS", "LutSpec", "BackendSpec", "make_lut_spec",
            "build_lut_table", "attach_lut_tables", "backend_matmul",
-           "lut_acc", "DENSE"]
+           "lut_acc", "DENSE", "ROUTES", "route_counts",
+           "reset_route_counts", "tp_degree", "count_route"]
 
 BACKENDS = ("dense", "codebook", "lut")
 
@@ -54,11 +70,13 @@ class LutSpec:
 
 @dataclasses.dataclass(frozen=True)
 class BackendSpec:
-    """How one model's index-form matmuls run: the backend name and, for
-    ``lut``, its grid."""
+    """How one model's index-form matmuls run: the backend name, for
+    ``lut`` its grid, and the tensor-parallel ``mesh`` (None: one
+    device)."""
 
     name: str = "dense"
     lut_spec: LutSpec | None = None
+    mesh: object = None
 
     def __post_init__(self):
         if self.name not in BACKENDS:
@@ -69,6 +87,29 @@ class BackendSpec:
 
 
 DENSE = BackendSpec()
+
+# "{backend}.{route}" -> contractions run through that route (local | col |
+# row | replicated), process-wide like the kernels' launch counters.
+ROUTES: Counter = Counter()
+
+
+def count_route(backend: BackendSpec, route: str, n: int = 1) -> None:
+    ROUTES[f"{backend.name}.{route}"] += n
+
+
+def route_counts() -> dict:
+    return dict(ROUTES)
+
+
+def reset_route_counts() -> None:
+    ROUTES.clear()
+
+
+def tp_degree(backend: BackendSpec | None) -> int:
+    """The ``model`` axis' size of ``backend``'s mesh (1 without one, and
+    for no backend: a float weight's product takes none)."""
+    mesh = getattr(backend, "mesh", None)
+    return mesh.tp if mesh is not None else 1
 
 
 def make_lut_spec(codebook, fan_in: int, *, levels: int = 4096,
@@ -128,28 +169,76 @@ def attach_lut_tables(params, spec: LutSpec):
 
 def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
                    codebook: torch.Tensor, backend: BackendSpec,
-                   table: torch.Tensor | None = None) -> torch.Tensor:
+                   table: torch.Tensor | None = None,
+                   kind: str | None = None) -> torch.Tensor:
     """``x @ codebook[w_idx]`` through a non-dense backend.
 
     x: (..., K) float; w_idx: (K, N) ids; codebook: (|W|,); table: the
     precomputed (|A|, |W|) lut table (rebuilt from the codebook when None).
-    Returns (..., N) in x.dtype.  Under an open probes frame the call is
-    counted (``probes.tap_matmul``).
+    kind: 'col' | 'row' | None, the layer's tensor-parallel role, read only
+    when ``backend`` has a mesh of more than one rank (``_sharded_matmul``:
+    w_idx is then this rank's shard).  Returns (..., N) in x.dtype (N
+    this rank's columns on the 'col' route).  Under an open probes frame
+    the call is counted (``probes.tap_matmul``).
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if backend.name == "codebook":
-        y = ops.codebook_matmul(x2, w_idx, codebook)
-    elif backend.name == "lut":
-        spec = backend.lut_spec
-        acc = lut_acc(x2, w_idx, codebook, spec, table)
-        y = acc.to(torch.float32) * (spec.da / (2.0 ** spec.s))
+    if tp_degree(backend) > 1:
+        y = _sharded_matmul(x2, w_idx, codebook, backend, kind, table)
     else:
-        raise ValueError(f"backend_matmul called with {backend.name!r}")
+        count_route(backend, "local")
+        y = _local_matmul(x2, w_idx, codebook, backend, table)
     # the numerics taps: the full activations and the f32 output, before
     # the cast (a no-op unless a probes frame is open)
     probes.tap_matmul(x2, y, backend.name, backend.lut_spec)
     return y.reshape(*lead, -1).to(x.dtype)
+
+
+def _lut_decode(acc: torch.Tensor, spec: LutSpec) -> torch.Tensor:
+    return acc.to(torch.float32) * (spec.da / (2.0 ** spec.s))
+
+
+def _local_matmul(x2, w_idx, codebook, backend: BackendSpec, table=None):
+    """The f32 (M, N) product on this rank's operands."""
+    if backend.name == "codebook":
+        return ops.codebook_matmul(x2, w_idx, codebook)
+    if backend.name == "lut":
+        spec = backend.lut_spec
+        return _lut_decode(lut_acc(x2, w_idx, codebook, spec, table), spec)
+    raise ValueError(f"backend_matmul called with {backend.name!r}")
+
+
+def _sharded_matmul(x2, w_idx, codebook, backend: BackendSpec, kind,
+                    table=None):
+    """The contraction on this rank's shard of the weights (the
+    counterpart of the reference's shard_map over ``model``).
+
+    col:  x replicated, w_idx the rank's (K, N/tp) → the local kernel, the
+          output this rank's N/tp columns (no collective).
+    row:  x this rank's K/tp slice (the caller's: the FFN's hidden is
+          made so by the col-sharded w1/w3, the attention output is cut
+          to it ahead of wo), w_idx the rank's (K/tp, N) → the
+          local kernel, then one psum of the (M, N) output; on lut of the
+          int32 accumulator, decoded once after the sum with the
+          engine's full-fan-in spec (a spec sized for K/tp would change
+          ``s``).
+    else: the replicated product (w_idx whole on every rank).
+    """
+    mesh = backend.mesh
+    if kind == "col":
+        count_route(backend, "col")
+        return _local_matmul(x2, w_idx, codebook, backend, table)
+    if kind == "row":
+        count_route(backend, "row")
+        if backend.name == "lut":
+            spec = backend.lut_spec
+            acc = collectives.psum(lut_acc(x2, w_idx, codebook, spec, table),
+                                   mesh)
+            return _lut_decode(acc, spec)
+        return collectives.psum(_local_matmul(x2, w_idx, codebook, backend),
+                                mesh)
+    count_route(backend, "replicated")
+    return _local_matmul(x2, w_idx, codebook, backend, table)
 
 
 @functools.lru_cache(maxsize=None)

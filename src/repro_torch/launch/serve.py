@@ -27,8 +27,17 @@ Knobs:
                                      lut grid; needs --compress)
     --spec-k N                       draft tokens per verify round
     --top-k / --top-p                sampling filters (temperature > 0)
-    --tp N                           tensor parallelism: not ported yet,
-                                     any N > 1 is refused
+    --tp N                           tensor parallelism over a (1, N)
+                                     mesh (DESIGN.md §10): N ranks
+                                     spawned over gloo, each on
+                                     cuda:(rank % cards) (every rank on
+                                     the one card of a one-card machine)
+                                     or the CPU under --device cpu; the
+                                     dense family on the contiguous cache,
+                                     plain or n-gram spec (the paged
+                                     cache, moe archs, --server, --probes
+                                     and a model draft wait for later
+                                     slices); the decode step runs eager
     --server                         long-running request-server mode
                                      (DESIGN.md §11): a traffic trace plays
                                      through the virtual-clock
@@ -112,12 +121,23 @@ Smoke runs on the CPU (drop ``--device cpu`` to run them on the GPU):
         --reduced --server --replicas 4 --paged --rate 120 --requests 32 \
         --migrate-on-drain --shared-prefix-tier --shed-policy slo \
         --drain-at 0.3:r0 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --compress --backend codebook --tp 2 --requests 8 \
+        --max-new 16 --device cpu
+
+With ``--tp N`` the parent builds (and compresses) the weights and prints
+the ``[memory]`` row, hands the weights to the N ranks in a file, and
+prints the report lines rank 0 made (``_serve_rank``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -128,6 +148,7 @@ from repro_torch.core.export import kv_cache_bytes, memory_report
 from repro_torch.core.quantizer import (cluster_params, codebook_indices,
                                         init_state)
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import make_local_mesh, run_ranks
 from repro_torch.models.model_zoo import build
 from repro_torch.serving import ServeEngine, SpecConfig, to_codebook_params
 
@@ -411,18 +432,12 @@ def main(argv=None):
     if args.probes and args.spec_draft != "none":
         ap.error("numerics probes instrument the plain decode loops; drop "
                  "--spec-draft for --probes")
-    if args.tp > 1:
-        if args.paged and args.page_size % args.tp:
-            ap.error(f"--page-size {args.page_size} must be a multiple of "
-                     f"--tp {args.tp} (each shard owns an S-slice of every "
-                     "page)")
-        ap.error(f"--tp {args.tp}: tensor parallelism is not ported yet "
-                 "(it comes with the tensor-parallel slice); drop --tp")
-    dev = resolve_device(args.device)
-
     cfg = configs.get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.tp > 1:
+        _check_tp(ap, args, cfg)
+    dev = resolve_device(args.device)
     model = build(cfg)
     params = init_params(model, dev)
 
@@ -464,6 +479,11 @@ def main(argv=None):
             draft_backend="lut", lut_levels=512)
     max_len = (args.prompt_len + args.max_new + 8
                + (args.spec_k if spec else 0))
+    max_len += (-max_len) % args.tp       # the cache S axis shards over tp
+    if args.tp > 1:
+        for line in _serve_tp(args, cfg, params, spec, max_len, dev):
+            print(line)
+        return
 
     def mk_engine():
         return ServeEngine(model, params, max_len=max_len,
@@ -479,6 +499,14 @@ def main(argv=None):
     if args.server:
         run_server(args, engine, cfg, mk_engine)
         return
+    serve_batch(args, engine, spec, dev)
+
+
+def serve_batch(args, engine, spec, dev):
+    """The batch mode: a warm-up call, then the timed ``serve`` (or
+    ``generate`` under --uniform) of --requests seeded prompts, and its
+    report lines."""
+    cfg = engine.model.cfg
     rng = np.random.default_rng(args.seed)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len)]
                for _ in range(args.requests)]
@@ -527,6 +555,64 @@ def main(argv=None):
         report_numerics(engine, args.numerics_out)
     print("sample:", outs[0][:args.prompt_len], "->",
           outs[0][args.prompt_len:])
+
+
+# --- tensor parallelism ------------------------------------------------------
+
+def _check_tp(ap, args, cfg) -> None:
+    """The reference's --page-size check, then refuse what --tp does not
+    serve yet, each naming the slice it waits for (argparse's exit code
+    2)."""
+    if args.paged and args.page_size % args.tp:
+        ap.error(f"--page-size {args.page_size} must be a multiple of "
+                 f"--tp {args.tp} (each shard owns an S-slice of every "
+                 "page)")
+    later = [(args.paged, "--paged", "the paged cache's tensor-parallel "
+              "join"),
+             (cfg.family == "moe", f"--arch {args.arch} (a moe model)",
+              "the MoE expert-parallel and tensor-parallel regimes"),
+             (args.server, "--server", "the scheduler, fleet and probes "
+              "under a mesh"),
+             (args.probes, "--probes", "the scheduler, fleet and probes "
+              "under a mesh"),
+             (args.spec_draft == "model", "--spec-draft model",
+              "a model draft under a mesh")]
+    for on, flag, slice_ in later:
+        if on:
+            ap.error(f"--tp {args.tp} with {flag}: {slice_} comes with a "
+                     "later tensor-parallel slice")
+
+
+def _serve_tp(args, cfg, params, spec, max_len: int, dev) -> list:
+    """Serve through ``args.tp`` ranks (``run_ranks``: spawned processes
+    over gloo), the weights handed over in a file; returns the report
+    lines rank 0 made."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "params.pt")
+        torch.save(params, path)
+        outs = run_ranks(_serve_rank, args.tp,
+                         (args, cfg, path, spec, max_len, dev.type),
+                         tmp_dir=tmp)
+    return outs[0]
+
+
+def _serve_rank(rank: int, args, cfg, path: str, spec, max_len: int,
+                dev_type: str) -> list:
+    """One rank of ``--tp``: a (1, tp) mesh, the weights on this rank's
+    device (cuda:(rank % cards), or the CPU), a tensor-parallel engine and
+    the batch mode; returns its printed lines (the ranks' agree)."""
+    dev = (torch.device("cuda", rank % torch.cuda.device_count())
+           if dev_type == "cuda" else torch.device("cpu"))
+    mesh = make_local_mesh(1, args.tp)
+    params = torch.load(path, map_location=dev, weights_only=True)
+    engine = ServeEngine(build(cfg), params, max_len=max_len,
+                         temperature=args.temperature, backend=args.backend,
+                         max_batch=args.max_batch, top_k=args.top_k,
+                         top_p=args.top_p, spec=spec, device=dev, mesh=mesh)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_batch(args, engine, spec, dev)
+    return buf.getvalue().splitlines()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Attention: GQA + RoPE / M-RoPE + qk-norm, flash-chunked prefill softmax
 (causal, or not for an encoder; cross-attention over an encoder's memory),
-the contiguous KV-cache decode step and speculative verify, and the paged
-KV cache's chunked prefill, decode step and speculative verify with int8
-pages (the port's copy of the single-device parts of
-``repro/models/attention.py``).
+the contiguous KV-cache decode step and speculative verify, with their
+tensor-parallel form over a sequence-sharded cache (the flash-decode
+join), and the paged KV cache's chunked prefill,
+decode step and speculative verify with int8 pages (the port's copy of
+``repro/models/attention.py`` but its paged tensor-parallel join).
 
 Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
 caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
@@ -18,6 +19,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch, ops, probes
 from repro_torch.models.layers import dense, rms_norm
 
@@ -244,17 +246,49 @@ class _FlashAttention(torch.autograd.Function):
 
 # --- projections and the two serving forms -----------------------------------
 
+def _whole_qkv(q, k, v, backend):
+    """The column-sharded q, k, v of a tensor-parallel backend made whole
+    on every rank, by one all-gather of the three (the cache is sharded
+    over the sequence, so every rank attends with all heads)."""
+    if dispatch.tp_degree(backend) == 1:
+        return q, k, v
+    tp = backend.mesh.tp
+    sizes = [t.shape[-1] for t in (q, k, v)]
+    got = collectives.all_gather(torch.cat([q, k, v], dim=-1), backend.mesh)
+    blocks = got.reshape(*got.shape[:-1], tp, sum(sizes))
+    return tuple(b.reshape(*got.shape[:-1], tp * n)
+                 for b, n in zip(blocks.split(sizes, dim=-1), sizes))
+
+
+def _out_proj(p, out, backend):
+    """wo on the attention output (B, L, H·hd), a row-parallel product: on
+    a tensor-parallel backend the output is whole on every rank and wo
+    takes this rank's block of its columns, the rows of its (H·hd/tp, D)
+    shard."""
+    tp = dispatch.tp_degree(backend)
+    if tp > 1:
+        n = out.shape[-1] // tp
+        m = backend.mesh.coords["model"]
+        out = out[..., m * n:(m + 1) * n]
+    return dense(p["wo"], out, backend, "row")
+
+
 def _project_qkv(p, x, cfg: AttnConfig, pos, backend, kv_src=None):
     """q from x; k and v from ``kv_src`` (an encoder's memory, for
     cross-attention), else from x.  RoPE (M-RoPE with ``cfg.rope_sections``)
-    rotates self-attention's q and k only."""
+    rotates self-attention's q and k only.  The three products are
+    column-parallel; on a tensor-parallel backend they are gathered whole
+    (``_whole_qkv``)."""
     B, L, _ = x.shape
     hd, KV, G = cfg.hd, cfg.n_kv, cfg.groups
     src = x if kv_src is None else kv_src
     Lk = src.shape[1]
-    q = dense(p["wq"], x, backend).reshape(B, L, KV, G, hd)
-    k = dense(p["wk"], src, backend).reshape(B, Lk, KV, hd)
-    v = dense(p["wv"], src, backend).reshape(B, Lk, KV, hd)
+    q, k, v = _whole_qkv(dense(p["wq"], x, backend, "col"),
+                         dense(p["wk"], src, backend, "col"),
+                         dense(p["wv"], src, backend, "col"), backend)
+    q = q.reshape(B, L, KV, G, hd)
+    k = k.reshape(B, Lk, KV, hd)
+    v = v.reshape(B, Lk, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q)
         k = rms_norm(p["k_norm"], k)
@@ -284,7 +318,7 @@ def attn_apply(p, x, cfg: AttnConfig,
     q, k, v = _project_qkv(p, x, cfg, pos, backend, kv_override)
     out = flash_attention(q, k, v, causal=cfg.causal and kv_override is None,
                           window=cfg.window, kv_block=cfg.kv_block)
-    out = dense(p["wo"], out.reshape(B, L, cfg.n_heads * cfg.hd), backend)
+    out = _out_proj(p, out.reshape(B, L, cfg.n_heads * cfg.hd), backend)
     return out, {"k": k, "v": v}
 
 
@@ -306,14 +340,20 @@ def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    excl = insert_at if exclude is None else exclude
+    if getattr(backend, "mesh", None) is not None:
+        num, denom, m_glob = _decode_cached_sharded(
+            q, k, v, k_all, v_all, scales, layer, insert_at, valid_len, excl,
+            backend.mesh)
+        out = _join_fresh(q, k, v, num, denom, m_glob)
+        return _out_proj(p, out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
     k_l, v_l = k_all[layer], v_all[layer]
     if scales is not None:
         k_att = dequantize_kv(k_l, scales[0][layer])
         v_att = dequantize_kv(v_l, scales[1][layer])
     else:
         k_att, v_att = k_l, v_l
-    out = decode_attention(q, k_att, v_att, valid_len,
-                           exclude=insert_at if exclude is None else exclude,
+    out = decode_attention(q, k_att, v_att, valid_len, exclude=excl,
                            extra_kv=(k, v))
     rows = torch.arange(B, device=x.device)
     k_new, v_new = k[:, 0], v[:, 0]
@@ -323,7 +363,7 @@ def attn_decode_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
         scales[1][layer, rows, insert_at] = vsc
     k_l[rows, insert_at] = k_new.to(k_l.dtype)
     v_l[rows, insert_at] = v_new.to(v_l.dtype)
-    return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+    return _out_proj(p, out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
 
 
 def attn_verify_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
@@ -343,6 +383,13 @@ def attn_verify_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
     """
     B, K1, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    if getattr(backend, "mesh", None) is not None:
+        S = k_all.shape[2] * backend.mesh.tp
+        num, denom, m_glob = _decode_cached_sharded(
+            q, k, v, k_all, v_all, scales, layer,
+            torch.clamp(insert_at, 0, S - K1), valid_len, None, backend.mesh)
+        out = _join_fresh(q, k, v, num, denom, m_glob)
+        return _out_proj(p, out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
     k_l, v_l = k_all[layer], v_all[layer]
     if scales is not None:
         k_att = dequantize_kv(k_l, scales[0][layer])
@@ -360,7 +407,126 @@ def attn_verify_cached(p, x, cfg: AttnConfig, *, pos, insert_at, valid_len,
         scales[1][layer, rows, cols] = vsc.to(scales[1].dtype)
     k_l[rows, cols] = k.to(k_l.dtype)
     v_l[rows, cols] = v.to(v_l.dtype)
-    return dense(p["wo"], out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
+    return _out_proj(p, out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
+
+
+# --- the sequence-sharded flash-decode join (tensor parallelism) -------------
+
+def _pay_dtype(dt):
+    """The partial output's collective dtype: f32 for an f32 cache, bf16
+    otherwise (the reference's ``_pay_dtype``)."""
+    return torch.float32 if dt == torch.float32 else torch.bfloat16
+
+
+def _join_fresh(q, k_new, v_new, num, denom, m_glob):
+    """Fold the Lq fresh tokens (causal among themselves) into the joined
+    softmax statistics of the sharded past, then normalize: the online
+    twin of ``chunk_attention``'s concatenated softmax.
+
+    q: (B, Lq, KV, G, hd); k_new/v_new: (B, Lq, KV, hd); num: (B, KV, G,
+    Lq, hd); denom/m_glob: (B, KV, G, Lq).  Returns (B, Lq, KV, G, hd) in
+    q.dtype.
+    """
+    Lq, hd = q.shape[1], q.shape[-1]
+    qf = q.to(torch.float32) * hd ** -0.5
+    s_new = torch.einsum("bqkgd,bckd->bkgqc", qf, k_new.to(torch.float32))
+    ar = torch.arange(Lq, device=q.device)
+    s_new = torch.where(ar[:, None] >= ar[None, :], s_new, NEG_INF)
+    m2 = torch.maximum(m_glob, torch.amax(s_new, dim=-1))
+    corr = torch.exp(m_glob - m2)
+    e_new = torch.exp(s_new - m2[..., None])
+    num = num * corr[..., None] + torch.einsum(
+        "bkgqc,bckd->bkgqd", e_new, v_new.to(torch.float32))
+    denom = denom * corr + torch.sum(e_new, dim=-1)
+    out = num / torch.clamp(denom[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def _slice_scores(q, k_l, start: int, vlen, excl):
+    """Scores (B, KV, G, Lq, S_loc) of q (B, Lq, KV, G, hd) against one
+    S-slice k_l (B, S_loc, KV, hd) of the cache holding the global rows
+    from ``start``: q scaled and rounded to the slice's dtype, products
+    accumulated in f32, rows at or past ``vlen`` (B,) and the row
+    ``excl`` (B,) (None: none) masked to NEG_INF."""
+    B, hd = q.shape[0], q.shape[-1]
+    f32 = torch.float32
+    qf = (q.to(f32) * hd ** -0.5).to(k_l.dtype).to(f32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_l.to(f32))
+    gidx = start + torch.arange(k_l.shape[1], device=q.device)
+    mask = gidx[None, :] < vlen.reshape(B, 1)
+    if excl is not None:
+        mask = mask & (gidx[None, :] != excl.reshape(B, 1))
+    return torch.where(mask[:, None, None, None, :], s, NEG_INF)
+
+
+def _slice_partials(s, m_glob, v_l):
+    """One slice's share of the joined softmax under the joined row max
+    ``m_glob`` (B, KV, G, Lq): its denominator (f32) and its partial output
+    (B, KV, G, Lq, hd) in ``_pay_dtype``, the two that are summed over the
+    slices."""
+    f32 = torch.float32
+    pr = torch.exp(s - m_glob[..., None])
+    pv = torch.einsum("bkgqs,bskd->bkgqd", pr.to(v_l.dtype).to(f32),
+                      v_l.to(f32))
+    return torch.sum(pr, dim=-1), pv.to(_pay_dtype(v_l.dtype))
+
+
+def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
+                           vlen, excl, mesh):
+    """Flash attention of the Lq fresh queries over this rank's S/tp slice
+    of the cache (the reference's ``_decode_cached_shardmap``).
+
+    k_all/v_all: (L, B, S_loc, KV, hd), this rank's rows [start, start +
+    S_loc) of the global sequence, start = rank · S_loc; ``scales`` their
+    (L, B, S_loc, KV) int8 scales.  q (B, Lq, KV, G, hd) and the fresh
+    k/v (B, Lq, KV, hd) are whole on every rank.  ins/vlen/excl: (B,)
+    global row ids: the first row the Lq fresh tokens are written to, the
+    attendable length, and a row masked (None: none).
+
+    Scores over the local slice (an int8 slice dequantized to q's dtype,
+    q rounded to the slice's dtype, products accumulated in f32) are joined
+    across ranks by a pmax of the row max (floored at NEG_INF/10), a psum
+    of the denominator and a psum of the partial output in
+    ``_pay_dtype``: O(B·H·hd·Lq) bytes, never the cache.  Then the fresh
+    rows are written on their owning rank only, at (row − start) mod
+    S_loc (elsewhere the current value is written back; Lq ≤ S_loc keeps
+    a slot's rows distinct).  Returns (num, denom, m_glob) for
+    ``_join_fresh``.
+    """
+    B, Lq = q.shape[:2]
+    S_loc = k_all.shape[2]
+    start = mesh.coords["model"] * S_loc
+    k_raw, v_raw = k_all[layer], v_all[layer]
+    if scales is not None:
+        # the reference dequantizes to bf16 in any model; in q's dtype an
+        # f32 model keeps the one-device noise floor (its f32 payload's aim)
+        k_l = dequantize_kv(k_raw, scales[0][layer]).to(q.dtype)
+        v_l = dequantize_kv(v_raw, scales[1][layer]).to(q.dtype)
+    else:
+        k_l, v_l = k_raw, v_raw
+    s = _slice_scores(q, k_l, start, vlen, excl)
+    m_glob = torch.clamp(collectives.pmax(torch.amax(s, dim=-1), mesh),
+                         min=NEG_INF / 10)
+    den, pv = _slice_partials(s, m_glob, v_l)
+    denom = collectives.psum(den, mesh)
+    num = collectives.psum(pv, mesh).to(torch.float32)
+    rows = ins.reshape(B, 1).long() + torch.arange(Lq, device=q.device)
+    owner = (rows >= start) & (rows < start + S_loc)
+    loc = (rows - start) % S_loc
+    bidx = torch.arange(B, device=q.device)[:, None]
+
+    def put(sl, new):
+        cur = sl[bidx, loc]
+        ow = owner.reshape(owner.shape + (1,) * (cur.ndim - 2))
+        sl[bidx, loc] = torch.where(ow, new.to(sl.dtype), cur)
+
+    if scales is not None:
+        (k, ksc), (v, vsc) = quantize_kv(k), quantize_kv(v)
+        put(scales[0][layer], ksc)
+        put(scales[1][layer], vsc)
+    put(k_raw, k)
+    put(v_raw, v)
+    return num, denom, m_glob
 
 
 # --- int8 KV pages ------------------------------------------------------------
@@ -481,7 +647,7 @@ def attn_decode_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     # one offset, and any one of their values may land there
     _store_token(k[:, 0], v[:, 0], k_pool, v_pool, scales, layer,
                  write_pid.long(), write_off.long())
-    return dense(p["wo"], out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
+    return _out_proj(p, out.reshape(B, 1, cfg.n_heads * cfg.hd), backend)
 
 
 def attn_verify_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
@@ -506,7 +672,7 @@ def attn_verify_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     out = chunk_attention(q, k_l, v_l, valid_len, k, v)
     _store_token(k, v, k_pool, v_pool, scales, layer, write_pid.long(),
                  write_off.long())
-    return dense(p["wo"], out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
+    return _out_proj(p, out.reshape(B, K1, cfg.n_heads * cfg.hd), backend)
 
 
 def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
@@ -530,4 +696,4 @@ def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     out = chunk_attention(q, k_l, v_l, past_len, k, v)
     _store_token(k[0], v[0], k_pool, v_pool, scales, layer, int(write_pid),
                  slice(None))
-    return dense(p["wo"], out.reshape(B, C, cfg.n_heads * cfg.hd), backend)
+    return _out_proj(p, out.reshape(B, C, cfg.n_heads * cfg.hd), backend)

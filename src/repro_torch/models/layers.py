@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.activations import ActQuantConfig, act_apply
+from repro_torch.distributed import collectives
 from repro_torch.kernels import dispatch, ops, probes
 from repro_torch.kernels._common import canonical_idx
 
@@ -38,27 +39,49 @@ def dequantize(p) -> torch.Tensor:
     return book.to(torch.float32)[ids.long()]
 
 
-def dense(p, x: torch.Tensor, backend: dispatch.BackendSpec = dispatch.DENSE):
+def dense(p, x: torch.Tensor, backend: dispatch.BackendSpec = dispatch.DENSE,
+          kind: str | None = None):
     """x @ W.  W is dense ('w') or codebook-indexed ('w_idx' + 'codebook').
 
     Index-form weights go through ``backend``: ``dense`` gathers the
     codebook and runs a plain matmul in x's dtype; ``codebook`` and ``lut``
     run their kernels (``kernels.dispatch.backend_matmul``).
+
+    ``kind`` ('col' | 'row' | None) is the layer's tensor-parallel role,
+    read only when ``backend`` has a mesh of more than one rank: W is then
+    this rank's shard (``ServeEngine`` places them), a 'col' product
+    returns this rank's columns, a 'row' product takes this rank's K-slice
+    of x and sums the partial products over the ``model`` group, each as ``dispatch._sharded_matmul`` routes the
+    kernels; the plain matmul of the ``dense`` backend shards the same way.
     """
     if "w_idx" in p:
         if backend.name != "dense" and p["w_idx"].ndim == 2:
             y = dispatch.backend_matmul(x, p["w_idx"], p["codebook"],
-                                        backend, table=p.get("lut_table"))
+                                        backend, table=p.get("lut_table"),
+                                        kind=kind)
             if "b" in p:
                 y = y + p["b"].to(x.dtype)
             return y
         w = dequantize(p).to(x.dtype)
     else:
         w = p["w"].to(x.dtype)
-    y = x @ w
+    y = _plain_matmul(x, w, backend, kind)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
+
+
+def _plain_matmul(x, w, backend: dispatch.BackendSpec, kind) -> torch.Tensor:
+    """x @ w, on a tensor-parallel backend by ``kind``: 'row' (x this
+    rank's K-slice) sums the rank's partial product over the ``model``
+    group, 'col' and replicated products are local."""
+    if dispatch.tp_degree(backend) == 1:
+        return x @ w
+    if kind == "row":
+        dispatch.count_route(backend, "row")
+        return collectives.psum(x @ w, backend.mesh)
+    dispatch.count_route(backend, "col" if kind == "col" else "replicated")
+    return x @ w
 
 
 def rms_norm_init(d: int, dtype, device, layers: tuple = ()):
@@ -179,16 +202,18 @@ def swiglu(p, x: torch.Tensor, act_kind: str = "silu", act_levels: int = 0,
             and not probes.active():
         w1, w3 = p["w1"], p["w3"]
         x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        if dispatch.tp_degree(backend) > 1:
+            dispatch.count_route(backend, "col", 2)
         h = ops.codebook_swiglu(x2, w1["w_idx"], w1["codebook"], w3["w_idx"],
                                 w3["codebook"], _bounded(act_kind),
                                 act_levels).reshape(*x.shape[:-1], -1)
     elif act_levels > 0:
-        h = ffn_act(dense(p["w1"], x, backend), act_kind, act_levels,
-                    mul=dense(p["w3"], x, backend))
+        h = ffn_act(dense(p["w1"], x, backend, "col"), act_kind, act_levels,
+                    mul=dense(p["w3"], x, backend, "col"))
     else:
-        h = (ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
-             * dense(p["w3"], x, backend))
-    return dense(p["w2"], h, backend)
+        h = (ffn_act(dense(p["w1"], x, backend, "col"), act_kind, act_levels)
+             * dense(p["w3"], x, backend, "col"))
+    return dense(p["w2"], h, backend, "row")
 
 
 def mlp_init(gen: torch.Generator, d: int, ff: int, dtype, device,
@@ -204,5 +229,5 @@ def mlp_block(p, x: torch.Tensor, act_kind: str = "gelu", act_levels: int = 0,
     """w2 · act(x · w1), each product with its bias.  At ``act_levels > 0``
     the activation is ``ffn_act``'s quantized relu6 (gelu swapped, no
     multiplier: the ``act_quant`` kernel on the card)."""
-    h = ffn_act(dense(p["w1"], x, backend), act_kind, act_levels)
-    return dense(p["w2"], h, backend)
+    h = ffn_act(dense(p["w1"], x, backend, "col"), act_kind, act_levels)
+    return dense(p["w2"], h, backend, "row")

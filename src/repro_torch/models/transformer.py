@@ -783,7 +783,7 @@ def decode_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     B = tokens.shape[0]
     pos_c = cache["pos"]
     pos_v = pos_c if pos_c.ndim == 1 else pos_c.reshape(1).expand(B)
-    S = cache["kv"]["k"].shape[2]
+    S = cache["kv"]["k"].shape[2] * dispatch.tp_degree(backend)
     ins = torch.clamp(pos_v, max=S - 1).long()
     if pos_c.ndim == 1:
         vlen, excl = torch.clamp(pos_v + 1, max=S), ins
@@ -878,7 +878,7 @@ def verify_step(params, cfg, tokens, cache, backend=dispatch.DENSE):
     dt = _dtype(cfg)
     B, K1 = tokens.shape
     pos_v = cache["pos"]
-    S = cache["kv"]["k"].shape[2]
+    S = cache["kv"]["k"].shape[2] * dispatch.tp_degree(backend)
     ins = torch.clamp(pos_v, max=S - K1)
     vlen = torch.clamp(pos_v, max=S)
     ppos = pos_v[:, None] + torch.arange(K1, device=tokens.device)[None]

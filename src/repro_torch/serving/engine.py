@@ -65,7 +65,23 @@ tokens: each is the reference's.
 The matmul backend (``dense`` | ``codebook`` | ``lut``) is a field of the
 engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
 ``codebook``/``lut`` need index-form params (``to_codebook_params``).
-Tensor parallelism is not ported yet.
+
+* **Tensor parallelism** (``mesh=``, a ``launch/mesh.Mesh``): every rank
+  of the mesh's ``model`` axis builds the engine on the same params and
+  runs the same host loop on the same requests.  ``_shard_params`` keeps
+  this rank's slice of each block matmul (``distributed/sharding.
+  serve_param_specs``: column-parallel wq/wk/wv/w1/w3, row-parallel wo/w2;
+  in index form only the integer ids shard), everything else whole; the
+  lut grid is the full fan-in's, fixed before the cut.  The contiguous
+  cache keeps this rank's S/tp rows of every plane (a prefill computes
+  whole planes and each rank keeps its rows), and decode and verify join
+  the ranks' partial softmax over it (``attention._decode_cached_
+  sharded``).  Each collective hands every rank the same bytes, so the
+  ranks' decisions agree.  Under a mesh the decode step is eager on the
+  card: a CUDA graph cannot capture a gloo collective (every kernel still
+  runs on the card).  The paged cache, the ``moe`` family, probes, a
+  model draft and the step-level API are refused under a mesh: they wait
+  for later tensor-parallel slices.
 
 * **Numerics probes** (``probes=True``): the engine owns one probe state
   (``kernels/probes.init_state``), static f32 device buffers made before
@@ -341,6 +357,10 @@ class ServeEngine:
                  contiguous cache or (``paged=True``) the page pool.
     probes:      in-graph numerics probes: per-layer discretization
                  counters, collected in prefill and decode (``numerics()``).
+    mesh:        a ``launch/mesh.Mesh`` with a ``model`` axis makes the
+                 engine tensor-parallel (see the module docstring); needs
+                 ``max_len % tp == 0`` and, with ``spec``, ``max_len / tp
+                 ≥ k + 1``.
 
     ``n_forwards`` counts model forwards run (prefill calls + decode
     steps, replayed or eager); ``n_captures`` the decode steps captured
@@ -375,6 +395,7 @@ class ServeEngine:
     spec: SpecConfig | None = None
     telemetry: object = None
     probes: bool = False
+    mesh: object = None
 
     def __post_init__(self):
         if self.telemetry is None:
@@ -408,7 +429,10 @@ class ServeEngine:
                     a_range=self.lut_range)
                 # the §4 tables are built once here, not in every layer call
                 self.params = dispatch.attach_lut_tables(self.params, lut_spec)
-        self.bk = dispatch.BackendSpec(self.backend, lut_spec)
+        if self.mesh is not None:
+            self._check_mesh()
+            self.params = self._shard_params(self.params)
+        self.bk = dispatch.BackendSpec(self.backend, lut_spec, self.mesh)
         self._cache_dtype = (torch.float32 if cfg.dtype == "float32"
                              else torch.bfloat16)
         self._gen = torch.Generator(device=self.device)
@@ -433,7 +457,8 @@ class ServeEngine:
             self._probe_audit = nprobes.static_index_audit(self.params)
         self._pool: PagePool | None = None
         self._slot_sets: dict = {}
-        self._graphs = self.device.type == "cuda"
+        # a CUDA graph cannot capture a gloo collective: eager under a mesh
+        self._graphs = self.device.type == "cuda" and self.mesh is None
         self._graph_pool = None
 
     def _init_spec(self):
@@ -472,6 +497,61 @@ class ServeEngine:
     @property
     def lut_spec(self):
         return self.bk.lut_spec
+
+    # --- tensor parallelism -------------------------------------------------
+
+    def _check_mesh(self) -> None:
+        """The reference's checks of a mesh (its exception types and
+        texts), and the refusals of what waits for later slices."""
+        mesh, cfg = self.mesh, self.model.cfg
+        if "model" not in mesh.axis_names:
+            raise ValueError("ServeEngine mesh needs a 'model' axis "
+                             "(launch.mesh.make_local_mesh)")
+        later = {
+            "paged": (self.paged, "the paged cache's join "
+                      "(_paged_flash_shardmap)"),
+            "moe": (cfg.family == "moe", "the MoE expert-parallel and "
+                    "tensor-parallel regimes"),
+            "probes": (self.probes, "the scheduler, fleet and probes under "
+                       "a mesh"),
+            "spec.draft='model'": (self.spec is not None
+                                   and self.spec.draft == "model",
+                                   "a model draft under a mesh"),
+        }
+        for what, (on, slice_) in later.items():
+            if on:
+                raise NotImplementedError(
+                    f"ServeEngine(mesh=) with {what}: {slice_} comes with a "
+                    "later tensor-parallel slice")
+        tp = mesh.shape["model"]
+        if self.max_len % tp:
+            raise ValueError(
+                f"max_len {self.max_len} must be a multiple of the TP "
+                f"degree {tp} (the cache shards its sequence axis over "
+                "`model`)")
+        if self.spec is not None and self.max_len // tp < self.spec.k + 1:
+            raise ValueError(
+                f"max_len/tp = {self.max_len // tp} cannot hold the "
+                f"k+1 = {self.spec.k + 1} verify rows of one shard")
+
+    def _shard_params(self, params):
+        """This rank's params under ``serve_param_specs``: its slice of each
+        block matmul's ``w``/``w_idx`` (a copy; the whole leaf is
+        dropped), every other leaf as it is."""
+        from repro_torch.distributed.sharding import (local_slice,
+                                                      serve_param_specs)
+
+        def walk(node, spec, path):
+            if isinstance(node, dict):
+                return {k: walk(v, spec[k], path + [k])
+                        for k, v in node.items()}
+            try:
+                return local_slice(node, spec, self.mesh)
+            except ValueError as e:
+                raise ValueError(f"{'/'.join(path)} {tuple(node.shape)}: "
+                                 f"{e}") from None
+
+        return walk(params, serve_param_specs(params), [])
 
     # --- numerics probes ---------------------------------------------------
 
@@ -554,7 +634,10 @@ class ServeEngine:
         return st
 
     def _contiguous_cache(self, batch: int) -> dict:
-        return self.model.init_cache(batch, self.max_len,
+        """A zeroed contiguous cache for ``batch`` slots: ``max_len`` rows,
+        this rank's ``max_len / tp`` under a mesh."""
+        tp = self.mesh.tp if self.mesh is not None else 1
+        return self.model.init_cache(batch, self.max_len // tp,
                                      dtype=self._cache_dtype,
                                      device=self.device)
 
@@ -822,24 +905,34 @@ class ServeEngine:
             if stop_on_event and (before & ~st.h_active).any():
                 break
 
+    def _own_rows(self, S: int, S_loc: int) -> tuple:
+        """(first, count) of a prefill plane's S rows that this rank's
+        ``S_loc`` cache rows (global rows start = rank · S_loc on) hold:
+        all of them without a mesh."""
+        start = self.mesh.coords["model"] * S_loc if self.mesh else 0
+        return start, max(0, min(S - start, S_loc))
+
     def _grow(self, cache):
         """Copy prefill-emitted K/V planes (S = prompt bucket) into the
         static cache of their batch size, zeros beyond S, with their
-        positions; returns that cache."""
+        positions; returns that cache.  Under a mesh this rank keeps its
+        rows of the planes (the reference's ``_place_kv``)."""
         st = self._slots(cache["pos"].shape[0])
         for name, plane in cache["kv"].items():
             dst = st.cache["kv"][name]
-            S = plane.shape[2]
-            dst[:, :, :S] = plane
-            dst[:, :, S:] = 0
+            a, n = self._own_rows(plane.shape[2], dst.shape[2])
+            dst[:, :, :n] = plane[:, :, a:a + n]
+            dst[:, :, n:] = 0
         st.cache["pos"].copy_(cache["pos"])
         return st.cache
 
     def _splice(self, cache, c1, slot: int):
-        """Copy a batch-1 prefill cache into slot ``slot`` (in place)."""
+        """Copy a batch-1 prefill cache into slot ``slot`` (in place; this
+        rank's rows of it under a mesh)."""
         for name, src in c1["kv"].items():
             dst = cache["kv"][name]
-            dst[:, slot, :src.shape[2]] = src[:, 0].to(dst.dtype)
+            a, n = self._own_rows(src.shape[2], dst.shape[2])
+            dst[:, slot, :n] = src[:, 0, a:a + n].to(dst.dtype)
         cache["pos"][slot] = c1["pos"][0]
         return cache
 
@@ -1096,6 +1189,11 @@ class ServeEngine:
         zeroed, as ``serve`` does): a ``serve`` call and a session may
         follow each other on one engine.  The pool lives on the engine, so
         its prefix cache persists across sessions as across serves."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "the step-level API under a mesh: the scheduler, fleet and "
+                "probes under a mesh come with a later tensor-parallel "
+                "slice")
         if self.spec is not None:
             raise NotImplementedError(
                 "the step-level API drives plain decode rounds; speculative "

@@ -280,11 +280,18 @@ def test_refusals_match_reference(flags, ref_params, monkeypatch):
 
 
 def test_tp_refused_naming_the_tp_slice():
-    code, msg = _refusal(lambda: TS.main(REDUCED + ["--tp", "2", "--device",
-                                                    "cpu"]))
-    assert code == 2
-    assert msg.startswith("--tp 2: tensor parallelism is not ported yet")
-    assert "tensor-parallel slice" in msg
+    """``--tp`` serves the dense family on the contiguous cache; the paged
+    cache and a moe arch are refused, each naming the later
+    tensor-parallel slice it waits for."""
+    for argv, what in (
+            (REDUCED + ["--tp", "2", "--paged", "--page-size", "16"],
+             "--tp 2 with --paged: the paged cache's"),
+            (["--arch", "qwen3-moe-30b-a3b", "--reduced", "--tp", "2"],
+             "--tp 2 with --arch qwen3-moe-30b-a3b (a moe model): the MoE")):
+        code, msg = _refusal(lambda: TS.main(argv + ["--device", "cpu"]))
+        assert code == 2
+        assert msg.startswith(what)
+        assert msg.endswith("comes with a later tensor-parallel slice")
 
 
 def test_non_dense_arch_refused_by_build():
