@@ -319,6 +319,7 @@ Exits non-zero without printing a result when no CUDA device is present.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -5813,6 +5814,30 @@ def paper_alexnet(dev) -> dict:
             "acc": acc, "head_float": h, "kmeans_s": t_km, "flat": flat}
 
 
+def tie_flips(xp, xw, yp, yw, acfg, tol: float, what: str) -> int:
+    """The levels of two runs' snapped activations ``yp`` and ``yw`` (of
+    the inputs ``xp`` and ``xw``, tensors on one device; ``acfg`` their
+    ``ActQuantConfig``) equal but where a level flipped at a boundary tie:
+    one level apart, both inputs within ``tol`` of the boundary between the
+    two levels.  Returns the flips; any other difference raises, naming
+    ``what``."""
+    import torch
+    from repro_torch.core.activations import act_input_boundaries
+    lo = acfg.out_range[0]
+    lp, lw = (torch.round((t.double() - lo) / acfg.step).long()
+              for t in (yp, yw))
+    flip = lp != lw
+    if bool(flip.any()):
+        edge = torch.from_numpy(act_input_boundaries(acfg)).to(
+            xp.device, torch.float64)[torch.minimum(lp, lw)[flip]]
+        if bool(((lp - lw).abs()[flip] != 1).any()) or not bool(
+                ((xp[flip].double() - edge).abs() <= tol).all()
+                and ((xw[flip].double() - edge).abs() <= tol).all()):
+            raise AssertionError(f"{what}: a level differs off a boundary "
+                                 "tie, or by more than one")
+    return int(flip.sum())
+
+
 def paper_locked(cpu_params, params, xc, x, kind: str) -> dict:
     """AlexNet at act_levels 32 on the card against the CPU, every
     activation site locked to the CPU run's, as the port's CPU tests lock
@@ -5824,16 +5849,12 @@ def paper_locked(cpu_params, params, xc, x, kind: str) -> dict:
     counted; the card then goes on with the CPU's output.  The logits
     within 1e-4 of the CPU's range.  Returns the CPU logits and the
     counts."""
-    import torch
-    from repro_torch.core.activations import (ActQuantConfig,
-                                              act_input_boundaries)
+    from repro_torch.core.activations import ActQuantConfig
     from repro_torch.models import papernets as PN
     from repro_torch.models.layers import _bounded
     act = PN.ffn_act
     recorded = []
     cfg = ActQuantConfig(_bounded(kind), ACT_LEVELS)
-    lo, _ = cfg.out_range
-    edges = torch.from_numpy(act_input_boundaries(cfg))
     st = {"sites": 0, "acts": 0, "flips": 0, "input_share_of_bound": 0.0}
 
     def cpu_site(v, k, lv, mul=None):
@@ -5850,18 +5871,8 @@ def paper_locked(cpu_params, params, xc, x, kind: str) -> dict:
                                  ": card input off the CPU's")
         st["input_share_of_bound"] = max(st["input_share_of_bound"], (
             xp - xw).abs().max().item() / tol)
-        lp, lw = (torch.round((t.double() - lo) / cfg.step).long()
-                  for t in (yp, yw))
-        flip = lp != lw
-        if bool(flip.any()):
-            edge = edges[torch.minimum(lp, lw)[flip]]
-            if bool(((lp - lw).abs()[flip] != 1).any()) or not bool(
-                    ((xp[flip].double() - edge).abs() <= tol).all()
-                    and ((xw[flip].double() - edge).abs() <= tol).all()):
-                raise AssertionError(
-                    f"[paper] locked AlexNet site {st['sites']}: a level "
-                    "differs off a boundary tie, or by more than one")
-        st["flips"] += int(flip.sum())
+        st["flips"] += tie_flips(xp, xw, yp, yw, cfg, tol,
+                                 f"[paper] locked AlexNet site {st['sites']}")
         st["sites"] += 1
         st["acts"] += yw.numel()
         return yw.to(v.device)
@@ -6127,9 +6138,7 @@ def ffn_sites(records: list, stats: dict | None = None,
     apart, both inputs within that bound of the boundary), counted, and
     goes on with the recorded output, straight through (the card run),
     as the port's CPU tests lock the card's twin, the reference."""
-    import numpy as np
-    from repro_torch.core.activations import (ActQuantConfig,
-                                              act_input_boundaries)
+    from repro_torch.core.activations import ActQuantConfig
     from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.models import rwkv as R
@@ -6145,32 +6154,21 @@ def ffn_sites(records: list, stats: dict | None = None,
     def lock(x, kind, levels, mul=None):
         y = route(x, kind, levels)
         xw, yw = records.pop(0)
-        xp, yp = x.detach().float().cpu().numpy(), y.detach().float().cpu(
-            ).numpy()
-        xw, ywn = xw.float().numpy(), yw.float().numpy()
-        tol = rel * max(1.0, float(np.abs(xw).max()))
-        stats["max_input_gap"] = max(stats["max_input_gap"],
-                                     float(np.abs(xp - xw).max()))
-        if xp.shape != xw.shape or np.abs(xp - xw).max() > tol:
+        xp, yp = x.detach().float().cpu(), y.detach().float().cpu()
+        xw = xw.float()
+        tol = rel * max(1.0, xw.abs().max().item())
+        gap = (xp - xw).abs().max().item() if xp.shape == xw.shape \
+            else float("inf")
+        stats["max_input_gap"] = max(stats["max_input_gap"], gap)
+        if gap > tol:
             raise AssertionError(
                 f"[train] FFN site {stats['sites']}: its input on the card "
-                f"is {np.abs(xp - xw).max():.3e} from the CPU's (bound "
-                f"{tol:.3e})")
-        cfg = ActQuantConfig(L._bounded(kind), levels)
-        lo, _ = cfg.out_range
-        lp = np.rint((yp - lo) / cfg.step).astype(int)
-        lw = np.rint((ywn - lo) / cfg.step).astype(int)
-        flip = lp != lw
-        if flip.any():
-            edge = act_input_boundaries(cfg)[np.minimum(lp, lw)[flip]]
-            if not ((np.abs(lp - lw)[flip] == 1).all()
-                    and (np.abs(xp[flip] - edge) <= tol).all()
-                    and (np.abs(xw[flip] - edge) <= tol).all()):
-                raise AssertionError("[train] a level differs off a "
-                                     "boundary tie")
-        stats["flips"] += int(flip.sum())
+                f"is {gap:.3e} from the CPU's (bound {tol:.3e})")
+        stats["flips"] += tie_flips(
+            xp, xw, yp, yw.float(), ActQuantConfig(L._bounded(kind), levels),
+            tol, f"[train] FFN site {stats['sites']}")
         stats["sites"] += 1
-        stats["acts"] += ywn.size
+        stats["acts"] += yw.numel()
         y = y + (yw.to(y.device, y.dtype) - y).detach()
         return y if mul is None else y * mul
 
@@ -6911,8 +6909,8 @@ def moe_routes(out: list):
     from repro_torch.models import moe as M
     route = M._dispatch_local
 
-    def spy(x_flat, ids, n_experts, capacity):
-        buf, slot, keep = route(x_flat, ids, n_experts, capacity)
+    def spy(x_flat, ids, *args):
+        buf, slot, keep = route(x_flat, ids, *args)
         out.append([a.detach().cpu() for a in (ids, slot, keep)])
         return buf, slot, keep
 
@@ -7494,21 +7492,43 @@ TP_REQS = 4                  # requests a run, all in flight (max_batch 4)
 TP_NEW = 8                   # tokens a request
 TP_K = 4                     # n-gram draft tokens a round
 TP_MAX_LEN = 64              # a multiple of TP_WORLD
-TP_STEPS = 10                # decode steps a step timing
+TP_STEPS = 6                 # decode steps a step timing
 TP_SUMS = 4                  # sums a layer tp=2 rounds apart (tp_bound)
-# (backend, act_levels, n-gram spec, int8 cache, f32 model); bf16 but the
-# two f32 lut runs; each held to tp=1 as ``tp_checks`` says
-TP_RUNS = (("dense", 0, False, False, False),
-           ("codebook", 0, False, False, False),
-           ("lut", 0, False, False, False), ("dense", 0, True, False, False),
-           ("codebook", 0, True, False, False),
-           ("lut", 0, True, False, False),
-           ("codebook", 32, False, False, False),
-           ("lut", 32, False, False, False),
-           ("codebook", 0, False, True, False),
-           ("lut", 0, False, False, True), ("lut", 0, True, False, True))
-TP_LUT = ("lut", 0, False, False, False)     # the w2 accumulator's run
-TP_CODEBOOK = ("codebook", 0, False, False, False)   # the parity's run
+TP_PAGE = 16                 # the paged runs' page: 8 rows a rank
+TP_USERS = (5, 21, 11)       # the paged runs' user parts after the system page
+TP_MOE_LAYERS = 2            # qwen3-moe-30b-a3b's depth, as [moe] serves it
+TP3_WORLD = 3                # the TP-within-expert spawn: 128 experts % 3 > 0
+TP3_TOKENS = (4, 32)         # its moe_apply input
+TP3_TOL = 1e-5               # of the mesh-less call's largest |y|
+TP3_LOCK_REL = 1e-4          # a rank's activation input vs one device's
+
+
+class TpRun(collections.namedtuple(
+        "TpRun", "be levels spec int8 f32 paged moe",
+        defaults=(0, False, False, False, False, False))):
+    """One [tp] run: the backend, act_levels, n-gram spec, the int8 cache
+    (``kv_quant``, or int8 pages when ``paged``), an f32 model, the page
+    pool (page TP_PAGE, 2 slots, ``tp_chats``), and qwen3-moe-30b-a3b
+    (``tp_moe_model``) in place of qwen3-1.7b."""
+
+
+# bf16 but the f32 runs; each held to tp=1 as ``tp_checks`` says
+TP_RUNS = (TpRun("dense"), TpRun("codebook"), TpRun("lut"),
+           TpRun("dense", spec=True), TpRun("codebook", spec=True),
+           TpRun("lut", spec=True), TpRun("codebook", 32), TpRun("lut", 32),
+           TpRun("codebook", int8=True), TpRun("lut", f32=True),
+           TpRun("lut", spec=True, f32=True),
+           TpRun("dense", paged=True), TpRun("codebook", paged=True),
+           TpRun("lut", paged=True), TpRun("codebook", spec=True, paged=True),
+           TpRun("codebook", int8=True, paged=True),
+           TpRun("lut", f32=True, paged=True),
+           TpRun("codebook", f32=True, moe=True),
+           TpRun("codebook", f32=True, paged=True, moe=True))
+# the runs whose decode step is timed (the others' serves are checked only)
+TP_TIMED = TP_RUNS[:11] + (TpRun("codebook", paged=True),
+                           TpRun("codebook", f32=True, moe=True))
+TP_LUT = TpRun("lut")              # the w2 accumulator's run
+TP_CODEBOOK = TpRun("codebook")    # the parity's run
 # the block matmuls of one rank at TP_WORLD = 2, as (site, K, N)
 TP_SITES = (("wq", 2048, 1024), ("wk", 2048, 512), ("wv", 2048, 512),
             ("w1", 2048, 3072), ("w3", 2048, 3072), ("wo", 1024, 2048),
@@ -7517,9 +7537,10 @@ TP_ROWS = (TP_REQS, TP_REQS * (TP_K + 1))    # decode, verify
 
 
 def tp_name(run) -> str:
-    be, levels, spec, int8, f32 = run
-    return (f"{be}{'/a32' if levels else ''}{'/ngram' if spec else ''}"
-            f"{'/int8' if int8 else ''}{'/f32' if f32 else ''}")
+    return (f"{'moe/' if run.moe else ''}{run.be}"
+            f"{'/a32' if run.levels else ''}{'/ngram' if run.spec else ''}"
+            f"{'/int8' if run.int8 else ''}{'/f32' if run.f32 else ''}"
+            f"{'/paged' if run.paged else ''}")
 
 
 def tp_model(dev):
@@ -7543,20 +7564,78 @@ def tp_model(dev):
     return cfg, cp
 
 
+def tp_moe_model(dev):
+    """qwen3-moe-30b-a3b at full width, TP_MOE_LAYERS layers, f32, seeded
+    random weights compressed as [moe] compresses them (``moe_compressed``:
+    |W| = N_BOOK, the router excluded): (cfg, index-form params).  Every
+    rank builds its own from the seed (``tp_fingerprint`` holds them
+    equal), so 2 × 7 GB of f32 experts never go through a file."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.model_zoo import build
+    cfg = configs.get("qwen3-moe-30b-a3b").replace(n_layers=TP_MOE_LAYERS,
+                                                   dtype="float32")
+    params = build(cfg).init(torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    _, cp, _, _ = moe_compressed(cfg, params)
+    return cfg, cp
+
+
+def tp_fingerprint(tree) -> list:
+    """(path, f64 sum) of every leaf of ``tree``: equal trees, equal
+    fingerprints (the sums run on one device in one order)."""
+    out = []
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}/{k}")
+        else:
+            out.append((path, float(node.double().sum())))
+    walk(tree, "")
+    return out
+
+
+def tp_chats(vocab: int) -> list:
+    """The paged runs' 4 requests on 2 slots: one system prompt of
+    TP_SYSTEM = TP_PAGE tokens (a full page every request shares), then
+    TP_USERS tokens; the third repeats the first, so it is admitted after
+    the first retired and registered its partial tail page: a prefix hit
+    on that page and a copy-on-write."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    system = rng.integers(0, vocab, TP_PAGE).tolist()
+    c = [system + rng.integers(0, vocab, n).tolist() for n in TP_USERS]
+    return [c[0], c[1], c[0], c[2]]
+
+
 def tp_engine(cfg, cp, run, dev, mesh=None):
     """The engine of one [tp] run, on the eager route (as a mesh runs)."""
     from repro_torch.models.model_zoo import build
     from repro_torch.serving import ServeEngine, SpecConfig
 
-    be, levels, spec, int8, f32 = run
-    if f32:
+    if run.f32:
         cfg = cfg.replace(dtype="float32")
-    e = ServeEngine(build(cfg.replace(act_levels=levels, kv_quant=int8)), cp,
-                    max_len=TP_MAX_LEN, max_batch=TP_REQS, backend=be,
-                    device=dev, mesh=mesh,
-                    spec=SpecConfig(draft="ngram", k=TP_K) if spec else None)
+    kw = (dict(paged=True, page_size=TP_PAGE, max_batch=TP_REQS // 2,
+               kv_dtype="int8" if run.int8 else "bf16") if run.paged
+          else dict(max_batch=TP_REQS))
+    e = ServeEngine(build(cfg.replace(act_levels=run.levels,
+                                      kv_quant=run.int8 and not run.paged)),
+                    cp, max_len=TP_MAX_LEN, backend=run.be, device=dev,
+                    mesh=mesh, **kw,
+                    spec=SpecConfig(draft="ngram", k=TP_K) if run.spec
+                    else None)
     e._graphs = False
     return e
+
+
+def tp_pool_stats(e) -> dict:
+    """A paged run's prefix-hit pages and copy-on-write copies, and the
+    (rank's) pool."""
+    st = e.pool.stats
+    return {"hit_pages": st.hit_pages, "cow_copies": st.cow_copies,
+            "pool_bytes": e.pool.bytes_total(),
+            "pool_shape": list(e.pool.cache["k"].shape)}
 
 
 def tp_record(e, out: list) -> None:
@@ -7594,11 +7673,18 @@ def tp_record(e, out: list) -> None:
 
 def tp_step_ms(e, mesh=None) -> dict:
     """Wall ms of an eager decode step of ``e`` (4 slots at position 32,
-    synchronized), and under a mesh the same with each collective timed
+    synchronized; on the engine's pool when it is paged, whose pages it
+    overwrites), and under a mesh the same with each collective timed
     (``CollectiveStats.clock``; each then bracketed by synchronizations):
     its ms and the collectives' share of it."""
     import torch
-    cache = e._contiguous_cache(TP_REQS)
+    if e.paged:     # slot b on pages 1 + (b·P .. (b + 1)·P) mod the pool's
+        cache = e._paged_slot_cache(TP_REQS)
+        pt = cache["page_table"]
+        pt.copy_(torch.arange(pt.numel(), device=e.device).reshape(pt.shape)
+                 % (e.pool.n_pages - 1) + 1)
+    else:
+        cache = e._contiguous_cache(TP_REQS)
     cache["pos"].fill_(32)
     toks = torch.zeros((TP_REQS, 1), dtype=torch.int64, device=e.device)
 
@@ -7626,15 +7712,22 @@ def tp_step_ms(e, mesh=None) -> dict:
 
 
 def tp_per_forward(run, L: int) -> dict:
-    """Launches a forward of a [tp] run on each rank, as on one device."""
-    be, levels = run[:2]
+    """Launches a forward of a [tp] run on each rank, as on one device: one
+    page_gather a layer on the pool; the MoE's attention's four products
+    and its untied head (its experts are plain)."""
+    be, levels = run.be, run.levels
+    out = {"page_gather": L} if run.paged else {}
+    if run.moe:
+        return {**out, **({"codebook_matmul": 4 * L + 1}
+                          if be == "codebook" else {})}
     if be == "codebook":
         if levels:
-            return {"codebook_matmul": 5 * L, "codebook_swiglu": L}
-        return {"codebook_matmul": 7 * L}
+            return {**out, "codebook_matmul": 5 * L, "codebook_swiglu": L}
+        return {**out, "codebook_matmul": 7 * L}
     if be == "lut":
-        return {"lut_matmul": 7 * L, **({"act_quant": L} if levels else {})}
-    return {}
+        return {**out, "lut_matmul": 7 * L,
+                **({"act_quant": L} if levels else {})}
+    return out
 
 
 def tp_lut_case(dev, e, w_idx, x2, mesh=None):
@@ -7723,12 +7816,39 @@ def tp_parity(e, dev) -> dict:
     return worst
 
 
-def tp_rank(rank: int, path: str, cfg, prompts, x2) -> dict:
-    """One rank of [tp] (spawned by ``run_ranks``): every run of TP_RUNS
-    on a tensor-parallel engine on cuda:0, launches counted from 0 around
-    each serve; rank 0 records the decisions.  Then the step times, the
-    w2 accumulator case and the kernels at this rank's shapes."""
+def tp_gather_parity(e) -> dict:
+    """``gather_pages_many`` on this rank's own pools of layer 0 (its
+    in-page slice of every page: K and V, and their scales for int8
+    pages), one launch, bit-exact against the plain version on a table of
+    every page and two ids out of range (clamped)."""
     import torch
+    from repro_torch.kernels import page_gather as pg
+    c, n = e.pool.cache, e.pool.n_pages
+    pools = [c[k][0] for k in ("k", "v", "k_scale", "v_scale") if k in c]
+    ids = list(range(-1, n + 1))
+    ids += [1] * (-len(ids) % 4)
+    pt = torch.tensor(ids, dtype=torch.int32, device=e.device).reshape(4, -1)
+    got = pg.page_gather_many_cuda(pools, pt)
+    want = pg.page_gather_many_plain(pools, pt)
+    for a, b in zip(got, want):
+        if not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+            raise AssertionError(f"[tp] gather_pages_many on a rank's pool "
+                                 f"{tuple(pools[0].shape)} not bit-exact")
+    return {"pools": [[list(p.shape), str(p.dtype)] for p in pools],
+            "table": list(pt.shape), "max_abs_err": 0.0}
+
+
+def tp_rank(rank: int, path: str, cfg, prompts, chats, x2) -> dict:
+    """One rank of [tp] (spawned by ``run_ranks``): every run of TP_RUNS
+    on a tensor-parallel engine on cuda:0 (the MoE runs on qwen3-moe,
+    which the rank builds from the seed), launches counted from 0 around
+    each serve; rank 0 records the decisions.  Then the step times, the
+    pools' stats, the w2 accumulator case, the gather on the rank's own
+    pools and the kernels at this rank's shapes; last ``moe_apply`` at
+    qwen3-moe's layer shapes over the mesh, EP (``tp_layer_rank``)."""
+    import gc
+    import torch
+    import torch.distributed as dist
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_local_mesh
 
@@ -7737,26 +7857,53 @@ def tp_rank(rank: int, path: str, cfg, prompts, x2) -> dict:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     mesh = make_local_mesh(1, TP_WORLD)
-    cp = torch.load(path, map_location=dev, weights_only=True)
-    out = {"runs": {}, "rec": {}}
+    models = {False: (cfg, torch.load(path, map_location=dev,
+                                      weights_only=True))}
+    out = {"runs": {}, "rec": {}, "gather": {}}
     for run in TP_RUNS:
+        if run.moe and run.moe not in models:
+            models.pop(False)
+            rcp = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            # one rank at a time: the clustering holds f32 copies of 1.9e9
+            # values, too many for two ranks and this card at once
+            for r in range(TP_WORLD):
+                if r == rank:
+                    torch.cuda.reset_peak_memory_stats()
+                    t0 = time.perf_counter()
+                    models[True] = tp_moe_model(dev)
+                    torch.cuda.synchronize()
+                    out["moe_build_s"] = time.perf_counter() - t0
+                    out["moe_build_peak_gib"] = \
+                        torch.cuda.max_memory_allocated() / 2 ** 30
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            out["moe_fingerprint"] = tp_fingerprint(models[True][1])
+        rcfg, rcp = models[run.moe]
         name = tp_name(run)
-        e = tp_engine(cfg, cp, run, dev, mesh)
+        e = tp_engine(rcfg, rcp, run, dev, mesh)
         rec = []
         if rank == 0:
             tp_record(e, rec)
         mesh.stats.reset()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks = e.serve(prompts, max_new=TP_NEW)
+        toks = e.serve(chats if run.paged else prompts, max_new=TP_NEW)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches = {k: v for k, v in ops.launch_counts().items() if v}
         check_launches(f"[tp] rank {rank} {name}", ops.launch_counts(),
-                       tp_per_forward(run, cfg.n_layers), e.n_forwards)
+                       tp_per_forward(run, rcfg.n_layers), e.n_forwards)
         r = {"tokens": toks, "launches": launches, "serve_s": serve_s,
-             "forwards": e.n_forwards, "largest": mesh.stats.largest(),
-             **tp_step_ms(e, mesh)}
+             "forwards": e.n_forwards, "largest": mesh.stats.largest()}
+        if run.paged:
+            r["pool"] = tp_pool_stats(e)
+            if run.be == "codebook" and not (run.spec or run.moe):
+                out["gather"][name] = tp_gather_parity(e)
+        if run in TP_TIMED:
+            r.update(tp_step_ms(e, mesh))
         if run == TP_LUT:
             w = e.params["blocks"]["mlp"]["w2"]["w_idx"][0]
             r["acc"] = tp_lut_case(dev, e, w, x2.to(dev), mesh).cpu()
@@ -7765,26 +7912,174 @@ def tp_rank(rank: int, path: str, cfg, prompts, x2) -> dict:
         out["runs"][name] = r
         if rank == 0:
             out["rec"][name] = rec
-        del e
+        del e                   # tp_record's closures hold it in a cycle
+        gc.collect()
         torch.cuda.empty_cache()
+    out["ep"] = tp_layer_rank(mesh, dev)
     return out
 
 
-def tp_bound(rec1: list, n_layers: int) -> tuple[float, float]:
-    """The tie bound of a bf16 run on dense or codebook, fixed by tp=1's
-    records alone: (bound, scale).  Against tp=1, tp=2 rounds TP_SUMS sums
-    a layer apart (the wo and w2 row psums, the join's denominator and
-    partial output, the last in bf16 after q is rounded to the cache's
-    dtype); each is taken to move a decision logit by at most one bf16
-    step at the logits' scale, 2^(⌊log2 max |logit|⌋ − 7) (bf16 keeps 7
-    bits past the point), so the runs' decision logits may differ by
-    bound = TP_SUMS · layers such steps, and a decision may flip only at
-    a top-2 gap within 2 · bound."""
+def tp3_layer(dev):
+    """qwen3-moe-30b-a3b's MoE layer (d 2048, 128 experts of f 768, top
+    8), seeded random f32 weights and a TP3_TOKENS input on the card:
+    (MoEConfig, params, x)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.moe import moe_init
+    from repro_torch.models.transformer import moe_cfg
+    cfg = moe_cfg(configs.get("qwen3-moe-30b-a3b"))
+    g = torch.Generator(device=dev).manual_seed(11)
+    p = moe_init(g, cfg, torch.float32, dev)
+    x = torch.randn(TP3_TOKENS + (cfg.d_model,), generator=g, device=dev)
+    return cfg, p, x
+
+
+def tp_layer_rank(mesh, dev) -> dict:
+    """``moe_apply`` over ``mesh`` on this rank's slices of ``tp3_layer``
+    (EP where its 128 experts divide over the ranks, TP within expert
+    otherwise) at act_levels 0 and ACT_LEVELS: each call's y, its
+    ``ffn_act`` input and output on the host, and its launches."""
+    import dataclasses
+    import torch
+    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as M
+    cfg, p, x = tp3_layer(dev)
+    specs = M.moe_param_specs(cfg, mesh.tp)
+    loc = {k: local_slice(p[k], specs[k], mesh) for k in ("w1", "w3", "w2")}
+    loc["router"] = p["router"]
+    del p
+    out = {"w1": list(loc["w1"].shape)}
+    act, acts = M.ffn_act, []
+
+    def site(v, kind, levels, mul=None):
+        y = act(v, kind, levels, mul)
+        acts.append((v.cpu(), y.cpu()))
+        return y
+
+    M.ffn_act = site
+    try:
+        for levels in (0, ACT_LEVELS):
+            ops.reset_launch_counts()
+            acts.clear()
+            y = M.moe_apply(loc, x, dataclasses.replace(cfg, act_levels=levels),
+                            mesh)
+            torch.cuda.synchronize()
+            out[levels] = {"y": y.cpu(), "acts": list(acts), "launches": {
+                k: v for k, v in ops.launch_counts().items() if v}}
+    finally:
+        M.ffn_act = act
+    return out
+
+
+def tp3_rank(rank: int) -> dict:
+    """One rank of the TP-within-expert spawn: ``tp_layer_rank`` over a
+    (1, TP3_WORLD) mesh (f cut in three: 128 experts do not divide over 3
+    ranks)."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    return tp_layer_rank(make_local_mesh(1, TP3_WORLD), dev)
+
+
+def tp_layer_check(cfg, p, x, levels: int, ranks: list, dim: int) -> dict:
+    """The ranks' ``moe_apply`` y (``tp_layer_rank``) against the call
+    without a mesh on the same card.  Each rank's hidden buffer is the
+    slice of one device's along ``dim``: its experts (0, EP) or its part of
+    f (-1, TP within expert).  At act_levels > 0 the activation site is
+    locked, as ``paper_locked`` locks AlexNet's: each rank's input to
+    ``ffn_act`` within TP3_LOCK_REL of the site's largest |x| of one
+    device's, its levels equal but for flips at a boundary tie
+    (``tie_flips``), counted; one device's call then goes on with the
+    ranks' activations.  The ranks' y within TP3_TOL of the largest |y|,
+    and equal.  Returns the figures."""
+    import dataclasses
+    import torch
+    from repro_torch.core.activations import ActQuantConfig
+    from repro_torch.models import moe as M
+    from repro_torch.models.layers import _bounded
+    mcfg = dataclasses.replace(cfg, act_levels=levels)
+    regime = "EP" if dim == 0 else "TP within expert"
+    act, full = M.ffn_act, []
+
+    def record(v, kind, lv, mul=None):
+        full.append(act(v, kind, lv, mul))
+        full.append(v)
+        return full[-2]
+
+    res = {"flips": 0, "acts": 0, "input_share_of_bound": 0.0}
+    M.ffn_act = record
+    try:
+        want = M.moe_apply(p, x, mcfg)
+        if levels:
+            yw, hw = full
+            acfg = ActQuantConfig(_bounded(cfg.act_kind), levels)
+            tol = TP3_LOCK_REL * max(1.0, hw.abs().max().item())
+            n = hw.shape[dim] // len(ranks)
+            got = []
+            for r, rk in enumerate(ranks):
+                (hp, yp), = rk[levels]["acts"]
+                hp, yp = hp.to(x.device), yp.to(x.device)
+                hs, ys = hw.narrow(dim, r * n, n), yw.narrow(dim, r * n, n)
+                d = (hp - hs).abs().max().item()
+                if not d <= tol:
+                    raise AssertionError(f"[tp] moe_apply {regime}: rank {r}'s"
+                                         f" activation input {d:.4g} off one "
+                                         f"device's")
+                res["input_share_of_bound"] = max(res["input_share_of_bound"],
+                                                  d / tol)
+                res["flips"] += tie_flips(hp, hs, yp, ys, acfg, tol,
+                                          f"[tp] moe_apply {regime}")
+                got.append(yp)
+            res["acts"] = yw.numel()
+            locked = torch.cat(got, dim=dim)
+            M.ffn_act = lambda v, kind, lv, mul=None: locked
+            want = M.moe_apply(p, x, mcfg)
+    finally:
+        M.ffn_act = act
+    scale = float(want.abs().max())
+    err = max(float((r[levels]["y"].to(x.device) - want).abs().max())
+              for r in ranks)
+    if err > TP3_TOL * scale:
+        raise AssertionError(f"[tp] moe_apply {regime} at act_levels "
+                             f"{levels}: {err:.4g} from the mesh-less call > "
+                             f"{TP3_TOL} × {scale:.4g}")
+    if any(not torch.equal(r[levels]["y"], ranks[0][levels]["y"])
+           for r in ranks):
+        raise AssertionError(f"[tp] the {regime} ranks differ")
+    return {**res, "max_abs_err": err, "max_abs_y": scale}
+
+
+def tp_bound(rec1: list, n_layers: int, bits: int = 7,
+             sums: int = TP_SUMS) -> tuple[float, float]:
+    """The tie bound of a run, fixed by tp=1's records alone: (bound,
+    scale).  Against tp=1, tp=2 rounds ``sums`` sums a layer apart
+    (``tp_sums``); each is taken to move a decision logit by at most one
+    step at the logits' scale, 2^(⌊log2 max |logit|⌋ − bits) (bf16 keeps
+    7 bits past the point, f32 23), so the runs' decision logits may
+    differ by bound = sums · layers such steps, and a decision may flip
+    only at a top-2 gap within 2 · bound."""
     import math
     scale = max(float(a.abs().amax(-1)[act].max()) for a, act in rec1
                 if act.any())
-    return TP_SUMS * n_layers * 2.0 ** (math.floor(math.log2(scale)) - 7), \
-        scale
+    return sums * n_layers * 2.0 ** (math.floor(math.log2(scale))
+                                     - bits), scale
+
+
+def tp_sums(run) -> int:
+    """The roundings a layer in which tp=2 may differ from tp=1
+    (``tp_bound``).  TP_SUMS: the wo row psum, the w2 one, the join's
+    denominator and partial output (the last in bf16 after q is rounded to
+    the cache's dtype in a bf16 model).  The MoE runs' EP combine takes the
+    place of the w2 psum: each token's top_k contributions are summed in
+    one chain of top_k − 1 roundings at tp=1 and in another at tp=2 (each
+    rank's own, then the psum), so 2 (top_k − 1) roundings may differ."""
+    if not run.moe:
+        return TP_SUMS
+    from repro_torch import configs
+    return TP_SUMS - 1 + 2 * (configs.get("qwen3-moe-30b-a3b").top_k - 1)
 
 
 def tp_parting(rec1: list, rec2: list):
@@ -7805,7 +8100,7 @@ def tp_parting(rec1: list, rec2: list):
 
 
 def tp_agreement(name: str, one: dict, two: dict, checks: tuple,
-                 n_layers: int) -> dict:
+                 n_layers: int, sums: int = TP_SUMS) -> dict:
     """tp=2's tokens and decision records (``two``) against tp=1's
     (``one``), by ``checks`` (``tp_checks``):
 
@@ -7817,15 +8112,18 @@ def tp_agreement(name: str, one: dict, two: dict, checks: tuple,
               tp=1 the parting is the sums' order and rounding alone.
     'bound'   (dense and codebook at act_levels 0) δ, the largest
               difference of the decision logits before the first parting,
-              within ``tp_bound``'s bound (fixed from tp=1's logits before
-              tp=2's are read), every parting's tp=1 top-2 gap within
-              twice the bound, and tokens part only where a decision does.
+              within ``tp_bound``'s bound of ``sums`` roundings a layer
+              (fixed from tp=1's logits before tp=2's are read), every
+              parting's tp=1 top-2 gap within twice the bound, and tokens
+              part only where a decision does.
+    'f32bound' (the f32 MoE runs) the same with an f32 step.
 
     Without 'bound' a bf16 run may part from tp=1 at any gap: an
     activation snapped to a grid (lut's, act_levels 32's) moves by a grid
     step when a sum's rounding moves it across a boundary."""
     import torch
-    bound, scale = tp_bound(one["rec"], n_layers)
+    f32 = "f32bound" in checks
+    bound, scale = tp_bound(one["rec"], n_layers, 23 if f32 else 7, sums)
     delta, first = tp_parting(one["rec"], two["rec"])
     res = {"checks": checks, "equal": two["tokens"] == one["tokens"],
            "delta": delta, "bound": bound, "logit_scale": scale}
@@ -7844,7 +8142,7 @@ def tp_agreement(name: str, one: dict, two: dict, checks: tuple,
             raise AssertionError(f"[tp] {name}: tp=2 parts from the ranks' "
                                  f"sums computed in one process (δ "
                                  f"{res['witness_delta']:.4g} before)")
-    if "bound" in checks:
+    if "bound" in checks or f32:
         if delta > bound:
             raise AssertionError(f"[tp] {name}: decision logits {delta:.4g} "
                                  f"from tp=1's before any parting > the "
@@ -7869,7 +8167,10 @@ def tp_one_process(dtype):
     dtype for the dense backend's plain matmul); the gated codebook launch
     on the two column blocks; the decode and verify attention over the
     cache cut into two S-slices (an int8 cache dequantized to ``dtype``,
-    as a rank does), each slice's scores and partials by the
+    as a rank does), and the paged decode, verify and prefill chunk over
+    the pages' two in-page halves (the gathered rows put rank-major, each
+    half in a rank's order; int8 pages dequantized to f32, as a rank
+    does), each slice's scores and partials by the
     port's ``_slice_scores`` and ``_slice_partials``, joined as gloo joins
     two ranks (the larger row max, one sum of the denominators, one of the
     partial outputs in their pay dtype), then ``_join_fresh``."""
@@ -7880,7 +8181,9 @@ def tp_one_process(dtype):
     from repro_torch.models import layers
     assert TP_WORLD == 2          # gloo sums more ranks in a ring's order
     orig = (D.backend_matmul, layers._plain_matmul, ops.codebook_swiglu,
-            A.decode_attention, A.chunk_attention, A.dequantize_kv)
+            A.decode_attention, A.chunk_attention, A.dequantize_kv,
+            A._gather_paged_kv)
+    box = {}
 
     def halves(t, dim):
         n = t.shape[dim] // 2
@@ -7915,9 +8218,25 @@ def tp_one_process(dtype):
         return torch.cat([orig[2](x, a, b1, c, b3, kind, levels) for a, c
                           in zip(halves(w1, 1), halves(w3, 1))], -1)
 
+    def gather(k_pool, v_pool, page_table, layer, scales=None):
+        box["paged"] = True
+        try:
+            k_l, v_l = orig[6](k_pool, v_pool, page_table, layer, scales)
+        finally:
+            box["paged"] = False
+        page, S = k_pool.shape[2], k_l.shape[1]
+        t = torch.arange(S, device=k_l.device).reshape(S // page, 2,
+                                                       page // 2)
+        box["gidx"] = t.transpose(0, 1).reshape(S)      # rank-major rows
+        return k_l[:, box["gidx"]], v_l[:, box["gidx"]]
+
     def attend(q, k, v, vlen, excl, k_new, v_new):
         n = k.shape[1] // 2
-        s = [A._slice_scores(q, kl, r * n, vlen, excl)
+        gidx = box.pop("gidx", None)
+        if gidx is None:
+            gidx = torch.arange(k.shape[1], device=q.device)
+        vlen = torch.as_tensor(vlen, device=q.device).expand(q.shape[0])
+        s = [A._slice_scores(q, kl, gidx[r * n:(r + 1) * n], vlen, excl)
              for r, kl in enumerate(halves(k, 1))]
         m = torch.clamp(torch.maximum(s[0].amax(-1), s[1].amax(-1)),
                         min=A.NEG_INF / 10)
@@ -7932,23 +8251,111 @@ def tp_one_process(dtype):
         extra_kv=None: attend(q, k, v, kv_len, exclude, *extra_kv)
     A.chunk_attention = lambda q, k, v, past_len, k_new, v_new: attend(
         q, k, v, past_len, None, k_new, v_new)
-    # a rank dequantizes its int8 slice to the model's dtype
-    A.dequantize_kv = lambda q, scale: orig[5](q, scale).to(dtype)
+    # a rank dequantizes its int8 slice to the model's dtype, its int8
+    # pages to f32
+    A.dequantize_kv = lambda q, scale: (
+        orig[5](q, scale) if box.get("paged") else orig[5](q, scale).to(dtype))
+    A._gather_paged_kv = gather
     try:
         yield
     finally:
         (D.backend_matmul, layers._plain_matmul, ops.codebook_swiglu,
-         A.decode_attention, A.chunk_attention, A.dequantize_kv) = orig
+         A.decode_attention, A.chunk_attention, A.dequantize_kv,
+         A._gather_paged_kv) = orig
 
 
 def tp_checks(run) -> tuple:
-    """What a [tp] run's tokens are held to (``tp_agreement``): lut in
-    f32 equal to tp=1; every bf16 run the witness, and dense and codebook
-    at act_levels 0 the bound as well."""
-    be, levels, spec, int8, f32 = run
-    if f32:
+    """What a [tp] run's tokens are held to (``tp_agreement``): the f32
+    MoE runs the f32 bound (their EP psum adds each rank's top-k partial
+    sums: ``tp_sums``); lut in f32 equal to tp=1; every bf16 run the witness, and
+    dense and codebook at act_levels 0 the bound as well."""
+    if run.moe:
+        return ("f32bound",)
+    if run.f32:
         return ("equal",)
-    return ("witness",) + (("bound",) if be != "lut" and not levels else ())
+    return ("witness",) + (("bound",) if run.be != "lut" and not run.levels
+                           else ())
+
+
+def tp_ep_parity(h) -> float:
+    """act_quant on the EP buffer ``h`` against its plain version, bit-equal
+    but for counted ties; returns the largest |difference|."""
+    from repro_torch.kernels import act_quant as aq
+    kq = aq.act_quant_cuda(h, "relu6", ACT_LEVELS, form="act_apply")
+    kp = aq.act_quant_plain(h, "relu6", ACT_LEVELS, form="act_apply")
+    aq.parity_ties(*kq, *kp, "relu6", ACT_LEVELS)
+    return (kq[0] - kp[0]).abs().max().item()
+
+
+def tp_slice_times(dev, peaks: dict, h) -> list:
+    """The kernels at this slice's new shapes: ``gather_pages_many`` on a
+    rank's in-page slice of a qwen3-1.7b pool (TP_PAGE / TP_WORLD rows of
+    8 kv heads of 128; bf16 K and V, and int8 K and V with their bf16
+    scales, one launch) at the decode table (4 × 32 distinct pages), each
+    call on the next of 28 layers' pools as ``gather_times`` does, against
+    its bound and the library's ``pool[ids]`` a pool; and act_quant on the
+    EP rank's expert buffer ``h`` (f32) against its bound and the
+    library's ``fake_quantize_per_tensor_affine`` of the clipped input."""
+    import torch
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import page_gather as pg
+    g = torch.Generator(device=dev).manual_seed(8)
+    n_l, rows, it = 28, [], [0]
+    B, P = GATHER_TABLES[0]
+    n_pages = 1 + B * P
+    page_loc = TP_PAGE // TP_WORLD
+    pt = (torch.randperm(n_pages - 1, generator=g, device=dev)[:B * P]
+          + 1).reshape(B, P).to(torch.int32)
+    ids = pt.long()
+
+    def pool_of(shape, dt):
+        return torch.randint(-128, 128, (n_l, n_pages) + shape, generator=g,
+                             device=dev).to(getattr(torch, dt))
+
+    def cyc(pools, f):
+        def run():
+            it[0] += 1
+            return f(*(p[it[0] % n_l] for p in pools))
+        return run
+
+    kv = (page_loc, 8, 128)
+    for what, pools in (
+            ("bf16 K, V", [pool_of(kv, "bfloat16") for _ in range(2)]),
+            ("int8 K, V + bf16 scales", [pool_of(kv, "int8")
+                                         for _ in range(2)]
+             + [pool_of(kv[:2], "bfloat16") for _ in range(2)])):
+        page_bytes = sum(p[0, 0].numel() * p.element_size() for p in pools)
+        nbytes = 2 * B * P * page_bytes + B * P * 4
+        t = time_turns({
+            "library": cyc(pools, lambda *ps: [p[ids] for p in ps]),
+            "kernel": cyc(pools, lambda *ps: pg.page_gather_many_cuda(ps, pt)),
+            "plain": cyc(pools, lambda *ps:
+                         pg.page_gather_many_plain(ps, pt))}, reps=28)
+        rows.append({"kernel": "page_gather", "site": f"rank slice {what}",
+                     "shape": [B, P, page_loc, 8, 128], "ms": t["kernel"],
+                     "plain_ms": t["plain"], "library_ms": t["library"],
+                     "bound_ms": 1e3 * nbytes / peaks["bytes"],
+                     "bound_by": "bytes"})
+        del pools
+    n = h.numel()
+    # the path's form (no index): 4 B read and 4 B written an element; 8
+    # operations an element
+    b_bytes, b_ops = 8 * n / peaks["bytes"], 8 * n / peaks["f32"]
+    rows.append({
+        "kernel": "act_quant", "site": "EP expert buffer",
+        "shape": list(h.shape),
+        "ms": time_ms(lambda: aq.act_quant_cuda(h, "relu6", ACT_LEVELS,
+                                                form="act_apply",
+                                                with_index=False)),
+        "plain_ms": time_ms(lambda: aq.act_quant_plain(
+            h, "relu6", ACT_LEVELS, form="act_apply", with_index=False),
+            reps=5),
+        "library_ms": time_ms(lambda: torch.fake_quantize_per_tensor_affine(
+            torch.clamp(h, 0, 6), 6 / (ACT_LEVELS - 1), 0, 0,
+            ACT_LEVELS - 1)),
+        "bound_ms": 1e3 * max(b_bytes, b_ops),
+        "bound_by": "bytes" if b_bytes >= b_ops else "operations"})
+    return rows
 
 
 def tp_times(dev, peaks: dict) -> list:
@@ -8031,22 +8438,37 @@ def tp_times(dev, peaks: dict) -> list:
 
 
 def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
-    """The [tp] phase: tensor-parallel serving of qwen3-1.7b (full width,
-    TP_LAYERS layers, |W| = TP_BOOK) on TP_WORLD ranks that share cuda:0
-    over gloo (a one-card machine: NCCL refuses two
-    ranks on one card), against the mesh-less engine on the same card.
+    """The [tp] phase: tensor-parallel serving on TP_WORLD ranks that share
+    cuda:0 over gloo (a one-card machine: NCCL refuses two ranks on one
+    card), against the mesh-less engine on the same card: qwen3-1.7b
+    (full width, TP_LAYERS layers, |W| = TP_BOOK) on the contiguous cache
+    and on the page pool (page TP_PAGE: 8 rows a rank; ``tp_chats``), and
+    qwen3-moe-30b-a3b (TP_MOE_LAYERS layers, f32, codebook; EP, 64
+    experts a rank) on both caches, then ``moe_apply`` alone at its layer
+    shapes (EP); then ``moe_apply`` alone on TP3_WORLD ranks (TP within
+    expert).
     Checks: (a) each run's tp=2 tokens held to tp=1's as ``tp_checks``
     and ``tp_agreement`` say (lut in f32 equal; every bf16 run equal to
     the ranks' sums computed in one process, dense and codebook at
-    act_levels 0 also within ``tp_bound``); (b) the w2 row
-    product's int32 accumulator summed over the ranks bit-equal to one
-    device's; (c) the ranks' tokens equal; (d) each rank's kernels at its
-    sharded shapes against their plain versions (``tp_parity``); (e) each
-    rank's launches held exactly a forward and printed.  Prints the eager
-    decode step of tp=2 and tp=1 and the collectives' share: two ranks
-    sharing one card over gloo, a correctness run's times and not the
-    speed of a TP deployment.  Returns (stats, launches summed over the
-    ranks)."""
+    act_levels 0 also within ``tp_bound``; the MoE runs within the f32
+    bound of ``tp_sums``); (b) the w2 row product's int32 accumulator
+    summed over the ranks bit-equal to one device's; (c) the ranks'
+    tokens equal; (d) each rank's kernels at its sharded shapes against
+    their plain versions (``tp_parity``), ``gather_pages_many`` on its own
+    pools (``tp_gather_parity``); (e) each rank's launches held exactly a
+    forward and printed; (f) the paged runs' prefix-hit pages and
+    copy-on-write copies equal to tp=1's, a rank's pool 1/TP_WORLD of
+    tp=1's; (g) the ranks' qwen3-moe built from the seed equal to this
+    process' (``tp_fingerprint``); (h) ``moe_apply`` EP on TP_WORLD
+    ranks and TP within expert on TP3_WORLD within TP3_TOL of the
+    mesh-less call's largest |y| at act_levels 0 and ACT_LEVELS (the
+    activation site locked at ACT_LEVELS, ``tp_layer_check``), the ranks
+    equal; act_quant on each EP rank's own expert buffer against plain.  Prints the eager decode step of tp=2 and tp=1 and the
+    collectives' share: two ranks sharing one card over gloo, a
+    correctness run's times and not the speed of a TP deployment (for
+    TP_TIMED's runs); and the kernels at the new shapes against their
+    bounds.  Returns (stats,
+    launches summed over the ranks)."""
     import tempfile
     import torch
     from repro_torch.launch.mesh import FileFunction, run_ranks
@@ -8054,36 +8476,66 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
     cfg, cp = tp_model(dev)
     vocab = cfg.vocab
     prompts = spec_prompts(prompts_for(TP_REQS, vocab), vocab)[:TP_REQS]
+    chats = tp_chats(vocab)
     x2 = (torch.randn((TP_REQS, cfg.d_ff),
                       generator=torch.Generator().manual_seed(42)) * 2.0)
     one, stats = {}, {"runs": {}}
-    for run in TP_RUNS:
-        name = tp_name(run)
-        e = tp_engine(cfg, cp, run, dev)
-        rec = []
-        tp_record(e, rec)
-        toks = e.serve(prompts, max_new=TP_NEW)
-        one[name] = {"tokens": toks, "rec": rec, **tp_step_ms(e)}
-        if run == TP_LUT:
-            one["acc"] = tp_lut_case(
-                dev, e, cp["blocks"]["mlp"]["w2"]["w_idx"][0],
-                x2.to(dev)).cpu()
-        del e
-        if "witness" in tp_checks(run):
-            e, rec = tp_engine(cfg, cp, run, dev), []
-            tp_record(e, rec)
-            with tp_one_process(torch.float32 if run[4] else torch.bfloat16):
-                one[name]["split_tokens"] = e.serve(prompts, max_new=TP_NEW)
-            one[name]["split_rec"] = rec
-            del e
-    torch.cuda.empty_cache()
+    me = os.path.abspath(__file__)
     with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
         path = os.path.join(tmp, "cp.pt")
         torch.save(_to(cp, "cpu"), path)
+        models, fingerprint = {False: (cfg, cp)}, None
+        del cp
+        for run in TP_RUNS:
+            if run.moe and run.moe not in models:
+                models.pop(False)
+                rcp = None
+                freed("[tp] qwen3-1.7b's mesh-less runs")
+                models[True] = tp_moe_model(dev)
+                fingerprint = tp_fingerprint(models[True][1])
+            rcfg, rcp = models[run.moe]
+            name = tp_name(run)
+            reqs = chats if run.paged else prompts
+            e = tp_engine(rcfg, rcp, run, dev)
+            rec = []
+            tp_record(e, rec)
+            toks = e.serve(reqs, max_new=TP_NEW)
+            one[name] = {"tokens": toks, "rec": rec}
+            if run.paged:
+                one[name]["pool"] = tp_pool_stats(e)
+            if run in TP_TIMED:
+                one[name].update(tp_step_ms(e))
+            if run == TP_LUT:
+                one["acc"] = tp_lut_case(
+                    dev, e, rcp["blocks"]["mlp"]["w2"]["w_idx"][0],
+                    x2.to(dev)).cpu()
+            del e
+            if "witness" in tp_checks(run):
+                e, rec = tp_engine(rcfg, rcp, run, dev), []
+                tp_record(e, rec)
+                with tp_one_process(torch.float32 if run.f32
+                                    else torch.bfloat16):
+                    one[name]["split_tokens"] = e.serve(reqs,
+                                                        max_new=TP_NEW)
+                one[name]["split_rec"] = rec
+                del e
+        del models, rcp
+        # the engines tp_record hooked sit in cycles with their params
+        freed("[tp] the mesh-less runs, before the ranks")
+        free, total = torch.cuda.mem_get_info()
+        stats["device_used_before_ranks_gib"] = (total - free) / 2 ** 30
         t = time.time()
-        ranks = run_ranks(FileFunction(os.path.abspath(__file__), "tp_rank"),
-                          TP_WORLD, (path, cfg, prompts, x2), tmp_dir=tmp)
+        ranks = run_ranks(FileFunction(me, "tp_rank"), TP_WORLD,
+                          (path, cfg, prompts, chats, x2), tmp_dir=tmp)
         stats["ranks_s"] = time.time() - t
+        t = time.time()
+        ranks3 = run_ranks(FileFunction(me, "tp3_rank"), TP3_WORLD, (),
+                           tmp_dir=tmp)
+        stats["ranks3_s"] = time.time() - t
+    for r in ranks:
+        if r["moe_fingerprint"] != fingerprint:
+            raise AssertionError("[tp] a rank's qwen3-moe built from the "
+                                 "seed differs from this process'")
     launches: dict = {}
     for run in TP_RUNS:
         name = tp_name(run)
@@ -8092,20 +8544,53 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
             raise AssertionError(f"[tp] {name}: the ranks' tokens differ")
         agree = tp_agreement(name, one[name], {
             "tokens": got[0]["tokens"], "rec": ranks[0]["rec"][name]},
-            tp_checks(run), cfg.n_layers)
+            tp_checks(run), TP_MOE_LAYERS if run.moe else cfg.n_layers,
+            tp_sums(run))
         for r in got:
             for k, v in r["launches"].items():
                 launches[k] = launches.get(k, 0) + v
-        st = {"tp1_step_ms": one[name]["step_ms"],
-              "tp2_step_ms": got[0]["step_ms"],
-              "tp2_timed_step_ms": got[0]["timed_step_ms"],
-              "collective_ms": got[0]["collective_ms"],
-              "collective_share": got[0]["collective_share"],
-              "calls_a_step": got[0]["calls"],
-              "largest_payload_bytes": got[0]["largest"],
-              "step_largest_payload_bytes": got[0]["step_largest"],
+        st = {"largest_payload_bytes": got[0]["largest"],
               "serve_s": got[0]["serve_s"], "forwards": got[0]["forwards"],
               "launches_by_rank": [r["launches"] for r in got], **agree}
+        step = ""
+        if run in TP_TIMED:
+            st.update(tp1_step_ms=one[name]["step_ms"],
+                      tp2_step_ms=got[0]["step_ms"],
+                      tp2_timed_step_ms=got[0]["timed_step_ms"],
+                      collective_ms=got[0]["collective_ms"],
+                      collective_share=got[0]["collective_share"],
+                      calls_a_step=got[0]["calls"],
+                      step_largest_payload_bytes=got[0]["step_largest"])
+            step = (f"; eager decode step tp=2 {st['tp2_step_ms']:.2f} ms, "
+                    f"tp=1 {st['tp1_step_ms']:.2f} ms; collectives "
+                    f"{st['collective_ms']:.2f} of "
+                    f"{st['tp2_timed_step_ms']:.2f} ms timed "
+                    f"({100 * st['collective_share']:.1f} %), calls a step "
+                    f"{st['calls_a_step']}, largest payload a step "
+                    f"{st['step_largest_payload_bytes']} B")
+        pool = ""
+        if run.paged:
+            p1 = one[name]["pool"]
+            for r in got:
+                p2 = r["pool"]
+                if (p2["hit_pages"], p2["cow_copies"]) != (
+                        p1["hit_pages"], p1["cow_copies"]):
+                    raise AssertionError(f"[tp] {name}: prefix hits and CoW "
+                                         f"{p2} against tp=1's {p1}")
+                if p2["pool_bytes"] * TP_WORLD != p1["pool_bytes"] or \
+                        p2["pool_shape"][2] * TP_WORLD != p1["pool_shape"][2]:
+                    raise AssertionError(f"[tp] {name}: a rank's pool {p2} "
+                                         f"is not 1/{TP_WORLD} of {p1}")
+            if p1["hit_pages"] <= 0 or (p1["cow_copies"] <= 0
+                                        and not run.spec):
+                raise AssertionError(f"[tp] {name}: no prefix hit or CoW "
+                                     f"{p1}")
+            st["pool"], st["rank_pool"] = p1, got[0]["pool"]
+            pool = (f"; prefix-hit pages {p1['hit_pages']} and CoW "
+                    f"{p1['cow_copies']} equal to tp=1's, a rank's pool "
+                    f"{tuple(got[0]['pool']['pool_shape'])} "
+                    f"{got[0]['pool']['pool_bytes']} B of tp=1's "
+                    f"{p1['pool_bytes']} B")
         stats["runs"][name] = st
         log(f"[tp] {smi}: {name}: tokens "
             + ("equal to tp=1" if agree["equal"] else
@@ -8118,14 +8603,9 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                f"logits within {agree['witness_delta']:.4g} (bit-equal "
                f"{agree['witness_bitequal']})" if "witness" in agree["checks"]
                else "")
-            + f"), ranks equal; eager decode step tp=2 "
-            f"{st['tp2_step_ms']:.2f} ms, tp=1 {st['tp1_step_ms']:.2f} ms; "
-            f"collectives {st['collective_ms']:.2f} of "
-            f"{st['tp2_timed_step_ms']:.2f} ms timed "
-            f"({100 * st['collective_share']:.1f} %), calls a step "
-            f"{st['calls_a_step']}, largest payload a step "
-            f"{st['step_largest_payload_bytes']} B (a serve, prefills "
-            f"included, {st['largest_payload_bytes']} B); launches rank 0 "
+            + f"), ranks equal{pool}{step}; largest payload of a serve "
+            f"(prefills included) {st['largest_payload_bytes']} B; launches "
+            f"rank 0 "
             f"{st['launches_by_rank'][0]}, rank 1 {st['launches_by_rank'][1]}"
             f" over {st['forwards']} forwards each")
     for r in ranks:
@@ -8134,11 +8614,59 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
             raise AssertionError("[tp] the w2 int32 accumulator summed over "
                                  "the ranks differs from one device's")
     stats["parity"] = [r["parity"] for r in ranks]
+    stats["gather"] = [r["gather"] for r in ranks]
     log(f"[tp] w2 row psum: int32 accumulators {tuple(one['acc'].shape)} "
         f"bit-equal to one device's on both ranks; kernels at the sharded "
         f"shapes against plain, largest |difference| by rank "
-        f"{stats['parity']}")
-    stats["times"] = tp_times(dev, peaks)
+        f"{stats['parity']}; gather_pages_many on each rank's own pools "
+        f"bit-exact: {stats['gather'][0]}")
+    log(f"[tp] qwen3-moe-30b-a3b built from the seed in each rank equal to "
+        f"this process' ({len(fingerprint)} leaves' sums), one rank at a "
+        f"time, in "
+        + ", ".join(f"{r['moe_build_s']:.1f}" for r in ranks)
+        + " s, peak allocated "
+        + ", ".join(f"{r['moe_build_peak_gib']:.2f}" for r in ranks)
+        + f" GiB; "
+        f"device memory in use before the ranks "
+        f"{stats['device_used_before_ranks_gib']:.2f} GiB")
+    mcfg, p3, x3 = tp3_layer(dev)
+    ranks_ep = [r["ep"] for r in ranks]
+    for key, rks, dim in (("ep", ranks_ep, 0), ("tp3", ranks3, -1)):
+        stats[key] = {"w1_rank": rks[0]["w1"]}
+        for levels in (0, ACT_LEVELS):
+            stats[key][levels] = tp_layer_check(mcfg, p3, x3, levels, rks,
+                                                dim)
+            want_l = {"act_quant": 1} if levels else {}
+            for r in rks:
+                if r[levels]["launches"] != want_l:
+                    raise AssertionError(f"[tp] moe_apply ({key}) launches "
+                                         f"{r[levels]['launches']}, want "
+                                         f"{want_l}")
+                for k, v in r[levels]["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+    # act_quant on each EP rank's own expert buffer, its ffn_act input
+    hs = [r[ACT_LEVELS]["acts"][0][0].to(dev) for r in ranks_ep]
+    stats["ep_act_quant_err"] = max(tp_ep_parity(h) for h in hs)
+    h = hs[0]
+    for key, world, what in (("ep", TP_WORLD, "EP"),
+                             ("tp3", TP3_WORLD, "TP within expert")):
+        st = stats[key]
+        log(f"[tp] {smi}: moe_apply on {world} ranks, {what} (w1 "
+            f"{tuple(st['w1_rank'])} a rank), {TP3_TOKENS} tokens, f32: "
+            + ", ".join(f"act_levels {lv} within {st[lv]['max_abs_err']:.4g}"
+                        f" of the mesh-less call (max |y| "
+                        f"{st[lv]['max_abs_y']:.4g})"
+                        for lv in (0, ACT_LEVELS))
+            + f" with the activation site locked: {st[ACT_LEVELS]['flips']} "
+            f"of {st[ACT_LEVELS]['acts']} levels flipped at a boundary tie, "
+            f"inputs within {st[ACT_LEVELS]['input_share_of_bound']:.3g} of "
+            f"the {TP3_LOCK_REL} bound, ranks equal")
+    log(f"[tp] {smi}: {TP3_WORLD} ranks {stats['ranks3_s']:.1f}s; act_quant "
+        f"on each EP rank's own expert buffer {tuple(h.shape)} (its ffn_act "
+        f"input at act_levels {ACT_LEVELS}) against plain, largest "
+        f"|difference| {stats['ep_act_quant_err']:.4g}")
+    stats["times"] = tp_times(dev, peaks) + tp_slice_times(dev, peaks, h)
+    del p3, x3, h, hs
     for r in stats["times"]:
         log(f"[tp] {smi}: {r['kernel']} {r['site']} {r['shape']}: "
             f"{r['ms']:.4f} ms (bound {r['bound_ms']:.4f} {r['bound_by']}, "
@@ -8147,8 +8675,8 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                is not None else "") + ")")
     stats["phase_s"] = time.time() - t_start
     log(f"[tp] {smi}: phase {stats['phase_s']:.1f}s (ranks "
-        f"{stats['ranks_s']:.1f}s); launches {launches}")
-    del cp
+        f"{stats['ranks_s']:.1f}s, {TP3_WORLD} ranks "
+        f"{stats['ranks3_s']:.1f}s); launches {launches}")
     torch.cuda.empty_cache()
     return stats, launches
 

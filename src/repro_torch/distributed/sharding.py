@@ -14,9 +14,11 @@ float ``w`` or the integer ``w_idx``) and replicates everything else:
 embeddings, codebooks, norm vectors and lut tables.  The contiguous decode
 cache (L, B, S, KV, hd) shards its sequence dim over ``'model'``.
 
-The training-time specs (``param_specs``, ``moments_spec``) and the MoE
-expert specs wait for the mesh-tooling slice; ``repro/distributed/
-compat.py`` only shims JAX versions and has no counterpart here.
+The MoE expert weights replicate here, as in the reference; their EP/TP
+cut is ``models/moe.moe_param_specs``.  The training-time specs
+(``param_specs``, ``moments_spec``) wait for the mesh-tooling slice;
+``repro/distributed/compat.py`` only shims JAX versions and has no
+counterpart here.
 """
 
 from __future__ import annotations

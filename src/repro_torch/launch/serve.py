@@ -33,11 +33,13 @@ Knobs:
                                      cuda:(rank % cards) (every rank on
                                      the one card of a one-card machine)
                                      or the CPU under --device cpu; the
-                                     dense family on the contiguous cache,
-                                     plain or n-gram spec (the paged
-                                     cache, moe archs, --server, --probes
-                                     and a model draft wait for later
-                                     slices); the decode step runs eager
+                                     dense and moe families on the
+                                     contiguous cache or --paged (each
+                                     rank an in-page slice of the pool),
+                                     plain or n-gram spec (--server,
+                                     --probes and a model draft wait for
+                                     a later slice); the decode step runs
+                                     eager
     --server                         long-running request-server mode
                                      (DESIGN.md §11): a traffic trace plays
                                      through the virtual-clock
@@ -123,6 +125,12 @@ Smoke runs on the CPU (drop ``--device cpu`` to run them on the GPU):
         --drain-at 0.3:r0 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --reduced --compress --backend codebook --tp 2 --requests 8 \
+        --max-new 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --compress --backend codebook --tp 2 --paged \
+        --requests 8 --max-new 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --reduced --tp 2 --paged --requests 8 \
         --max-new 16 --device cpu
 
 With ``--tp N`` the parent builds (and compresses) the weights and prints
@@ -436,7 +444,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     if args.tp > 1:
-        _check_tp(ap, args, cfg)
+        _check_tp(ap, args)
     dev = resolve_device(args.device)
     model = build(cfg)
     params = init_params(model, dev)
@@ -486,20 +494,25 @@ def main(argv=None):
         return
 
     def mk_engine():
-        return ServeEngine(model, params, max_len=max_len,
-                           temperature=args.temperature,
-                           backend=args.backend, max_batch=args.max_batch,
-                           paged=args.paged, page_size=args.page_size,
-                           kv_dtype=args.kv_dtype,
-                           prefix_cache=args.prefix_cache,
-                           top_k=args.top_k, top_p=args.top_p, spec=spec,
-                           probes=args.probes, device=dev)
+        return _engine(args, model, params, spec, max_len, dev)
 
     engine = mk_engine()
     if args.server:
         run_server(args, engine, cfg, mk_engine)
         return
     serve_batch(args, engine, spec, dev)
+
+
+def _engine(args, model, params, spec, max_len: int, dev, mesh=None):
+    """The engine the flags ask for (a tensor-parallel rank's with
+    ``mesh``)."""
+    return ServeEngine(model, params, max_len=max_len,
+                       temperature=args.temperature, backend=args.backend,
+                       max_batch=args.max_batch, paged=args.paged,
+                       page_size=args.page_size, kv_dtype=args.kv_dtype,
+                       prefix_cache=args.prefix_cache, top_k=args.top_k,
+                       top_p=args.top_p, spec=spec, probes=args.probes,
+                       device=dev, mesh=mesh)
 
 
 def serve_batch(args, engine, spec, dev):
@@ -536,10 +549,13 @@ def serve_batch(args, engine, spec, dev):
           f"{dev.type}, backend={args.backend}, {mode}, "
           f"{dt / args.requests * 1e3:.1f} ms/request)")
     if args.paged:
-        st = engine.pool.stats
+        st, pool = engine.pool.stats, engine.pool
+        # the whole pool's bytes: a tensor-parallel rank's pool is its
+        # in-page slice, 1/shards of each page
+        page_b = pool.bytes_per_page() * pool.shards
         print(f"[kv] paged pool: peak "
-              f"{st.peak_pages_in_use}/{engine.pool.usable_pages} pages "
-              f"({engine.pool.bytes_per_page() * st.peak_pages_in_use / 1e6:.3f}MB"
+              f"{st.peak_pages_in_use}/{pool.usable_pages} pages "
+              f"({page_b * st.peak_pages_in_use / 1e6:.3f}MB"
               f" peak vs {engine.dense_cache_bytes() / 1e6:.3f}MB dense slab), "
               f"prefix hit rate {100 * st.hit_rate:.0f}%, "
               f"{st.cow_copies} CoW, {st.evictions} evictions"
@@ -559,7 +575,7 @@ def serve_batch(args, engine, spec, dev):
 
 # --- tensor parallelism ------------------------------------------------------
 
-def _check_tp(ap, args, cfg) -> None:
+def _check_tp(ap, args) -> None:
     """The reference's --page-size check, then refuse what --tp does not
     serve yet, each naming the slice it waits for (argparse's exit code
     2)."""
@@ -567,11 +583,7 @@ def _check_tp(ap, args, cfg) -> None:
         ap.error(f"--page-size {args.page_size} must be a multiple of "
                  f"--tp {args.tp} (each shard owns an S-slice of every "
                  "page)")
-    later = [(args.paged, "--paged", "the paged cache's tensor-parallel "
-              "join"),
-             (cfg.family == "moe", f"--arch {args.arch} (a moe model)",
-              "the MoE expert-parallel and tensor-parallel regimes"),
-             (args.server, "--server", "the scheduler, fleet and probes "
+    later = [(args.server, "--server", "the scheduler, fleet and probes "
               "under a mesh"),
              (args.probes, "--probes", "the scheduler, fleet and probes "
               "under a mesh"),
@@ -605,10 +617,7 @@ def _serve_rank(rank: int, args, cfg, path: str, spec, max_len: int,
            if dev_type == "cuda" else torch.device("cpu"))
     mesh = make_local_mesh(1, args.tp)
     params = torch.load(path, map_location=dev, weights_only=True)
-    engine = ServeEngine(build(cfg), params, max_len=max_len,
-                         temperature=args.temperature, backend=args.backend,
-                         max_batch=args.max_batch, top_k=args.top_k,
-                         top_p=args.top_p, spec=spec, device=dev, mesh=mesh)
+    engine = _engine(args, build(cfg), params, spec, max_len, dev, mesh)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         serve_batch(args, engine, spec, dev)

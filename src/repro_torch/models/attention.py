@@ -2,9 +2,9 @@
 (causal, or not for an encoder; cross-attention over an encoder's memory),
 the contiguous KV-cache decode step and speculative verify, with their
 tensor-parallel form over a sequence-sharded cache (the flash-decode
-join), and the paged KV cache's chunked prefill,
-decode step and speculative verify with int8 pages (the port's copy of
-``repro/models/attention.py`` but its paged tensor-parallel join).
+join), and the paged KV cache's chunked prefill, decode step and
+speculative verify with int8 pages, with their tensor-parallel form over
+in-page-sharded pools (the port's copy of ``repro/models/attention.py``).
 
 Shapes: activations (B, L, D); grouped queries (B, L, KV, G, hd); contiguous
 caches (L_layers, B, S, KV, hd); page pools (L_layers, n_pages, page, KV, hd).
@@ -442,17 +442,17 @@ def _join_fresh(q, k_new, v_new, num, denom, m_glob):
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
 
 
-def _slice_scores(q, k_l, start: int, vlen, excl):
+def _slice_scores(q, k_l, gidx, vlen, excl):
     """Scores (B, KV, G, Lq, S_loc) of q (B, Lq, KV, G, hd) against one
-    S-slice k_l (B, S_loc, KV, hd) of the cache holding the global rows
-    from ``start``: q scaled and rounded to the slice's dtype, products
-    accumulated in f32, rows at or past ``vlen`` (B,) and the row
-    ``excl`` (B,) (None: none) masked to NEG_INF."""
+    slice k_l (B, S_loc, KV, hd) of the sequence whose rows hold the
+    global positions ``gidx`` (S_loc,): q scaled and rounded to the
+    slice's dtype, products accumulated in f32, positions at or past
+    ``vlen`` (B,) and the position ``excl`` (B,) (None: none) masked to
+    NEG_INF."""
     B, hd = q.shape[0], q.shape[-1]
     f32 = torch.float32
     qf = (q.to(f32) * hd ** -0.5).to(k_l.dtype).to(f32)
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k_l.to(f32))
-    gidx = start + torch.arange(k_l.shape[1], device=q.device)
     mask = gidx[None, :] < vlen.reshape(B, 1)
     if excl is not None:
         mask = mask & (gidx[None, :] != excl.reshape(B, 1))
@@ -471,6 +471,19 @@ def _slice_partials(s, m_glob, v_l):
     return torch.sum(pr, dim=-1), pv.to(_pay_dtype(v_l.dtype))
 
 
+def _join_slices(s, v_l, mesh):
+    """The ranks' slices joined: the pmax of the row max (floored at
+    NEG_INF/10), then the psums of the denominators and of the partial
+    outputs (in ``_pay_dtype``; O(B·H·hd·Lq) bytes, never the cache).
+    Returns (num (B, KV, G, Lq, hd) f32, denom, m_glob) for
+    ``_join_fresh``."""
+    m_glob = torch.clamp(collectives.pmax(torch.amax(s, dim=-1), mesh),
+                         min=NEG_INF / 10)
+    den, pv = _slice_partials(s, m_glob, v_l)
+    denom = collectives.psum(den, mesh)
+    return collectives.psum(pv, mesh).to(torch.float32), denom, m_glob
+
+
 def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
                            vlen, excl, mesh):
     """Flash attention of the Lq fresh queries over this rank's S/tp slice
@@ -485,9 +498,7 @@ def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
 
     Scores over the local slice (an int8 slice dequantized to q's dtype,
     q rounded to the slice's dtype, products accumulated in f32) are joined
-    across ranks by a pmax of the row max (floored at NEG_INF/10), a psum
-    of the denominator and a psum of the partial output in
-    ``_pay_dtype``: O(B·H·hd·Lq) bytes, never the cache.  Then the fresh
+    across ranks by ``_join_slices``.  Then the fresh
     rows are written on their owning rank only, at (row − start) mod
     S_loc (elsewhere the current value is written back; Lq ≤ S_loc keeps
     a slot's rows distinct).  Returns (num, denom, m_glob) for
@@ -504,12 +515,9 @@ def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
         v_l = dequantize_kv(v_raw, scales[1][layer]).to(q.dtype)
     else:
         k_l, v_l = k_raw, v_raw
-    s = _slice_scores(q, k_l, start, vlen, excl)
-    m_glob = torch.clamp(collectives.pmax(torch.amax(s, dim=-1), mesh),
-                         min=NEG_INF / 10)
-    den, pv = _slice_partials(s, m_glob, v_l)
-    denom = collectives.psum(den, mesh)
-    num = collectives.psum(pv, mesh).to(torch.float32)
+    s = _slice_scores(q, k_l, start + torch.arange(S_loc, device=q.device),
+                      vlen, excl)
+    num, denom, m_glob = _join_slices(s, v_l, mesh)
     rows = ins.reshape(B, 1).long() + torch.arange(Lq, device=q.device)
     owner = (rows >= start) & (rows < start + S_loc)
     loc = (rows - start) % S_loc
@@ -625,6 +633,58 @@ def _store_token(k, v, k_pool, v_pool, scales, layer: int, pid, off):
     v_pool[layer, pid, off] = v.to(v_pool.dtype)
 
 
+def _paged_flash_sharded(q, k, v, k_pool, v_pool, scales, layer: int,
+                         page_table, write_pid, write_off, vlen, mesh):
+    """Flash attention of the Lq fresh queries over this rank's in-page
+    slice of the slots' pages (the reference's ``_paged_flash_shardmap``).
+
+    k_pool/v_pool: (L, n_pages, page_loc, KV, hd), this rank's contiguous
+    pool: rows [rank · page_loc, (rank + 1) · page_loc) of every page,
+    page_loc = page / tp; ``scales`` their (L, n_pages, page_loc, KV) int8
+    scales.  The page table (B, P) is the same on every rank.  q (B, Lq,
+    KV, G, hd) and the fresh k/v (B, Lq, KV, hd) are whole on every rank;
+    write_pid/write_off: (B, Lq) each fresh token's page and *global*
+    in-page offset; vlen: (B,) the attendable prefix.
+
+    One ``gather_pages_many`` launch gathers this rank's slice of the
+    pages (int8 pages dequantized to f32, the reference's choice here;
+    float pages stay in their dtype).  Local row t holds the global
+    position (t // page_loc) · page + rank · page_loc + t % page_loc, which
+    the mask reads.  The slices are joined by ``_join_slices``.  A rank
+    writes only the fresh tokens it owns (write_off // page_loc == rank),
+    at offset write_off % page_loc; the others go to its trash page 0 at
+    offset 0, which nothing reads unmasked (``index_put_`` without
+    accumulate: any of the aliased values may land there).  Returns (num,
+    denom, m_glob) for ``_join_fresh``.
+    """
+    m_id = mesh.coords["model"]
+    page_loc = k_pool.shape[2]
+    page = page_loc * mesh.tp
+    k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
+    t = torch.arange(k_l.shape[1], device=q.device)
+    gpos = (t // page_loc) * page + m_id * page_loc + t % page_loc
+    s = _slice_scores(q, k_l, gpos, vlen, None)
+    num, denom, m_glob = _join_slices(s, v_l, mesh)
+    owner = (write_off // page_loc) == m_id
+    zero = torch.zeros((), dtype=torch.long, device=q.device)
+    _store_token(k, v, k_pool, v_pool, scales, layer,
+                 torch.where(owner, write_pid.long(), zero),
+                 torch.where(owner, write_off.long() % page_loc, zero))
+    return num, denom, m_glob
+
+
+def _paged_sharded_out(p, q, k, v, k_pool, v_pool, scales, layer: int,
+                       page_table, write_pid, write_off, vlen, cfg, backend):
+    """The paged attention of a tensor-parallel backend, joined and through
+    wo: (B, Lq, D)."""
+    B, Lq = q.shape[:2]
+    num, denom, m_glob = _paged_flash_sharded(
+        q, k, v, k_pool, v_pool, scales, layer, page_table, write_pid,
+        write_off, vlen, backend.mesh)
+    out = _join_fresh(q, k, v, num, denom, m_glob)
+    return _out_proj(p, out.reshape(B, Lq, cfg.n_heads * cfg.hd), backend)
+
+
 def attn_decode_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
                       write_off, valid_len, k_pool, v_pool, layer: int,
                       scales=None,
@@ -636,11 +696,16 @@ def attn_decode_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     in-page offset receiving this token (retired slots' all-zero rows send
     it to the trash page 0).  valid_len: (B,) attendable prefix (= ``pos``:
     the fresh token enters through ``extra_kv``, so no slot is excluded).
-    ``scales`` (ks, vs) present ⇒ int8 pages.  Returns the attention output
-    (B, 1, D).
+    ``scales`` (ks, vs) present ⇒ int8 pages.  On a tensor-parallel
+    backend the pools are this rank's in-page slices and the ranks join
+    (``_paged_flash_sharded``).  Returns the attention output (B, 1, D).
     """
     B = x.shape[0]
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    if getattr(backend, "mesh", None) is not None:
+        return _paged_sharded_out(p, q, k, v, k_pool, v_pool, scales, layer,
+                                  page_table, write_pid[:, None],
+                                  write_off[:, None], valid_len, cfg, backend)
     k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
     out = decode_attention(q, k_l, v_l, valid_len, extra_kv=(k, v))
     # index_put_ without accumulate: retired slots may all write page 0 at
@@ -663,11 +728,16 @@ def attn_verify_paged(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     x: (B, K1, D); pos: (B, K1) RoPE positions; write_pid/write_off:
     (B, K1) page and in-page offset of each token (the K1 tokens may
     straddle a page boundary; positions past a slot's pages and retired
-    slots route to the trash page 0).  Returns the attention output
-    (B, K1, D).
+    slots route to the trash page 0).  On a tensor-parallel backend, as
+    ``attn_decode_paged``.  Returns the attention output (B, K1, D).
     """
     B, K1, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    if getattr(backend, "mesh", None) is not None:
+        # each token's owner from its own offset: the K1 may straddle pages
+        return _paged_sharded_out(p, q, k, v, k_pool, v_pool, scales, layer,
+                                  page_table, write_pid, write_off,
+                                  valid_len, cfg, backend)
     k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
     out = chunk_attention(q, k_l, v_l, valid_len, k, v)
     _store_token(k, v, k_pool, v_pool, scales, layer, write_pid.long(),
@@ -683,8 +753,10 @@ def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
     x: (1, C, D) with C == page size; ``past_len`` tokens already live in
     the pages of ``page_table`` (1, P).  The chunk's K/V are written as one
     page at id ``write_pid`` (0, the trash page, for a shared prefix page
-    recomputed only for its logits).  Returns the attention output
-    (1, C, D).
+    recomputed only for its logits).  On a tensor-parallel backend the
+    chunk is written token by token, each rank keeping its in-page slice,
+    and the ranks join (``_paged_flash_sharded``).  Returns the attention
+    output (1, C, D).
     """
     B, C, _ = x.shape
     if B != 1:
@@ -692,6 +764,16 @@ def attn_prefill_chunk(p, x, cfg: AttnConfig, *, pos, page_table, write_pid,
                          "prompts stream through chunks one request at a "
                          "time")
     q, k, v = _project_qkv(p, x, cfg, pos, backend)
+    if getattr(backend, "mesh", None) is not None:
+        # per token, as the reference: page write_pid at offsets 0..C−1,
+        # each rank keeping its in-page slice (write_pid 0: all to trash)
+        dev = x.device
+        return _paged_sharded_out(
+            p, q, k, v, k_pool, v_pool, scales, layer, page_table,
+            torch.full((1, C), int(write_pid), dtype=torch.long, device=dev),
+            torch.arange(C, device=dev)[None],
+            torch.full((1,), int(past_len), dtype=torch.long, device=dev),
+            cfg, backend)
     k_l, v_l = _gather_paged_kv(k_pool, v_pool, page_table, layer, scales)
     out = chunk_attention(q, k_l, v_l, past_len, k, v)
     _store_token(k[0], v[0], k_pool, v_pool, scales, layer, int(write_pid),

@@ -8,7 +8,7 @@
     model.decode(params, tokens, cache, backend) -> (logits, cache)
     model.verify(params, tokens, cache, backend) -> (logits, cache)
     model.init_cache(batch, max_len, dtype, device) -> cache
-    model.init_paged_cache(n_pages, page_size, dtype, device) -> page pool
+    model.init_paged_cache(n_pages, page_size, dtype, device, tp) -> page pool
     model.prefill_chunk(params, batch, pool, backend) -> (logits, pool)
 
 How index-form matmuls run is the ``backend`` argument
@@ -63,9 +63,11 @@ class Model:
         return T.init_cache(self.cfg, batch, max_len, dtype, device)
 
     def init_paged_cache(self, n_pages: int, page_size: int,
-                         dtype=torch.bfloat16, device=None):
-        """Page pool; dtype=int8 → quantized pages + bf16 scales."""
-        return T.init_paged_cache(self.cfg, n_pages, page_size, dtype, device)
+                         dtype=torch.bfloat16, device=None, tp: int = 1):
+        """Page pool; dtype=int8 → quantized pages + bf16 scales; ``tp`` >
+        1: one tensor-parallel rank's in-page slice of it."""
+        return T.init_paged_cache(self.cfg, n_pages, page_size, dtype, device,
+                                  tp)
 
     def prefill_chunk(self, params, batch, cache, backend=dispatch.DENSE):
         """One page-sized chunk of one request's prompt; writes the pool in

@@ -90,7 +90,7 @@ def moe_cfg(cfg) -> M.MoEConfig:
     return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
                        n_experts=cfg.n_experts, top_k=cfg.top_k,
                        capacity_factor=cfg.moe_capacity,
-                       token_chunks=cfg.moe_token_chunks,
+                       token_chunks=cfg.moe_token_chunks, fsdp=cfg.fsdp,
                        act_kind=cfg.act_kind, act_levels=cfg.act_levels)
 
 
@@ -308,7 +308,7 @@ def _ffn(p_l, h, cfg, backend):
     backend runs the index-form matmuls only), else the SwiGLU."""
     if "moe" in p_l:
         return M.moe_apply(p_l["moe"], L.rms_norm(p_l["ln2"], h),
-                           moe_cfg(cfg))
+                           moe_cfg(cfg), getattr(backend, "mesh", None))
     return L.swiglu(p_l["mlp"], L.rms_norm(p_l["ln2"], h), cfg.act_kind,
                     cfg.act_levels, backend)
 
@@ -636,20 +636,25 @@ def prefill(params, cfg, batch, backend=dispatch.DENSE):
 
 
 def init_paged_cache(cfg, n_pages: int, page_size: int, dtype=torch.bfloat16,
-                     device=None):
+                     device=None, tp: int = 1):
     """Paged KV page pool: (L, n_pages, page, KV, hd) tensors.
 
     ``dtype=torch.int8`` stores pages quantized with per-token-per-head bf16
     scales (``attention.quantize_kv``); a float dtype stores them plain.
     Page 0 is the allocator's trash page (``serving/kvcache.py``).  The
-    KV-cache families only.
+    KV-cache families only.  ``tp`` > 1 builds one tensor-parallel rank's
+    pool: page / tp rows of every page (its in-page slice), each tensor
+    contiguous.
     """
     if cfg.family not in _PAGED_FAMILIES:
         raise NotImplementedError(
             f"paged KV cache serves families {_PAGED_FAMILIES}; got "
             f"{cfg.family!r}")
+    if page_size % tp:
+        raise ValueError(f"page_size {page_size} does not split over tp "
+                         f"{tp}")
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_pages, page_size, cfg.n_kv, cfg.hd)
+    shape = (cfg.n_layers, n_pages, page_size // tp, cfg.n_kv, cfg.hd)
     if dtype == torch.int8:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -727,7 +732,7 @@ def _decode_step_paged(params, cfg, tokens, cache, backend):
     pos = cache["pos"]
     pt = cache["page_table"]
     B = tokens.shape[0]
-    page = cache["k"].shape[2]
+    page = cache["k"].shape[2] * dispatch.tp_degree(backend)   # global rows
     S_cap = pt.shape[1] * page
     ins = torch.clamp(pos, max=S_cap - 1).long()
     vlen = torch.clamp(pos, max=S_cap)
@@ -827,7 +832,7 @@ def _verify_step_paged(params, cfg, tokens, cache, backend):
     pos = cache["pos"]
     pt = cache["page_table"]
     B, K1 = tokens.shape
-    page = cache["k"].shape[2]
+    page = cache["k"].shape[2] * dispatch.tp_degree(backend)   # global rows
     P = pt.shape[1]
     ppos = pos[:, None].long() + torch.arange(K1, device=tokens.device)[None]
     pidx = ppos // page

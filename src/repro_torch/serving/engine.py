@@ -76,12 +76,18 @@ engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
   cache keeps this rank's S/tp rows of every plane (a prefill computes
   whole planes and each rank keeps its rows), and decode and verify join
   the ranks' partial softmax over it (``attention._decode_cached_
-  sharded``).  Each collective hands every rank the same bytes, so the
-  ranks' decisions agree.  Under a mesh the decode step is eager on the
-  card: a CUDA graph cannot capture a gloo collective (every kernel still
-  runs on the card).  The paged cache, the ``moe`` family, probes, a
+  sharded``).  The page pool keeps this rank's in-page slice of every
+  page (``PagePool(shards=tp)``: page / tp rows; the allocator, page
+  tables and prefix cache are whole and identical on every rank), and
+  the paged prefill chunks, decode and verify join the ranks' partials
+  over it (``attention._paged_flash_sharded``).  A ``moe`` model's
+  experts are cut by ``models/moe.moe_param_specs`` (EP when the experts
+  divide over tp, else each expert's hidden dim).  Each collective hands
+  every rank the same bytes, so the ranks' decisions agree.  Under a
+  mesh the decode step is eager on the card: a CUDA graph cannot capture
+  a gloo collective (every kernel still runs on the card).  Probes, a
   model draft and the step-level API are refused under a mesh: they wait
-  for later tensor-parallel slices.
+  for a later tensor-parallel slice.
 
 * **Numerics probes** (``probes=True``): the engine owns one probe state
   (``kernels/probes.init_state``), static f32 device buffers made before
@@ -359,8 +365,8 @@ class ServeEngine:
                  counters, collected in prefill and decode (``numerics()``).
     mesh:        a ``launch/mesh.Mesh`` with a ``model`` axis makes the
                  engine tensor-parallel (see the module docstring); needs
-                 ``max_len % tp == 0`` and, with ``spec``, ``max_len / tp
-                 ≥ k + 1``.
+                 ``max_len % tp == 0``, paged ``page_size % tp == 0`` and,
+                 with ``spec``, ``max_len / tp ≥ k + 1``.
 
     ``n_forwards`` counts model forwards run (prefill calls + decode
     steps, replayed or eager); ``n_captures`` the decode steps captured
@@ -508,10 +514,6 @@ class ServeEngine:
             raise ValueError("ServeEngine mesh needs a 'model' axis "
                              "(launch.mesh.make_local_mesh)")
         later = {
-            "paged": (self.paged, "the paged cache's join "
-                      "(_paged_flash_shardmap)"),
-            "moe": (cfg.family == "moe", "the MoE expert-parallel and "
-                    "tensor-parallel regimes"),
             "probes": (self.probes, "the scheduler, fleet and probes under "
                        "a mesh"),
             "spec.draft='model'": (self.spec is not None
@@ -529,6 +531,11 @@ class ServeEngine:
                 f"max_len {self.max_len} must be a multiple of the TP "
                 f"degree {tp} (the cache shards its sequence axis over "
                 "`model`)")
+        if self.paged and self.page_size % tp:
+            raise ValueError(
+                f"page_size {self.page_size} must be a multiple of the "
+                f"TP degree {tp} (each shard owns an S-slice of every "
+                "page)")
         if self.spec is not None and self.max_len // tp < self.spec.k + 1:
             raise ValueError(
                 f"max_len/tp = {self.max_len // tp} cannot hold the "
@@ -537,9 +544,21 @@ class ServeEngine:
     def _shard_params(self, params):
         """This rank's params under ``serve_param_specs``: its slice of each
         block matmul's ``w``/``w_idx`` (a copy; the whole leaf is
-        dropped), every other leaf as it is."""
+        dropped), every other leaf as it is; a moe model's expert weights
+        cut by ``moe_param_specs``.  The reference's ``serve_param_specs``
+        replicates the experts and its ``moe_apply`` cuts them on every
+        call (its shard_map's in_specs); here they are cut once."""
         from repro_torch.distributed.sharding import (local_slice,
                                                       serve_param_specs)
+        from repro_torch.models.moe import moe_param_specs
+        from repro_torch.models.transformer import moe_cfg
+
+        specs = serve_param_specs(params)
+        if "moe" in params["blocks"]:
+            mspecs = moe_param_specs(moe_cfg(self.model.cfg),
+                                     self.mesh.shape["model"])
+            for k in ("w1", "w3", "w2"):
+                specs["blocks"]["moe"][k] = (None,) + mspecs[k]
 
         def walk(node, spec, path):
             if isinstance(node, dict):
@@ -551,7 +570,7 @@ class ServeEngine:
                 raise ValueError(f"{'/'.join(path)} {tuple(node.shape)}: "
                                  f"{e}") from None
 
-        return walk(params, serve_param_specs(params), [])
+        return walk(params, specs, [])
 
     # --- numerics probes ---------------------------------------------------
 
@@ -966,7 +985,8 @@ class ServeEngine:
             self._pool = PagePool(
                 self.model, n_pages=n_pages, page_size=self.page_size,
                 pages_per_slot=pps, kv_dtype=dtype,
-                prefix_cache=self.prefix_cache, device=self.device)
+                prefix_cache=self.prefix_cache, device=self.device,
+                shards=self.mesh.tp if self.mesh is not None else 1)
         return self._pool
 
     def dense_cache_bytes(self) -> int:

@@ -23,6 +23,13 @@ reference's bytes: the same prompt gets the same keys in both packages.
 
 The page movers ``_copy_page``/``_write_page`` copy over the page axis of
 every pool tensor in place.
+
+Under tensor parallelism (``shards`` = tp) every rank keeps the whole host
+side, identical on every rank (the same calls in the same order give the
+same page ids, so the ranks decide alike by construction), and a device
+pool of its own in-page slice: page / tp rows of every page.  A
+copy-on-write copies the rank's slice; the byte counts (``bytes_per_page``,
+``bytes_total``, ``bytes_in_use``) are a rank's.
 """
 
 from __future__ import annotations
@@ -232,7 +239,7 @@ class PagePool:
 
     def __init__(self, model, *, n_pages: int, page_size: int,
                  pages_per_slot: int, kv_dtype=torch.bfloat16,
-                 prefix_cache: bool = True, device=None):
+                 prefix_cache: bool = True, device=None, shards: int = 1):
         if n_pages < 2:
             raise ValueError("pool needs >= 2 pages (page 0 is the trash "
                              "page)")
@@ -241,8 +248,10 @@ class PagePool:
         self.pages_per_slot = int(pages_per_slot)
         self.prefix_enabled = bool(prefix_cache)
         self.device = resolve_device(device)
+        self.shards = int(shards)
+        # one rank's in-page slice of every page when shards > 1
         self.cache = model.init_paged_cache(n_pages, page_size, kv_dtype,
-                                            self.device)
+                                            self.device, tp=self.shards)
         self.free: list[int] = list(range(n_pages - 1, 0, -1))
         self.ref = np.zeros(n_pages, np.int64)
         self.table: OrderedDict[bytes, int] = OrderedDict()  # key -> pid
@@ -277,6 +286,8 @@ class PagePool:
                 - self.reserved_extra >= n_new)
 
     def bytes_per_page(self) -> int:
+        """Device bytes of a page (this rank's slice of it when the pool
+        is one of ``shards`` > 1)."""
         return sum(int(a.nbytes) for a in self.cache.values()) // self.n_pages
 
     def bytes_total(self) -> int:

@@ -58,7 +58,7 @@ N_WALKS = 12
 # --- the port's stub engine --------------------------------------------------
 
 class _StubModel:
-    def init_paged_cache(self, n_pages, page_size, dtype, device=None):
+    def init_paged_cache(self, n_pages, page_size, dtype, device=None, tp=1):
         return {"k": torch.zeros((1, n_pages, page_size, 1, 2),
                                  dtype=torch.float32, device=device)}
 

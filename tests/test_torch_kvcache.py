@@ -54,7 +54,7 @@ class _TorchStub:
     def __init__(self, planes):
         self.planes = planes
 
-    def init_paged_cache(self, n_pages, page_size, dtype, device):
+    def init_paged_cache(self, n_pages, page_size, dtype, device, tp=1):
         return {k: torch.from_numpy(v.copy()).to(device)
                 for k, v in self.planes.items()}
 

@@ -280,14 +280,14 @@ def test_refusals_match_reference(flags, ref_params, monkeypatch):
 
 
 def test_tp_refused_naming_the_tp_slice():
-    """``--tp`` serves the dense family on the contiguous cache; the paged
-    cache and a moe arch are refused, each naming the later
-    tensor-parallel slice it waits for."""
+    """``--tp`` serves the dense and moe families on the contiguous and
+    paged caches; the request server and the probes are refused, each
+    naming the later tensor-parallel slice it waits for."""
     for argv, what in (
-            (REDUCED + ["--tp", "2", "--paged", "--page-size", "16"],
-             "--tp 2 with --paged: the paged cache's"),
-            (["--arch", "qwen3-moe-30b-a3b", "--reduced", "--tp", "2"],
-             "--tp 2 with --arch qwen3-moe-30b-a3b (a moe model): the MoE")):
+            (REDUCED + ["--tp", "2", "--server", "--paged"],
+             "--tp 2 with --server: the scheduler, fleet and probes"),
+            (REDUCED + ["--tp", "2", "--probes"],
+             "--tp 2 with --probes: the scheduler, fleet and probes")):
         code, msg = _refusal(lambda: TS.main(argv + ["--device", "cpu"]))
         assert code == 2
         assert msg.startswith(what)

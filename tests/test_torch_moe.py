@@ -129,7 +129,7 @@ def test_moe_apply_matches_reference(case):
         tprobs = torch.softmax(torch.from_numpy(xc) @ tp["router"]["w"], -1)
         tg, tids = TM._top_k(tprobs, k)
         tbuf, tslot, tkeep = TM._dispatch_local(torch.from_numpy(xc), tids,
-                                                E, cap)
+                                                0, E, cap)
         np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
         np.testing.assert_allclose(tg.numpy(), np.asarray(jg), atol=ATOL)
         np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))

@@ -186,8 +186,8 @@ def record_routing(monkeypatch) -> dict:
         jax.debug.callback(keep, ids, slot, kept, ordered=True)
         return buf, slot, kept
 
-    def port(x_flat, ids, n_experts, capacity):
-        buf, slot, kept = td(x_flat, ids, n_experts, capacity)
+    def port(x_flat, ids, *args):
+        buf, slot, kept = td(x_flat, ids, *args)
         out["torch"].append(tuple(a.detach().numpy() for a in
                                   (ids, slot, kept)))
         return buf, slot, kept
