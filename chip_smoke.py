@@ -7501,15 +7501,26 @@ TP3_WORLD = 3                # the TP-within-expert spawn: 128 experts % 3 > 0
 TP3_TOKENS = (4, 32)         # its moe_apply input
 TP3_TOL = 1e-5               # of the mesh-less call's largest |y|
 TP3_LOCK_REL = 1e-4          # a rank's activation input vs one device's
+TP_TRACE_SEED = 23           # tp_trace: 4 requests, 2 priorities, preempting
+TP_SCHED_PAGES = 5           # the server runs' pool: 4 usable pages of TP_PAGE
+TP_SCHED_LEN = 32            # the contiguous server run's cache: 16 rows a
+#                              rank, which a request swapped at 20 overflows
+TP_DRAIN = 0.02              # the fleet's migrating drain of r0 (virtual s)
+TP_TIER_PAGES = 1            # the fleet's shared tier: whole pages it holds
+TP_DRAFT_LEVELS = 512        # the model draft's lut grid
 
 
 class TpRun(collections.namedtuple(
-        "TpRun", "be levels spec int8 f32 paged moe",
-        defaults=(0, False, False, False, False, False))):
+        "TpRun", "be levels spec int8 f32 paged moe probes draft server",
+        defaults=(0, False, False, False, False, False, False, False, ""))):
     """One [tp] run: the backend, act_levels, n-gram spec, the int8 cache
     (``kv_quant``, or int8 pages when ``paged``), an f32 model, the page
-    pool (page TP_PAGE, 2 slots, ``tp_chats``), and qwen3-moe-30b-a3b
-    (``tp_moe_model``) in place of qwen3-1.7b."""
+    pool (page TP_PAGE, 2 slots, ``tp_chats``), qwen3-moe-30b-a3b
+    (``tp_moe_model``) in place of qwen3-1.7b, the numerics probes, the
+    model draft (the same tree on lut at TP_DRAFT_LEVELS, k TP_K), and
+    ``server``: the step-level API under a scheduler (``tp_server``:
+    'sched' a ``Server`` replay, 'fleet' a 2-replica ``Fleet``) on
+    ``tp_trace`` instead of a ``serve``."""
 
 
 # bf16 but the f32 runs; each held to tp=1 as ``tp_checks`` says
@@ -7522,11 +7533,20 @@ TP_RUNS = (TpRun("dense"), TpRun("codebook"), TpRun("lut"),
            TpRun("lut", paged=True), TpRun("codebook", spec=True, paged=True),
            TpRun("codebook", int8=True, paged=True),
            TpRun("lut", f32=True, paged=True),
+           TpRun("codebook", paged=True, server="sched"),
+           TpRun("codebook", server="sched"),
+           TpRun("codebook", paged=True, server="fleet"),
+           TpRun("codebook", f32=True, probes=True),
+           TpRun("lut", f32=True, probes=True),
+           TpRun("codebook", int8=True, f32=True, paged=True, probes=True),
+           TpRun("lut", int8=True, f32=True, paged=True, probes=True),
+           TpRun("codebook", f32=True, draft=True),
            TpRun("codebook", f32=True, moe=True),
            TpRun("codebook", f32=True, paged=True, moe=True))
 # the runs whose decode step is timed (the others' serves are checked only)
-TP_TIMED = TP_RUNS[:11] + (TpRun("codebook", paged=True),
-                           TpRun("codebook", f32=True, moe=True))
+TP_TIMED = TP_RUNS[:11] + (TpRun("codebook", paged=True),) + tuple(
+    r for r in TP_RUNS if r.server or r.probes or r.draft) + (
+    TpRun("codebook", f32=True, moe=True),)
 TP_LUT = TpRun("lut")              # the w2 accumulator's run
 TP_CODEBOOK = TpRun("codebook")    # the parity's run
 # the block matmuls of one rank at TP_WORLD = 2, as (site, K, N)
@@ -7537,10 +7557,13 @@ TP_ROWS = (TP_REQS, TP_REQS * (TP_K + 1))    # decode, verify
 
 
 def tp_name(run) -> str:
-    return (f"{'moe/' if run.moe else ''}{run.be}"
+    return (f"{'moe/' if run.moe else ''}"
+            f"{run.server + '/' if run.server else ''}{run.be}"
             f"{'/a32' if run.levels else ''}{'/ngram' if run.spec else ''}"
+            f"{'/draft' if run.draft else ''}"
             f"{'/int8' if run.int8 else ''}{'/f32' if run.f32 else ''}"
-            f"{'/paged' if run.paged else ''}")
+            f"{'/paged' if run.paged else ''}"
+            f"{'/probes' if run.probes else ''}")
 
 
 def tp_model(dev):
@@ -7610,7 +7633,9 @@ def tp_chats(vocab: int) -> list:
 
 
 def tp_engine(cfg, cp, run, dev, mesh=None):
-    """The engine of one [tp] run, on the eager route (as a mesh runs)."""
+    """The engine of one [tp] run, on the eager route (as a mesh runs); a
+    server run's has 2 slots, and a pool of TP_SCHED_PAGES or a cache of
+    TP_SCHED_LEN."""
     from repro_torch.models.model_zoo import build
     from repro_torch.serving import ServeEngine, SpecConfig
 
@@ -7618,15 +7643,123 @@ def tp_engine(cfg, cp, run, dev, mesh=None):
         cfg = cfg.replace(dtype="float32")
     kw = (dict(paged=True, page_size=TP_PAGE, max_batch=TP_REQS // 2,
                kv_dtype="int8" if run.int8 else "bf16") if run.paged
-          else dict(max_batch=TP_REQS))
+          else dict(max_batch=TP_REQS // 2 if run.server else TP_REQS))
+    if run.server and run.paged:
+        kw["n_pages"] = TP_SCHED_PAGES
+    max_len = TP_SCHED_LEN if run.server and not run.paged else TP_MAX_LEN
+    spec = None
+    if run.spec:
+        spec = SpecConfig(draft="ngram", k=TP_K)
+    elif run.draft:
+        spec = SpecConfig(draft="model", k=TP_K, draft_params=cp,
+                          draft_backend="lut", lut_levels=TP_DRAFT_LEVELS)
     e = ServeEngine(build(cfg.replace(act_levels=run.levels,
                                       kv_quant=run.int8 and not run.paged)),
-                    cp, max_len=TP_MAX_LEN, backend=run.be, device=dev,
-                    mesh=mesh, **kw,
-                    spec=SpecConfig(draft="ngram", k=TP_K) if run.spec
-                    else None)
+                    cp, max_len=max_len, backend=run.be, device=dev,
+                    mesh=mesh, probes=run.probes, spec=spec, **kw)
     e._graphs = False
     return e
+
+
+def tp_trace(vocab: int, shared: bool = False) -> list:
+    """The server runs' trace: TP_REQS Poisson requests of 4–24 prompt
+    tokens and 4–TP_NEW new ones in 2 priorities (seed TP_TRACE_SEED:
+    on 2 slots, or 4 usable pages, it preempts twice, once a request at
+    position 20); ``shared`` puts one full page of system prompt before
+    each (the fleet's tier pages)."""
+    from repro_torch.serving.server import poisson_trace
+    return poisson_trace(TP_TRACE_SEED, TP_REQS, rate=40.0, vocab=vocab,
+                         plen=(4, 24), max_new=(4, TP_NEW),
+                         priorities=(0, 1),
+                         shared_prefix=list(range(100, 100 + TP_PAGE))
+                         if shared else ())
+
+
+def tp_server(mk, run, vocab: int) -> tuple:
+    """A server run on engines from ``mk()`` (each counting its
+    swap-outs): 'sched' one ``Server`` replaying ``tp_trace``, 'fleet' two
+    replicas behind a ``Fleet`` with r0 drained at TP_DRAIN (its requests
+    migrated) and a shared tier of TP_TIER_PAGES whole pages.  Returns
+    (the host decisions and streams, the engines, their swap-outs)."""
+    from repro_torch.serving import Fleet, SharedPrefixTier
+    from repro_torch.serving.server import Server
+    engines, swaps = [], [0]
+
+    def counted():
+        e = mk()
+        out = e.sched_swap_out
+
+        def swap_out(st, slot):
+            swaps[0] += 1
+            return out(st, slot)
+        e.sched_swap_out = swap_out
+        engines.append(e)
+        return e
+
+    if run.server == "sched":
+        srv = Server(counted())
+        rep = srv.replay(tp_trace(vocab))
+        sched = srv.sched
+        rec = {"events": [list(ev) for ev in sched.events],
+               "streams": {str(h.rid): list(h.tokens)
+                           for h in sched.handles.values()}}
+    else:
+        e0 = counted()
+        cfg = e0.model.cfg
+        page_b = 2 * cfg.n_layers * TP_PAGE * cfg.n_kv * cfg.hd * (
+            4 if cfg.dtype == "float32" else 2)
+        tier = SharedPrefixTier(capacity_bytes=TP_TIER_PAGES * page_b)
+        fleet = Fleet({"r0": e0, "r1": counted()}, migrate_on_drain=True,
+                      shared_prefix_tier=tier)
+        rep = fleet.replay(tp_trace(vocab, shared=True),
+                           drain_at=[(TP_DRAIN, "r0")])
+        rec = {"digest": fleet.event_digest(),
+               "replicas": fleet.replica_stats(),
+               "tier": fleet.shared_tier_stats(),
+               "migrated": [fleet.n_migrated, fleet.n_migrated_pages],
+               "streams": {str(k): list(h.tokens)
+                           for k, h in sorted(fleet.handles.items())}}
+    rec.update(preemptions=rep.preemptions,
+               pages_swapped_out=rep.pages_swapped_out,
+               admission_order=rep.admission_order)
+    return rec, engines, swaps[0]
+
+
+def tp_serve(e, run, reqs, mk=None, vocab: int = 0) -> dict:
+    """One [tp] run's work: a server run (``tp_server`` on engines from
+    ``mk``), or ``e.serve`` of ``reqs``, with the probes' ``numerics()``
+    and the draft's spec counters where the run has them.  Returns
+    {"tokens" (a server run's streams), "rec" (its decisions), "forwards",
+    "draft_forwards", "swaps", "engine" (the first engine)}."""
+    if run.server:
+        rec, engines, swaps = tp_server(mk, run, vocab)
+        return {"tokens": rec.pop("streams"), "decisions": rec,
+                "forwards": sum(x.n_forwards for x in engines),
+                "draft_forwards": 0, "swaps": swaps, "engine": engines[0]}
+    out = {"tokens": e.serve(reqs, max_new=TP_NEW), "forwards": e.n_forwards,
+           "draft_forwards": e.n_draft_forwards, "swaps": 0, "engine": e}
+    if run.probes:
+        out["numerics"] = e.numerics()
+    if run.draft:
+        ss = e.spec_stats
+        out["spec_stats"] = [ss.rounds, ss.proposed, ss.accepted, ss.emitted]
+    return out
+
+
+def tp_want(run, L: int, done: dict) -> dict:
+    """The launches a [tp] run makes on each rank (and on one device):
+    ``tp_per_forward`` a target forward, 7 lut_matmul a layer a draft
+    forward (the draft's tree is whole: its grid, its products), and one
+    page_gather a paged swap-out (the request's pages, all layers, one
+    launch)."""
+    want = {k: v * done["forwards"]
+            for k, v in tp_per_forward(run, L).items()}
+    if done["draft_forwards"]:
+        want["lut_matmul"] = want.get("lut_matmul", 0) \
+            + 7 * L * done["draft_forwards"]
+    if run.paged and done["swaps"]:
+        want["page_gather"] = want.get("page_gather", 0) + done["swaps"]
+    return {k: v for k, v in want.items() if v}
 
 
 def tp_pool_stats(e) -> dict:
@@ -7673,8 +7806,9 @@ def tp_record(e, out: list) -> None:
 
 def tp_step_ms(e, mesh=None) -> dict:
     """Wall ms of an eager decode step of ``e`` (4 slots at position 32,
+    31 in a cache of 32,
     synchronized; on the engine's pool when it is paged, whose pages it
-    overwrites), and under a mesh the same with each collective timed
+    overwrites; with its probes when they are on), and under a mesh the same with each collective timed
     (``CollectiveStats.clock``; each then bracketed by synchronizations):
     its ms and the collectives' share of it."""
     import torch
@@ -7685,14 +7819,14 @@ def tp_step_ms(e, mesh=None) -> dict:
                  % (e.pool.n_pages - 1) + 1)
     else:
         cache = e._contiguous_cache(TP_REQS)
-    cache["pos"].fill_(32)
+    cache["pos"].fill_(min(32, e.max_len - 1))
     toks = torch.zeros((TP_REQS, 1), dtype=torch.int64, device=e.device)
 
     def steps():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(TP_STEPS):
-            e.model.decode(e.params, toks, cache, e.bk)
+            e.model.decode(e.params, toks, e._with_probes(cache), e.bk)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) / TP_STEPS * 1e3
 
@@ -7883,24 +8017,31 @@ def tp_rank(rank: int, path: str, cfg, prompts, chats, x2) -> dict:
             out["moe_fingerprint"] = tp_fingerprint(models[True][1])
         rcfg, rcp = models[run.moe]
         name = tp_name(run)
-        e = tp_engine(rcfg, rcp, run, dev, mesh)
+        e = None if run.server else tp_engine(rcfg, rcp, run, dev, mesh)
         rec = []
-        if rank == 0:
+        if rank == 0 and e is not None:
             tp_record(e, rec)
         mesh.stats.reset()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        toks = e.serve(chats if run.paged else prompts, max_new=TP_NEW)
+        done = tp_serve(e, run, chats if run.paged else prompts,
+                        lambda: tp_engine(rcfg, rcp, run, dev, mesh),
+                        rcfg.vocab)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
+        e = done.pop("engine")
         launches = {k: v for k, v in ops.launch_counts().items() if v}
-        check_launches(f"[tp] rank {rank} {name}", ops.launch_counts(),
-                       tp_per_forward(run, rcfg.n_layers), e.n_forwards)
-        r = {"tokens": toks, "launches": launches, "serve_s": serve_s,
-             "forwards": e.n_forwards, "largest": mesh.stats.largest()}
-        if run.paged:
+        want = tp_want(run, rcfg.n_layers, done)
+        if launches != want:
+            raise AssertionError(f"[tp] rank {rank} {name}: launches "
+                                 f"{launches} over {done['forwards']} "
+                                 f"forwards, want {want}")
+        r = {**done, "launches": launches, "serve_s": serve_s,
+             "largest": mesh.stats.largest()}
+        if run.paged and not run.server:
             r["pool"] = tp_pool_stats(e)
-            if run.be == "codebook" and not (run.spec or run.moe):
+            if run.be == "codebook" and not (run.spec or run.moe
+                                             or run.probes):
                 out["gather"][name] = tp_gather_parity(e)
         if run in TP_TIMED:
             r.update(tp_step_ms(e, mesh))
@@ -8264,11 +8405,107 @@ def tp_one_process(dtype):
          A._gather_paged_kv) = orig
 
 
+def tp_server_agreement(name: str, run, one: dict, got: list) -> dict:
+    """A server run's tp=2 (``got``: the ranks') against tp=1 (``one``):
+    the host decisions (events, admission order, preemptions, pages
+    swapped; the fleet's digest, replica and tier stats, migrations)
+    equal tp=1's exactly, and preemptions happen (the fleet's drain
+    migrates, its tier evicts); the streams equal the witness's (the
+    ranks' sums in one process, bf16) or tp=1's (f32); a paged run's
+    swap-outs each gathered the rank's slices in one page_gather
+    (``tp_want``)."""
+    dec, want = got[0]["decisions"], one["decisions"]
+    for r in got:
+        if r["decisions"] != want:
+            raise AssertionError(f"[tp] {name}: host decisions "
+                                 f"{r['decisions']} part from tp=1's {want}")
+    if want["preemptions"] <= 0:
+        raise AssertionError(f"[tp] {name}: no preemption {want}")
+    if run.server == "fleet" and (want["migrated"][1] <= 0
+                                  or want["tier"]["evictions"] <= 0):
+        raise AssertionError(f"[tp] {name}: no migrated pages or no tier "
+                             f"eviction {want}")
+    if run.paged and any(r["swaps"] <= 0 for r in got):
+        raise AssertionError(f"[tp] {name}: no swap-out gathered pages")
+    ref = one["tokens"] if run.f32 else one["split_tokens"]
+    if got[0]["tokens"] != ref:
+        raise AssertionError(f"[tp] {name}: streams part from "
+                             + ("tp=1's" if run.f32 else "the witness's"))
+    equal = got[0]["tokens"] == one["tokens"]
+    extra = ""
+    if run.server == "fleet":
+        extra = (f", digest {dec['digest'][:16]}, {dec['migrated'][0]} "
+                 f"migrated ({dec['migrated'][1]} pages), tier {dec['tier']}")
+    return {"checks": ("decisions", "f32" if run.f32 else "witness"),
+            "equal": equal, "decisions": dec,
+            "summary": f"host decisions equal to tp=1's ({dec['preemptions']}"
+                       f" preemptions, {dec['pages_swapped_out']} pages "
+                       f"swapped out, admission order "
+                       f"{dec['admission_order']}{extra}); streams equal to "
+                       + ("tp=1's" if run.f32 else
+                          "the witness's (ranks' sums in one process), "
+                          f"to tp=1's: {equal}")}
+
+
+def tp_probe_draft_checks(name: str, run, one: dict, got: list) -> dict:
+    """A probes run: its tokens equal the probes-off run's, its integer
+    counters the tp=1 engine's, ``acc_max`` and ``headroom_bits`` within
+    rel 1e-3, and its KV error 0 under the mesh (the int8 pages' > 0 at
+    tp=1); a model-draft run: its spec counters equal tp=1's."""
+    out = {}
+    if run.probes:
+        n1 = one["numerics"]
+        if one["plain_tokens"] != one["tokens"]:
+            raise AssertionError(f"[tp] {name}: probes changed tp=1's tokens")
+        for r in got:
+            n2 = r["numerics"]
+            for k in ("tokens", "matmul_calls", "act_sat", "act_total",
+                      "page_oob", "widx_neg", "widx_oob"):
+                if n2[k] != n1[k]:
+                    raise AssertionError(f"[tp] {name}: numerics {k} "
+                                         f"{n2[k]} against tp=1's {n1[k]}")
+            for k in ("acc_max", "headroom_bits"):
+                for a, b in zip(n2[k], n1[k]):
+                    if abs(a - b) > 1e-6 + 1e-3 * abs(b):
+                        raise AssertionError(f"[tp] {name}: numerics {k} "
+                                             f"{n2[k]} against {n1[k]}")
+            if max(n2["kv_err_max"]) != 0.0:
+                raise AssertionError(f"[tp] {name}: KV error under the mesh "
+                                     f"{n2['kv_err_max']}")
+        if run.int8 and max(n1["kv_err_max"]) <= 0.0:
+            raise AssertionError(f"[tp] {name}: tp=1's int8 KV tap read 0")
+        out["numerics"] = {k: got[0]["numerics"][k] for k in (
+            "tokens", "matmul_calls", "act_sat", "act_total",
+            "headroom_bits")}
+        out["summary"] = (f"; probes: tokens equal the probes-off run's, "
+                          f"counters equal tp=1's {out['numerics']}, KV "
+                          f"error 0 (tp=1 {max(n1['kv_err_max']):.4g})")
+    if run.draft:
+        for r in got:
+            if r["spec_stats"] != one["spec_stats"]:
+                raise AssertionError(f"[tp] {name}: spec counters "
+                                     f"{r['spec_stats']} against tp=1's "
+                                     f"{one['spec_stats']}")
+        out["spec_stats"] = one["spec_stats"]
+        out["summary"] = (f"; model draft (lut, {TP_DRAFT_LEVELS} levels, "
+                          f"whole on each rank): rounds/proposed/accepted/"
+                          f"emitted {one['spec_stats']} equal to tp=1's")
+    return out
+
+
 def tp_checks(run) -> tuple:
     """What a [tp] run's tokens are held to (``tp_agreement``): the f32
     MoE runs the f32 bound (their EP psum adds each rank's top-k partial
-    sums: ``tp_sums``); lut in f32 equal to tp=1; every bf16 run the witness, and
-    dense and codebook at act_levels 0 the bound as well."""
+    sums: ``tp_sums``); every other f32 run equal to tp=1 (lut: integer
+    products; codebook: its row psum's f32 reorder moves the decision
+    logits by about 6e-6 on an H100, past ``tp_bound``'s four roundings
+    a layer, as the second K-half is summed in a chain of its own);
+    every bf16 run the witness, and
+    dense and codebook at act_levels 0 the bound as well.  A server run
+    (``tp_server_agreement``): its host decisions equal tp=1's, its
+    streams the witness's in bf16."""
+    if run.server:
+        return ("decisions",) + (() if run.f32 else ("witness",))
     if run.moe:
         return ("f32bound",)
     if run.f32:
@@ -8496,12 +8733,18 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
             rcfg, rcp = models[run.moe]
             name = tp_name(run)
             reqs = chats if run.paged else prompts
-            e = tp_engine(rcfg, rcp, run, dev)
+
+            def mk(run=run, rcfg=rcfg, rcp=rcp):
+                return tp_engine(rcfg, rcp, run, dev)
+
+            e = None if run.server else mk()
             rec = []
-            tp_record(e, rec)
-            toks = e.serve(reqs, max_new=TP_NEW)
-            one[name] = {"tokens": toks, "rec": rec}
-            if run.paged:
+            if e is not None:
+                tp_record(e, rec)
+            done = tp_serve(e, run, reqs, mk, vocab)
+            e = done.pop("engine")
+            one[name] = {**done, "rec": rec}
+            if run.paged and not run.server:
                 one[name]["pool"] = tp_pool_stats(e)
             if run in TP_TIMED:
                 one[name].update(tp_step_ms(e))
@@ -8509,14 +8752,19 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                 one["acc"] = tp_lut_case(
                     dev, e, rcp["blocks"]["mlp"]["w2"]["w_idx"][0],
                     x2.to(dev)).cpu()
-            del e
+            if run.probes:      # the same run with the probes off
+                one[name]["plain_tokens"] = tp_engine(
+                    rcfg, rcp, run._replace(probes=False), dev).serve(
+                        reqs, max_new=TP_NEW)
+            del e, done
             if "witness" in tp_checks(run):
-                e, rec = tp_engine(rcfg, rcp, run, dev), []
-                tp_record(e, rec)
+                e, rec = (None, []) if run.server else (mk(), [])
+                if e is not None:
+                    tp_record(e, rec)
                 with tp_one_process(torch.float32 if run.f32
                                     else torch.bfloat16):
-                    one[name]["split_tokens"] = e.serve(reqs,
-                                                        max_new=TP_NEW)
+                    one[name]["split_tokens"] = tp_serve(
+                        e, run, reqs, mk, vocab)["tokens"]
                 one[name]["split_rec"] = rec
                 del e
         del models, rcp
@@ -8542,10 +8790,14 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
         got = [r["runs"][name] for r in ranks]
         if got[1]["tokens"] != got[0]["tokens"]:
             raise AssertionError(f"[tp] {name}: the ranks' tokens differ")
-        agree = tp_agreement(name, one[name], {
-            "tokens": got[0]["tokens"], "rec": ranks[0]["rec"][name]},
-            tp_checks(run), TP_MOE_LAYERS if run.moe else cfg.n_layers,
-            tp_sums(run))
+        if run.server:
+            agree = tp_server_agreement(name, run, one[name], got)
+        else:
+            agree = tp_agreement(name, one[name], {
+                "tokens": got[0]["tokens"], "rec": ranks[0]["rec"][name]},
+                tp_checks(run), TP_MOE_LAYERS if run.moe else cfg.n_layers,
+                tp_sums(run))
+        agree.update(tp_probe_draft_checks(name, run, one[name], got))
         for r in got:
             for k, v in r["launches"].items():
                 launches[k] = launches.get(k, 0) + v
@@ -8569,7 +8821,7 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                     f"{st['calls_a_step']}, largest payload a step "
                     f"{st['step_largest_payload_bytes']} B")
         pool = ""
-        if run.paged:
+        if run.paged and not run.server:
             p1 = one[name]["pool"]
             for r in got:
                 p2 = r["pool"]
@@ -8592,6 +8844,12 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                     f"{got[0]['pool']['pool_bytes']} B of tp=1's "
                     f"{p1['pool_bytes']} B")
         stats["runs"][name] = st
+        if run.server:
+            log(f"[tp] {smi}: {name}: {agree['summary']}; ranks equal{step}; "
+                f"launches rank 0 {st['launches_by_rank'][0]}, rank 1 "
+                f"{st['launches_by_rank'][1]} over {st['forwards']} forwards "
+                f"and {got[0]['swaps']} swap-outs each")
+            continue
         log(f"[tp] {smi}: {name}: tokens "
             + ("equal to tp=1" if agree["equal"] else
                f"part from tp=1 at a top-2 gap of "
@@ -8603,7 +8861,8 @@ def tp_path(dev, smi: str, peaks: dict) -> tuple[dict, dict]:
                f"logits within {agree['witness_delta']:.4g} (bit-equal "
                f"{agree['witness_bitequal']})" if "witness" in agree["checks"]
                else "")
-            + f"), ranks equal{pool}{step}; largest payload of a serve "
+            + f"){agree.get('summary', '')}, ranks equal{pool}{step}; "
+            f"largest payload of a serve "
             f"(prefills included) {st['largest_payload_bytes']} B; launches "
             f"rank 0 "
             f"{st['launches_by_rank'][0]}, rank 1 {st['launches_by_rank'][1]}"

@@ -179,7 +179,8 @@ def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
     when ``backend`` has a mesh of more than one rank (``_sharded_matmul``:
     w_idx is then this rank's shard).  Returns (..., N) in x.dtype (N
     this rank's columns on the 'col' route).  Under an open probes frame
-    the call is counted (``probes.tap_matmul``).
+    the call is counted (``probes.tap_matmul``; under a mesh each rank
+    counts its part, which ``ServeEngine.numerics`` combines).
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
@@ -188,9 +189,13 @@ def backend_matmul(x: torch.Tensor, w_idx: torch.Tensor,
     else:
         count_route(backend, "local")
         y = _local_matmul(x2, w_idx, codebook, backend, table)
-    # the numerics taps: the full activations and the f32 output, before
-    # the cast (a no-op unless a probes frame is open)
-    probes.tap_matmul(x2, y, backend.name, backend.lut_spec)
+    # the numerics taps: the activations and the f32 output, before the
+    # cast (a no-op unless a probes frame is open).  Under a mesh a 'row'
+    # x is this rank's K-slice, counted on every rank; any other x is
+    # whole on every rank, counted on rank 0 only
+    probes.tap_matmul(x2, y, backend.name, backend.lut_spec,
+                      count_x=kind == "row" or tp_degree(backend) == 1
+                      or backend.mesh.coords["model"] == 0)
     return y.reshape(*lead, -1).to(x.dtype)
 
 

@@ -27,9 +27,19 @@ round trip, page-table ids the gather clamps.
   Python constants (element counts); a frame merges tensors with
   in-place adds and Python numbers as scalar arguments, so nothing is
   read back or copied to the card inside a forward.
-* Torch has no nested traces, so the reference's trace-token guard has no
-  counterpart: a frame is open exactly while its layer runs.  Tensor
-  parallelism is not ported, so its ``shard_map`` caveat does not apply.
+* **Fence.**  The reference drops a tap fired from another JAX trace than
+  its frame's (a ``shard_map`` body: the MoE dispatch and the
+  tensor-parallel attention over a mesh).  Torch has no nested traces;
+  the code that stands for those bodies opens ``fence()`` instead, and
+  every tap inside it records nothing (``active()`` is False there).
+* **Tensor parallelism.**  Each rank of a mesh records into its own
+  state.  A tap on a replicated input counts its elements on the
+  ``model`` axis' rank 0 only (``tap_matmul``'s ``count_x``), one on a
+  rank's slice counts them on every rank, so that ``act_sat`` and
+  ``act_total`` sum over the ranks to the whole input's counts;
+  ``acc_max`` takes the max over the ranks (a column-sharded output's
+  high-water mark is one rank's); the other counters are the same on
+  every rank.  The engine combines them once, in ``numerics()``.
 
 Counter semantics (f32, as in the reference; sums are exact below 2^24
 events):
@@ -58,7 +68,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["init_state", "layer", "bump", "active", "record",
+__all__ = ["init_state", "layer", "bump", "active", "record", "fence",
            "tap_matmul", "tap_kv", "tap_act", "PER_LAYER", "MAXES",
            "SCALARS"]
 
@@ -139,20 +149,32 @@ class _Frame:
 
 
 _OFF = contextlib.nullcontext({})     # the frame of an empty state
-_FRAMES: list[_Frame] = []
+_FRAMES: list = []                    # _Frame, or None for a fence
 
 
 def active() -> bool:
-    """True while a collector frame is open: the gate every tap checks
-    before computing anything."""
-    return bool(_FRAMES)
+    """True while a collector frame is open and no fence stands above it:
+    the gate every tap checks before computing anything."""
+    return bool(_FRAMES) and _FRAMES[-1] is not None
 
 
 def record(name: str, value) -> None:
     """Append one value (a device tensor or a Python number) to the
-    innermost frame; a no-op with no frame open."""
-    if _FRAMES:
+    innermost frame; a no-op with no frame open or under a fence."""
+    if active():
         _FRAMES[-1].recs.setdefault(name, []).append(value)
+
+
+@contextlib.contextmanager
+def fence():
+    """Within (or, as ``@fence()``, in the function it decorates): every
+    tap records nothing, as the reference's taps record nothing inside a
+    ``shard_map`` body."""
+    _FRAMES.append(None)
+    try:
+        yield
+    finally:
+        _FRAMES.pop()
 
 
 def layer(state: dict, l: int):
@@ -175,20 +197,23 @@ def bump(state: dict, name: str, v) -> dict:
 # --- taps (call sites in dispatch, attention, layers) -------------------------
 
 def tap_matmul(x2: torch.Tensor, y: torch.Tensor, backend_name: str,
-               spec) -> None:
+               spec, count_x: bool = True) -> None:
     """One routed ``backend_matmul``: its call, and on lut the grid
-    saturation of the full activations ``x2`` and the int32 accumulator's
+    saturation of the activations ``x2`` and the int32 accumulator's
     high-water mark decoded from the f32 output ``y`` (|acc| =
     round(|y|·2^s/Δa): y is the accumulator times a power-of-two-scaled
-    constant, so the round trip is exact up to y's own f32 resolution)."""
-    if not _FRAMES:
+    constant, so the round trip is exact up to y's own f32 resolution).
+    ``count_x`` False: ``x2`` is a copy that another rank counts, and its
+    saturation is not recorded here."""
+    if not active():
         return
     record("matmul_calls", 1.0)
     if backend_name == "lut" and spec is not None:
-        xf = x2.to(torch.float32)
-        record("act_sat", ((xf < spec.a_min) | (xf > spec.a_max)).sum()
-               .to(torch.float32))
-        record("act_total", float(x2.numel()))
+        if count_x:
+            xf = x2.to(torch.float32)
+            record("act_sat", ((xf < spec.a_min) | (xf > spec.a_max)).sum()
+                   .to(torch.float32))
+            record("act_total", float(x2.numel()))
         scale = (2.0 ** spec.s) / spec.da
         record("acc_max", torch.round(y.to(torch.float32).abs().amax()
                                       * scale))
@@ -198,7 +223,7 @@ def tap_kv(t: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> None:
     """int8 KV round-trip error at one ``quantize_kv`` call: the error the
     reader sees (``q`` dequantized through the stored bf16 ``scale``)
     against the float ``t``; max, sum and count."""
-    if not _FRAMES:
+    if not active():
         return
     deq = q.to(torch.float32) * scale.to(torch.float32)[..., None]
     err = (deq - t.to(torch.float32)).abs()
@@ -211,7 +236,7 @@ def tap_act(x: torch.Tensor, lo: float, hi: float) -> None:
     """act_quant saturation: pre-activations outside the bounded kind's
     rails (relu6: [0, 6]), which the quantized nonlinearity pins to an
     end level."""
-    if not _FRAMES:
+    if not active():
         return
     xf = x.to(torch.float32)
     record("act_sat", ((xf < lo) | (xf > hi)).sum().to(torch.float32))

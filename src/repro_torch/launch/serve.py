@@ -36,9 +36,11 @@ Knobs:
                                      dense and moe families on the
                                      contiguous cache or --paged (each
                                      rank an in-page slice of the pool),
-                                     plain or n-gram spec (--server,
-                                     --probes and a model draft wait for
-                                     a later slice); the decode step runs
+                                     plain, n-gram or model-draft spec,
+                                     --server (the scheduler, and the
+                                     fleet with its drains, migration,
+                                     scale-ups and shared tier) and
+                                     --probes; the decode step runs
                                      eager
     --server                         long-running request-server mode
                                      (DESIGN.md §11): a traffic trace plays
@@ -132,19 +134,27 @@ Smoke runs on the CPU (drop ``--device cpu`` to run them on the GPU):
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch qwen3-moe-30b-a3b --reduced --tp 2 --paged --requests 8 \
         --max-new 16 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --reduced --tp 2 --server --replicas 2 --paged --probes \
+        --requests 8 --drain-at 0.1:r0 --migrate-on-drain --device cpu
 
 With ``--tp N`` the parent builds (and compresses) the weights and prints
 the ``[memory]`` row, hands the weights to the N ranks in a file, and
-prints the report lines rank 0 made (``_serve_rank``).
+prints the report lines rank 0 made (``_serve_rank``), after checking that
+every rank made the same lines but for the wall-clock figures (``WALL``).
+Only rank 0 writes ``--metrics-out``, ``--trace-out`` and
+``--numerics-out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
+import re
 import tempfile
 import time
 
@@ -167,9 +177,15 @@ def init_params(model, device):
     return model.init(torch.Generator(device=device).manual_seed(0), device)
 
 
-def report_numerics(engine, out_path=""):
+# the wall-clock figures of the report lines (seconds, tok/s, ms/request)
+WALL = re.compile(r"in \d+\.\d+s|\d+\.\d+ tok/s|\d+\.\d+ ms/request")
+
+
+def report_numerics(engine, out_path="", write=True):
     """One-block probe summary (worst layer of each series) + optional
-    full JSON dump — shared by batch and --server modes."""
+    full JSON dump — shared by batch and --server modes.  ``write`` False
+    (a rank but the first) prints the same lines and dumps to
+    ``os.devnull``."""
     num = engine.numerics()
     hr = min(num["headroom_bits"] or [31.0])
     sat = max(num["sat_rate"] or [0.0])
@@ -179,7 +195,7 @@ def report_numerics(engine, out_path=""):
           f"kv err max {kv:.4f}, page_oob {num['page_oob']:.0f}, "
           f"widx neg/oob {num['widx_neg']}/{num['widx_oob']}")
     if out_path:
-        with open(out_path, "w") as f:
+        with open(out_path if write else os.devnull, "w") as f:
             json.dump(num, f, indent=1, sort_keys=True)
         print(f"[numerics] report -> {out_path}")
 
@@ -195,10 +211,13 @@ def _parse_at(specs, what):
     return out
 
 
-def run_server(args, engine, cfg, mk_engine):
+def run_server(args, engine, cfg, mk_engine, write=True):
     """--server mode: drain a traffic trace through the scheduler (one
     Server, or a Fleet over --replicas of them) and report.  The ONLY
-    wall-clock reads live here, outside serving/."""
+    wall-clock reads live here, outside serving/.  ``write`` False (a
+    rank but the first) prints the same lines and exports to
+    ``os.devnull``: every rank makes the same calls, since a snapshot
+    reads the probes, which under a mesh is a collective."""
     from repro_torch.serving.server import Server, load_trace, poisson_trace
 
     if args.traffic == "replay":
@@ -289,15 +308,15 @@ def run_server(args, engine, cfg, mk_engine):
               f"{st.swapped_out_pages}/{st.swapped_in_pages} pages")
     if tel is not None:
         if args.metrics_out:
-            tel.export_metrics(args.metrics_out)
+            tel.export_metrics(args.metrics_out if write else os.devnull)
             print(f"[telemetry] metrics snapshot -> {args.metrics_out}")
         if args.trace_out:
-            tel.export_trace(args.trace_out)
+            tel.export_trace(args.trace_out if write else os.devnull)
             print(f"[telemetry] Perfetto trace -> {args.trace_out} "
                   "(open at https://ui.perfetto.dev)")
         print(tel.summary())
     if args.probes:
-        report_numerics(engine, args.numerics_out)
+        report_numerics(engine, args.numerics_out, write)
     # request 0 may have been shed under backpressure; sample any survivor
     h = (next(iter(fleet.handles.values())) if fleet is not None
          else srv.sched.handles[0])
@@ -515,10 +534,10 @@ def _engine(args, model, params, spec, max_len: int, dev, mesh=None):
                        device=dev, mesh=mesh)
 
 
-def serve_batch(args, engine, spec, dev):
+def serve_batch(args, engine, spec, dev, write=True):
     """The batch mode: a warm-up call, then the timed ``serve`` (or
     ``generate`` under --uniform) of --requests seeded prompts, and its
-    report lines."""
+    report lines (``write`` as ``report_numerics``'s)."""
     cfg = engine.model.cfg
     rng = np.random.default_rng(args.seed)
     prompts = [[int(t) for t in rng.integers(0, cfg.vocab, args.prompt_len)]
@@ -568,7 +587,7 @@ def serve_batch(args, engine, spec, dev):
               f"{100 * ss.acceptance_rate:.0f}%, "
               f"{ss.tokens_per_round:.1f} tokens/round")
     if args.probes:
-        report_numerics(engine, args.numerics_out)
+        report_numerics(engine, args.numerics_out, write)
     print("sample:", outs[0][:args.prompt_len], "->",
           outs[0][args.prompt_len:])
 
@@ -576,51 +595,70 @@ def serve_batch(args, engine, spec, dev):
 # --- tensor parallelism ------------------------------------------------------
 
 def _check_tp(ap, args) -> None:
-    """The reference's --page-size check, then refuse what --tp does not
-    serve yet, each naming the slice it waits for (argparse's exit code
-    2)."""
+    """The reference's --page-size check (argparse's exit code 2)."""
     if args.paged and args.page_size % args.tp:
         ap.error(f"--page-size {args.page_size} must be a multiple of "
                  f"--tp {args.tp} (each shard owns an S-slice of every "
                  "page)")
-    later = [(args.server, "--server", "the scheduler, fleet and probes "
-              "under a mesh"),
-             (args.probes, "--probes", "the scheduler, fleet and probes "
-              "under a mesh"),
-             (args.spec_draft == "model", "--spec-draft model",
-              "a model draft under a mesh")]
-    for on, flag, slice_ in later:
-        if on:
-            ap.error(f"--tp {args.tp} with {flag}: {slice_} comes with a "
-                     "later tensor-parallel slice")
 
 
 def _serve_tp(args, cfg, params, spec, max_len: int, dev) -> list:
     """Serve through ``args.tp`` ranks (``run_ranks``: spawned processes
-    over gloo), the weights handed over in a file; returns the report
-    lines rank 0 made."""
+    over gloo), the weights handed over in a file (a model draft's too:
+    the same tree, whole on every rank); returns the report lines rank 0
+    made, after holding every rank's to them but for the wall-clock
+    figures (``WALL``)."""
+    if spec is not None:
+        spec = dataclasses.replace(spec, draft_params=None)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "params.pt")
         torch.save(params, path)
         outs = run_ranks(_serve_rank, args.tp,
                          (args, cfg, path, spec, max_len, dev.type),
                          tmp_dir=tmp)
+    return ranks_agree(outs)
+
+
+def ranks_agree(outs: list) -> list:
+    """Rank 0's report lines (``outs[0]``), once every rank's equal them
+    but for the wall-clock figures (``WALL``); a rank whose lines part
+    raises ``RuntimeError`` naming its first differing line."""
+    want = [WALL.sub("<wall>", ln) for ln in outs[0]]
+    for rank, lines in enumerate(outs[1:], 1):
+        got = [WALL.sub("<wall>", ln) for ln in lines]
+        if got != want:
+            a, b = next(((a, b) for a, b in zip(got, want) if a != b),
+                        (f"{len(got)} lines", f"{len(want)}"))
+            raise RuntimeError(f"rank {rank}'s report parts from rank 0's: "
+                               f"{a!r} against {b!r}")
     return outs[0]
 
 
 def _serve_rank(rank: int, args, cfg, path: str, spec, max_len: int,
                 dev_type: str) -> list:
     """One rank of ``--tp``: a (1, tp) mesh, the weights on this rank's
-    device (cuda:(rank % cards), or the CPU), a tensor-parallel engine and
-    the batch mode; returns its printed lines (the ranks' agree)."""
+    device (cuda:(rank % cards), or the CPU), a tensor-parallel engine
+    (a model draft on the same weights, whole) and the batch mode, or
+    --server with every replica's engine on this rank's mesh; returns its
+    printed lines.  Only rank 0 writes the report files."""
     dev = (torch.device("cuda", rank % torch.cuda.device_count())
            if dev_type == "cuda" else torch.device("cpu"))
     mesh = make_local_mesh(1, args.tp)
     params = torch.load(path, map_location=dev, weights_only=True)
-    engine = _engine(args, build(cfg), params, spec, max_len, dev, mesh)
+    if spec is not None and spec.draft == "model":
+        spec = dataclasses.replace(spec, draft_params=params)
+    model = build(cfg)
+
+    def mk_engine():
+        return _engine(args, model, params, spec, max_len, dev, mesh)
+
+    engine = mk_engine()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        serve_batch(args, engine, spec, dev)
+        if args.server:
+            run_server(args, engine, cfg, mk_engine, write=rank == 0)
+        else:
+            serve_batch(args, engine, spec, dev, write=rank == 0)
     return buf.getvalue().splitlines()
 
 

@@ -484,6 +484,7 @@ def _join_slices(s, v_l, mesh):
     return collectives.psum(pv, mesh).to(torch.float32), denom, m_glob
 
 
+@probes.fence()
 def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
                            vlen, excl, mesh):
     """Flash attention of the Lq fresh queries over this rank's S/tp slice
@@ -501,7 +502,9 @@ def _decode_cached_sharded(q, k, v, k_all, v_all, scales, layer: int, ins,
     across ranks by ``_join_slices``.  Then the fresh
     rows are written on their owning rank only, at (row − start) mod
     S_loc (elsewhere the current value is written back; Lq ≤ S_loc keeps
-    a slot's rows distinct).  Returns (num, denom, m_glob) for
+    a slot's rows distinct).  The numerics probes record nothing here
+    (``probes.fence``), as the reference's shard_map body drops its
+    ``quantize_kv`` tap.  Returns (num, denom, m_glob) for
     ``_join_fresh``.
     """
     B, Lq = q.shape[:2]
@@ -633,6 +636,7 @@ def _store_token(k, v, k_pool, v_pool, scales, layer: int, pid, off):
     v_pool[layer, pid, off] = v.to(v_pool.dtype)
 
 
+@probes.fence()
 def _paged_flash_sharded(q, k, v, k_pool, v_pool, scales, layer: int,
                          page_table, write_pid, write_off, vlen, mesh):
     """Flash attention of the Lq fresh queries over this rank's in-page
@@ -654,8 +658,9 @@ def _paged_flash_sharded(q, k, v, k_pool, v_pool, scales, layer: int,
     writes only the fresh tokens it owns (write_off // page_loc == rank),
     at offset write_off % page_loc; the others go to its trash page 0 at
     offset 0, which nothing reads unmasked (``index_put_`` without
-    accumulate: any of the aliased values may land there).  Returns (num,
-    denom, m_glob) for ``_join_fresh``.
+    accumulate: any of the aliased values may land there).  The numerics
+    probes record nothing here, as in ``_decode_cached_sharded``.  Returns
+    (num, denom, m_glob) for ``_join_fresh``.
     """
     m_id = mesh.coords["model"]
     page_loc = k_pool.shape[2]

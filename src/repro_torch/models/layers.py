@@ -149,7 +149,8 @@ def ffn_act(x: torch.Tensor, kind: str, levels: int,
                  which the quantized function pins to an end level, are
                  counted first (``probes.tap_act``, a no-op unless a
                  probes frame is open; tanh and sigmoid saturate with no
-                 clip).
+                 clip).  Under a mesh x is the rank's columns of the
+                 col-sharded hidden, and each rank counts its own.
     """
     if levels > 0:
         bounded = _bounded(kind)

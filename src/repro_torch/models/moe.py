@@ -37,6 +37,7 @@ import dataclasses
 import torch
 
 from repro_torch.distributed import collectives
+from repro_torch.kernels import probes
 from repro_torch.models.layers import ffn_act
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply", "moe_param_specs"]
@@ -185,7 +186,8 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, mesh=None) -> torch.Tensor:
     the reference's does.  The expert products run in x's dtype.  With a
     ``mesh`` the params are this rank's slices (``moe_param_specs``), the
     regime is EP or TP within expert as ``cfg.ep_size`` says, and one psum
-    over ``model`` follows the token-chunk loop.  The reference's
+    over ``model`` follows the token-chunk loop; the numerics probes
+    record nothing inside it (``probes.fence``).  The reference's
     all-gather of FSDP-sharded experts over ``data`` is the identity on a
     (1, tp) mesh; a larger ``data`` axis is refused.
     """
@@ -206,5 +208,7 @@ def moe_apply(p, x: torch.Tensor, cfg: MoEConfig, mesh=None) -> torch.Tensor:
         raise ValueError(f"moe_apply: this rank holds {w1.shape[0]} experts, "
                          f"the mesh gives it {n_local} (params not cut by "
                          "moe_param_specs?)")
-    y = _moe_math(x, p["router"]["w"], w1, w3, w2, cfg, e0, n_local)
+    # the reference runs this body in a shard_map, whose taps it drops
+    with probes.fence():
+        y = _moe_math(x, p["router"]["w"], w1, w3, w2, cfg, e0, n_local)
     return collectives.psum(y, mesh)

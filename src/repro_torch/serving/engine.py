@@ -85,9 +85,22 @@ engine, passed down to every layer as a ``kernels.dispatch.BackendSpec``.
   divide over tp, else each expert's hidden dim).  Each collective hands
   every rank the same bytes, so the ranks' decisions agree.  Under a
   mesh the decode step is eager on the card: a CUDA graph cannot capture
-  a gloo collective (every kernel still runs on the card).  Probes, a
-  model draft and the step-level API are refused under a mesh: they wait
-  for a later tensor-parallel slice.
+  a gloo collective (every kernel still runs on the card).
+
+  Everything the engine serves runs under a mesh; it refuses there only
+  what the reference refuses.  The step-level API (and the scheduler,
+  server and fleet above it) reads no clock, so every rank's host loop
+  makes the same decisions.  A contiguous swap copies out and writes
+  back this rank's rows below the request's position, a paged one this
+  rank's in-page slice of its pages (one ``page_gather`` launch); a blob
+  is a rank's, its ``pos`` and ``n_pages`` global, its bytes counted over
+  all ranks (``SwapBlob.nbytes``).  A model draft runs unsharded on
+  every rank: its params stay whole (only ``params`` is cut), its cache
+  holds all ``max_len`` rows and its backend has no mesh.  The numerics
+  probes record each rank's part (``kernels/probes``: the taps of the
+  reference's shard_map bodies, the sharded attention and the MoE, record
+  nothing), and ``numerics()`` combines them; the static index audit
+  reads the whole tree, before the cut.
 
 * **Numerics probes** (``probes=True``): the engine owns one probe state
   (``kernels/probes.init_state``), static f32 device buffers made before
@@ -322,8 +335,10 @@ class SwapBlob:
 
     ``data`` maps cache plane names to host tensors: the request's pages
     with data (L, n_pages, page, ...) when paged, its slot's cache rows
-    (L, pos, ...) when contiguous.  ``reserve`` is the page reservation
-    ``swap_in`` claims again."""
+    (L, pos, ...) when contiguous; under a mesh this rank's part of them
+    (page / tp rows of each page, or its rows below ``pos``).  ``nbytes``
+    are the whole request's bytes, every rank's parts together.
+    ``reserve`` is the page reservation ``swap_in`` claims again."""
 
     paged: bool
     pos: int                         # tokens whose K/V are written
@@ -334,6 +349,7 @@ class SwapBlob:
     n_pages: int                     # pages of data (the swap-cost unit)
     out_row: np.ndarray              # the emitted tokens
     data: dict                       # plane name -> host tensor
+    nbytes: int = 0                  # bytes of data over all ranks
 
 
 @dataclasses.dataclass
@@ -437,6 +453,19 @@ class ServeEngine:
                 self.params = dispatch.attach_lut_tables(self.params, lut_spec)
         if self.mesh is not None:
             self._check_mesh()
+        self._ps = {}
+        self._probe_audit = {}
+        if self.probes:
+            if self.spec is not None:
+                raise NotImplementedError(
+                    "numerics probes instrument the plain decode loops; "
+                    "speculative serve() is not instrumented — build the "
+                    "engine with probes=False or spec=None")
+            self._ps = nprobes.init_state(cfg.n_layers, self.device)
+            # w_idx never changes at run time: audited once, here, on the
+            # whole tree (before a mesh cuts it)
+            self._probe_audit = nprobes.static_index_audit(self.params)
+        if self.mesh is not None:
             self.params = self._shard_params(self.params)
         self.bk = dispatch.BackendSpec(self.backend, lut_spec, self.mesh)
         self._cache_dtype = (torch.float32 if cfg.dtype == "float32"
@@ -450,17 +479,6 @@ class ServeEngine:
         self._draft_bk = None
         if self.spec is not None:
             self._init_spec()
-        self._ps = {}
-        self._probe_audit = {}
-        if self.probes:
-            if self.spec is not None:
-                raise NotImplementedError(
-                    "numerics probes instrument the plain decode loops; "
-                    "speculative serve() is not instrumented — build the "
-                    "engine with probes=False or spec=None")
-            self._ps = nprobes.init_state(cfg.n_layers, self.device)
-            # w_idx never changes at run time: audited once, here
-            self._probe_audit = nprobes.static_index_audit(self.params)
         self._pool: PagePool | None = None
         self._slot_sets: dict = {}
         # a CUDA graph cannot capture a gloo collective: eager under a mesh
@@ -508,23 +526,11 @@ class ServeEngine:
 
     def _check_mesh(self) -> None:
         """The reference's checks of a mesh (its exception types and
-        texts), and the refusals of what waits for later slices."""
-        mesh, cfg = self.mesh, self.model.cfg
+        texts)."""
+        mesh = self.mesh
         if "model" not in mesh.axis_names:
             raise ValueError("ServeEngine mesh needs a 'model' axis "
                              "(launch.mesh.make_local_mesh)")
-        later = {
-            "probes": (self.probes, "the scheduler, fleet and probes under "
-                       "a mesh"),
-            "spec.draft='model'": (self.spec is not None
-                                   and self.spec.draft == "model",
-                                   "a model draft under a mesh"),
-        }
-        for what, (on, slice_) in later.items():
-            if on:
-                raise NotImplementedError(
-                    f"ServeEngine(mesh=) with {what}: {slice_} comes with a "
-                    "later tensor-parallel slice")
         tp = mesh.shape["model"]
         if self.max_len % tp:
             raise ValueError(
@@ -584,11 +590,33 @@ class ServeEngine:
         """The canonical numerics snapshot: per-layer saturation,
         headroom and KV error, and the static index audit (empty when
         probes are off); one read of the state.  The telemetry
-        ``numerics`` provider."""
+        ``numerics`` provider.  Under a mesh every rank calls it at the
+        same point of its host loop: the ranks' parts are combined here
+        (``_mesh_counters``), and nowhere inside a step."""
         if not self.probes:
             return {}
-        return nprobes.summarize(self._ps, audit=self._probe_audit,
+        return nprobes.summarize(self._mesh_counters(),
+                                 audit=self._probe_audit,
                                  backend=self.backend)
+
+    def _mesh_counters(self) -> dict:
+        """The probe state, under a mesh combined over the ``model``
+        group (``kernels/probes``): ``act_sat`` and ``act_total`` summed
+        (each rank counted its slices, replicated inputs on rank 0 only),
+        ``acc_max`` the max over the ranks (a column shard's high-water
+        mark is one rank's), the rest as they are (the same on every
+        rank; ``kv_err_*`` 0 but for a contiguous prefill's int8 planes,
+        which every rank computes whole).  Two collectives."""
+        tp = self.mesh.tp if self.mesh is not None else 1
+        if tp == 1:
+            return self._ps
+        from repro_torch.distributed import collectives
+        st = dict(self._ps)
+        sums = collectives.psum(torch.stack([st["act_sat"],
+                                             st["act_total"]]), self.mesh)
+        st["act_sat"], st["act_total"] = sums[0], sums[1]
+        st["acc_max"] = collectives.pmax(st["acc_max"].clone(), self.mesh)
+        return st
 
     def reset_probes(self) -> None:
         """Zero the counters (a fresh measurement window), in place: the
@@ -652,10 +680,11 @@ class ServeEngine:
             st = self._slot_sets[key] = _Slots(cache, self.max_len)
         return st
 
-    def _contiguous_cache(self, batch: int) -> dict:
+    def _contiguous_cache(self, batch: int, whole: bool = False) -> dict:
         """A zeroed contiguous cache for ``batch`` slots: ``max_len`` rows,
-        this rank's ``max_len / tp`` under a mesh."""
-        tp = self.mesh.tp if self.mesh is not None else 1
+        this rank's ``max_len / tp`` under a mesh (all of them for a
+        ``whole`` one: the model draft's)."""
+        tp = self.mesh.tp if self.mesh is not None and not whole else 1
         return self.model.init_cache(batch, self.max_len // tp,
                                      dtype=self._cache_dtype,
                                      device=self.device)
@@ -768,7 +797,7 @@ class ServeEngine:
         draft's zeroed contiguous cache (on either target cache)."""
         target = (self._paged_slot_cache(batch) if paged
                   else self._contiguous_cache(batch))
-        draft = (self._contiguous_cache(batch)
+        draft = (self._contiguous_cache(batch, whole=True)
                  if self.spec.draft == "model" else None)
         return _SpecSlots(target, self.max_len, self.spec.k, draft)
 
@@ -925,7 +954,7 @@ class ServeEngine:
                 break
 
     def _own_rows(self, S: int, S_loc: int) -> tuple:
-        """(first, count) of a prefill plane's S rows that this rank's
+        """(first, count) of a plane's first S rows that this rank's
         ``S_loc`` cache rows (global rows start = rank · S_loc on) hold:
         all of them without a mesh."""
         start = self.mesh.coords["model"] * S_loc if self.mesh else 0
@@ -945,12 +974,14 @@ class ServeEngine:
         st.cache["pos"].copy_(cache["pos"])
         return st.cache
 
-    def _splice(self, cache, c1, slot: int):
+    def _splice(self, cache, c1, slot: int, whole: bool = False):
         """Copy a batch-1 prefill cache into slot ``slot`` (in place; this
-        rank's rows of it under a mesh)."""
+        rank's rows of it under a mesh, all of them into a ``whole`` cache:
+        the model draft's)."""
         for name, src in c1["kv"].items():
             dst = cache["kv"][name]
-            a, n = self._own_rows(src.shape[2], dst.shape[2])
+            a, n = ((0, min(src.shape[2], dst.shape[2])) if whole
+                    else self._own_rows(src.shape[2], dst.shape[2]))
             dst[:, slot, :n] = src[:, 0, a:a + n].to(dst.dtype)
         cache["pos"][slot] = c1["pos"][0]
         return cache
@@ -1152,7 +1183,8 @@ class ServeEngine:
                 if st.dcache is not None:
                     toks1, len1 = self._pad_prompts([prompts[rid]])
                     self._splice(st.dcache,
-                                 self._draft_prefill(toks1, len1)[1], b)
+                                 self._draft_prefill(toks1, len1)[1], b,
+                                 whole=True)
             if queue and all(r is None for r in slot_rid):
                 raise RuntimeError(
                     "paged admission deadlock: no request in flight and the "
@@ -1209,11 +1241,6 @@ class ServeEngine:
         zeroed, as ``serve`` does): a ``serve`` call and a session may
         follow each other on one engine.  The pool lives on the engine, so
         its prefix cache persists across sessions as across serves."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "the step-level API under a mesh: the scheduler, fleet and "
-                "probes under a mesh come with a later tensor-parallel "
-                "slice")
         if self.spec is not None:
             raise NotImplementedError(
                 "the step-level API drives plain decode rounds; speculative "
@@ -1362,6 +1389,7 @@ class ServeEngine:
         last, pos = int(st.last[slot]), int(st.pos[slot])
         out_row = st.out[slot, :gen].copy()
         n_data = -(-pos // self.page_size)
+        tp = self.mesh.tp if self.mesh is not None else 1
         if self.paged:
             adm = st.adm[slot]
             reserve = adm.reserve
@@ -1369,15 +1397,19 @@ class ServeEngine:
             self.pool.swap_out(adm)
             st.adm[slot] = None
             st.pt_np[slot] = 0
+            nbytes = tp * sum(int(d.nbytes) for d in data.values())
         else:
             reserve = 0
-            data = {k: v[:, slot, :pos].to("cpu", copy=True)
-                    for k, v in st.loop.cache["kv"].items()}
+            kv = st.loop.cache["kv"]
+            # this rank's rows below pos (all of them without a mesh)
+            data = {k: v[:, slot, :self._own_rows(pos, v.shape[2])[1]].to(
+                        "cpu", copy=True) for k, v in kv.items()}
+            nbytes = sum(v[:, slot, :1].nbytes * pos for v in kv.values())
         st.pos[slot] = 0
         st.live[slot] = False
         return SwapBlob(paged=self.paged, pos=pos, stop=stop, n_gen=gen,
                         last=last, reserve=reserve, n_pages=n_data,
-                        out_row=out_row, data=data)
+                        out_row=out_row, data=data, nbytes=nbytes)
 
     def sched_swap_in(self, st: SchedState, slot: int,
                       blob: SwapBlob) -> bool:
@@ -1410,8 +1442,9 @@ class ServeEngine:
             st.pt_np[slot, :len(adm.pids)] = adm.pids
         else:
             for k, v in st.loop.cache["kv"].items():
+                n = self._own_rows(blob.pos, v.shape[2])[1]
                 v[:, slot] = 0
-                v[:, slot, :blob.pos] = blob.data[k].to(self.device, v.dtype)
+                v[:, slot, :n] = blob.data[k].to(self.device, v.dtype)
         self._start_slot(st, slot, blob.pos, blob.stop, blob.out_row)
         return True
 
@@ -1489,7 +1522,8 @@ class ServeEngine:
                 else:
                     if st.dcache is not None:
                         self._splice(st.dcache,
-                                     self._draft_prefill(toks1, len1)[1], b)
+                                     self._draft_prefill(toks1, len1)[1], b,
+                                     whole=True)
                     st.admit(b, first, stops_req[rid], prompts[rid])
                 slot_rid[b] = rid
             self._decode_loop(st, cap, stop_on_event=True,

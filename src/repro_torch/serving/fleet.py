@@ -53,6 +53,14 @@ tracks), beside the fleet's own ``fleet.*`` counters and the
 
 Sampling draws from each engine's own generator (``ServeEngine.seed``),
 so the fleet takes no random key.
+
+Tensor-parallel replicas (``ServeEngine(mesh=)``) run on every rank of
+their mesh, each rank this same fleet on the same trace: the host side
+(routing on ``ReplicaProbe``'s page and slot counts, drains,
+migrations, the tier's keys and whole-page bytes) is identical on every
+rank, so a
+migrated request's blob, a rank's slice on each rank, lands on the same
+survivor everywhere.
 """
 
 from __future__ import annotations

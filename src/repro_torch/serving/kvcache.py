@@ -29,7 +29,8 @@ side, identical on every rank (the same calls in the same order give the
 same page ids, so the ranks decide alike by construction), and a device
 pool of its own in-page slice: page / tp rows of every page.  A
 copy-on-write copies the rank's slice; the byte counts (``bytes_per_page``,
-``bytes_total``, ``bytes_in_use``) are a rank's.
+``bytes_total``, ``bytes_in_use``) are a rank's, but the shared tier's
+(``SharedPrefixTier.bytes``), which count whole pages.
 """
 
 from __future__ import annotations
@@ -185,11 +186,17 @@ class SharedPrefixTier:
     LRU-bounded by ``capacity_bytes`` (None = unbounded).  Everything is
     a plain host dict mutated in the fleet's sorted-replica step order,
     so replays with a shared tier stay byte-identical and replica-order
-    independent."""
+    independent.
+
+    Under tensor parallelism each rank's tier holds its in-page slice of
+    every page, and counts the whole page's bytes (``put``'s
+    ``shards``), so that ``bytes`` and the evictions they drive are the
+    same on every rank and at every degree."""
 
     def __init__(self, capacity_bytes: int | None = None):
         self.capacity_bytes = capacity_bytes
         self.table: OrderedDict[bytes, dict] = OrderedDict()
+        self.sizes: dict[bytes, int] = {}             # key -> counted bytes
         self.bytes = 0
         self.hits = 0            # pages materialized into a pool from here
         self.misses = 0          # chain walks stopped by a key held nowhere
@@ -208,16 +215,19 @@ class SharedPrefixTier:
             self.table.move_to_end(key)               # LRU touch
         return pages
 
-    def put(self, key, pages: dict) -> None:
+    def put(self, key, pages: dict, shards: int = 1) -> None:
+        """Hold ``pages`` under ``key``: one of ``shards`` in-page slices
+        of the page, counted as the whole page."""
         if key in self.table:
             return
         self.table[key] = pages
-        self.bytes += sum(int(a.nbytes) for a in pages.values())
+        self.sizes[key] = shards * sum(int(a.nbytes) for a in pages.values())
+        self.bytes += self.sizes[key]
         self.puts += 1
         if self.capacity_bytes is not None:
             while self.bytes > self.capacity_bytes and len(self.table) > 1:
-                _, old = self.table.popitem(last=False)
-                self.bytes -= sum(int(a.nbytes) for a in old.values())
+                old, _ = self.table.popitem(last=False)
+                self.bytes -= self.sizes.pop(old)
                 self.evictions += 1
 
     def stats(self) -> dict:
@@ -513,7 +523,8 @@ class PagePool:
                 if key not in self.shared_tier:
                     self.shared_tier.put(
                         key, {name: arr[:, adm.pids[c]].to("cpu", copy=True)
-                              for name, arr in self.cache.items()})
+                              for name, arr in self.cache.items()},
+                        self.shards)
 
     def cow(self, adm: Admission) -> int | None:
         """Copy-on-write the shared tail page before decode writes into it.

@@ -82,13 +82,11 @@ class StepCosts:
 
 
 def _blob_bytes(blob) -> int:
-    """Host bytes held by a SwapBlob's KV payload.  Telemetry-only (the
-    simulation suite's stub engines swap structureless blobs, so ``data``
-    is optional here)."""
-    data = getattr(blob, "data", None)
-    if not data:
-        return 0
-    return sum(int(getattr(v, "nbytes", 0)) for v in data.values())
+    """Bytes of a SwapBlob's KV payload (``nbytes``: a tensor-parallel
+    request's over all its ranks).  Telemetry-only (the simulation
+    suite's stub engines swap structureless blobs, so the field is
+    optional here)."""
+    return int(getattr(blob, "nbytes", 0))
 
 
 class RequestHandle:

@@ -18,8 +18,9 @@ reduced qwen3 with the reference's ``PRNGKey(0)`` weights (the port's
   ``serving/probes.py``'s sentinel slack.  The metrics snapshot equals the
   reference's without the kernels section, the Perfetto trace exactly;
 * every refusal of the reference (``ap.error`` and its ``SystemExit``s)
-  with the same exit code and message; ``--tp 2`` refused naming the
-  tensor-parallel slice; the encoder-decoder and vision-language families
+  with the same exit code and message, ``--tp 2`` with probes or the
+  server and speculative decoding among them; the encoder-decoder and
+  vision-language families
   (whisper-small, qwen2-vl-7b) and the recurrent families (rwkv6-7b,
   zamba2-2.7b) built and refused by ``ServeEngine`` with the reference's
   message;
@@ -279,19 +280,18 @@ def test_refusals_match_reference(flags, ref_params, monkeypatch):
     assert want[0] in (1, 2) and want[1]
 
 
-def test_tp_refused_naming_the_tp_slice():
-    """``--tp`` serves the dense and moe families on the contiguous and
-    paged caches; the request server and the probes are refused, each
-    naming the later tensor-parallel slice it waits for."""
-    for argv, what in (
-            (REDUCED + ["--tp", "2", "--server", "--paged"],
-             "--tp 2 with --server: the scheduler, fleet and probes"),
-            (REDUCED + ["--tp", "2", "--probes"],
-             "--tp 2 with --probes: the scheduler, fleet and probes")):
-        code, msg = _refusal(lambda: TS.main(argv + ["--device", "cpu"]))
-        assert code == 2
-        assert msg.startswith(what)
-        assert msg.endswith("comes with a later tensor-parallel slice")
+def test_tp_refused_naming_the_tp_slice(ref_params, monkeypatch):
+    """``--tp`` serves everything the reference serves under a mesh, the
+    request server and the probes included; with ``--tp 2`` the port
+    refuses what the reference refuses, with its exit code and message:
+    probes and the request server with speculative decoding."""
+    for flags in ("--tp 2 --probes --spec-draft ngram",
+                  "--tp 2 --server --paged --spec-draft ngram"):
+        argv = REDUCED + flags.split()
+        want = _refusal(lambda: run_reference(argv))
+        got = _refusal(lambda: run_port(argv, monkeypatch, ref_params))
+        assert got == want
+        assert want[0] == 2 and "spec" in want[1]
 
 
 def test_non_dense_arch_refused_by_build():

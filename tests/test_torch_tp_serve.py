@@ -836,21 +836,41 @@ def test_mesh_checks_match_reference(tiny, mesh_shape, kw):
 @pytest.mark.parametrize("what", ["sched_state", "paged_probes", "probes",
                                   "model_draft"])
 def test_later_slices_refused_under_a_mesh(tiny, what):
+    """Under a mesh the engine refuses only what the reference refuses,
+    with its exception and text (which no mesh changes): the step-level
+    API on a speculative engine (n-gram, and a model draft) and probes
+    with speculative decoding (contiguous and paged)."""
+    from repro.models.model_zoo import build
+    from repro.serving import ServeEngine, SpecConfig
+
     mesh = Mesh({"data": 1, "model": 2}, {"data": 0, "model": 0})
-    cfg = tiny_cfg(TC.get("qwen3-1.7b"))
-    params = tiny["trees"]["p"]
-    kw = {"paged_probes": dict(paged=True, probes=True),
-          "probes": dict(probes=True),
-          "model_draft": dict(spec=TSpec(draft="model", k=K,
-                                         draft_params=params,
-                                         draft_backend="dense"))
-          }.get(what, {})
-    with pytest.raises(NotImplementedError,
-                       match="later tensor-parallel slice"):
-        e = TEngine(tbuild(cfg), params, max_len=64, device="cpu", mesh=mesh,
-                    **kw)
-        if what == "sched_state":
-            e.sched_state()
+    draft = what == "model_draft"
+
+    def kw(params, spec_cls):
+        spec = spec_cls(draft="model", k=K, draft_params=params,
+                        draft_backend="dense") if draft \
+            else spec_cls(draft="ngram", k=K)
+        return {"sched_state": dict(spec=spec),
+                "paged_probes": dict(spec=spec, paged=True, page_size=8,
+                                     probes=True),
+                "probes": dict(spec=spec, probes=True),
+                "model_draft": dict(spec=spec)}[what]
+
+    def refusal(make):
+        with pytest.raises(NotImplementedError) as e:
+            eng = make()
+            if what in ("sched_state", "model_draft"):
+                eng.sched_state()
+        return str(e.value)
+
+    want = refusal(lambda: ServeEngine(build(tiny["cfg"]), tiny["params"],
+                                       max_len=64,
+                                       **kw(tiny["params"], SpecConfig)))
+    got = refusal(lambda: TEngine(tbuild(tiny_cfg(TC.get("qwen3-1.7b"))),
+                                  tiny["trees"]["p"], max_len=64,
+                                  device="cpu", mesh=mesh,
+                                  **kw(tiny["trees"]["p"], TSpec)))
+    assert got == want
 
 
 # --- the launcher -------------------------------------------------------------------
